@@ -3,8 +3,10 @@
 //
 // Replaces the two Pallas backward kernels of bmt_tpu/ops/pallas_attention.py,
 // both launched by `_flash_attention_tiled_bwd`:
-//   flash_attn_bwd_dq_kernel  <- `_dq_kernel`  (:351-389, pallas_call :473)
-//   flash_attn_bwd_dkv_kernel <- `_dkv_kernel` (:392-431, pallas_call :498)
+//   flash_attn_bwd_dq_kernel (fp32), tc::flash_attn_bwd_dq_bf16_kernel
+//       <- `_dq_kernel`  (:351-389, pallas_call :473)
+//   flash_attn_bwd_dkv_kernel (fp32), tc::flash_attn_bwd_dkv_bf16_kernel
+//       <- `_dkv_kernel` (:392-431, pallas_call :498)
 // and the XLA recompute of the single-block custom VJP (`_fa_bwd`, :558-581),
 // which computes the same gradient.
 //
@@ -24,54 +26,70 @@
 //
 // Design. No atomics: as in the JAX design, dQ and dK/dV are two kernels, so
 // every gradient element is summed by one thread in one fixed order and the
-// gradients are deterministic run to run. The input's dtype picks the dK/dV
-// kernel (fp32 FMA, or bf16 on tensor cores); dQ is one kernel for both.
+// gradients are deterministic run to run. The input's dtype picks each
+// kernel: fp32 FMA for float32, tensor cores for bfloat16.
 // - dQ: one thread block per (query tile of BQ rows, head, batch). It keeps
 //   its Q and dO tiles in shared memory and loops over key tiles of BK rows,
-//   rebuilding P and dS per tile; dQ accumulates in registers (2 rows x d/16
-//   columns a thread, as the forward's output). With `causal`, key tiles
-//   wholly above the diagonal are never loaded.
+//   rebuilding P and dS per tile; dQ accumulates in registers (fp32: 2 rows x
+//   d/16 columns a thread, as the forward's output; bf16: below). With
+//   `causal`, key tiles wholly above the diagonal are never loaded.
 // - dK/dV: one block per (key tile of BK rows, head, batch). It keeps its K
 //   and V tiles in shared memory and loops over query tiles; dK and dV
 //   accumulate in registers for the block's life (fp32: 2 key rows x d/16
-//   columns each, 64 fp32 a thread; bf16: below). With `causal`, query tiles that end before the
-//   key tile starts (q0 + BQ - 1 < k0) are skipped. The sequential grid axis
-//   that carried the Pallas accumulators in VMEM becomes this in-block loop;
-//   nothing crosses blocks.
+//   columns each, 64 fp32 a thread; bf16: below). With `causal`, query
+//   tiles that end before the key tile starts (q0 + BQ - 1 < k0) are
+//   skipped. The sequential grid axis that carried the Pallas accumulators
+//   in VMEM becomes this in-block loop; nothing crosses blocks.
 // Ragged edges: key rows >= Sk load as 0 and are masked, query rows >= Sq
 // load as 0 and get P = 0 (not relying on dO = 0 there), and gradient rows
 // past Sq or Sk are not stored.
 //
 // What bounds them on this card, and what the design does about it.
-// - dQ (bf16 and fp32) and dK/dV in fp32 run every product as fp32 FMA from
-//   shared-memory tiles. Each (query tile, key tile) pair costs 2 BQ BK d
-//   FMAs for S and dO v^T, plus BQ BK d (dQ) or 2 BQ BK d (dK, dV), and the
-//   S / dO v^T loop issues one shared-memory load per FMA, so they are bound
-//   by shared-memory bandwidth and, at one block per SM, by latency. At
-//   d = 256 a dQ block holds Q, dO, K and V tiles of 32 x 257 fp32 plus the
-//   dS tile: 136,192 bytes of dynamic shared memory; a dK/dV block adds a P
-//   tile: 140,416 bytes. Either allows one block (8 warps) per SM. ptxas -v
-//   (sm_90a, CUDA 12.8): dQ 104 (fp32) / 105 (bf16), dK/dV 137 registers, no
-//   spills. dQ in bf16 on tensor cores is the next kernel to redesign.
-// - dK/dV in bf16 runs on tensor cores. Its call moves 170 FLOP per byte
-//   at d = 256, under the H100's 295, so HBM bounds it (101.0 MB, 0.0301 ms
-//   at the train cell's B=32, S=256 call), but mma.sync feeds the tensor
-//   cores through registers, so shared-memory fragment traffic and issue
-//   slots are what it spends its time on. The design: a block owns BK = 64
-//   key rows and loops over query tiles of BQ = 64 rows; its 8 warps each
-//   own 16 key rows and compute S^T = K Q^T and dP^T = V dO^T for half of
-//   the tile's query columns, write P^T and dS^T (bf16) to shared memory,
-//   and then dV += P^T dO and dK += dS^T Q for half of the head dim, so the
-//   2 x 64 x DP fp32 accumulators are spread at DP / 2 a thread (128 at
-//   DP = 256). All four products are mma.sync m16n8k16 (bf16 in, fp32
-//   accumulators), fragments by ldmatrix (.trans for dO and Q in the second
-//   pair) from tiles with 16-byte row padding (no bank conflicts); K and V
-//   are loaded once; Q, dO, lse and D arrive by cp.async into a ring of two
-//   stages, so tile t + 1 loads while tile t computes. The head dim is
-//   padded to DP = 64 or 256 as in the forward. ptxas -v: 240 registers at
-//   DP = 256 (150 at 64), no spills; 222,464
-//   bytes of dynamic shared memory (K, V, two stages of Q and dO, P^T,
-//   dS^T), one block per SM. Measured in PERF.md.
+// - In fp32 both run every product as fp32 FMA from shared-memory tiles.
+//   Each (query tile, key tile) pair costs 2 BQ BK d FMAs for S and dO v^T,
+//   plus BQ BK d (dQ) or 2 BQ BK d (dK, dV), and the S / dO v^T loop issues
+//   one shared-memory load per FMA, so they are bound by shared-memory
+//   bandwidth and, at one block per SM, by latency. At d = 256 a dQ block
+//   holds Q, dO, K and V tiles of 32 x 257 fp32 plus the dS tile: 136,192
+//   bytes of dynamic shared memory; a dK/dV block adds a P tile: 140,416
+//   bytes. Either allows one block (8 warps) per SM. ptxas -v (sm_90a,
+//   CUDA 12.8): dQ 104, dK/dV 137 registers, no spills. They serve fp32
+//   callers (the parity checks), not the bf16 train path.
+// - In bf16 both run on tensor cores, with mma.sync m16n8k16 (bf16 in, fp32
+//   accumulators) for every product, fragments by ldmatrix from tiles with
+//   16-byte row padding (no bank conflicts, mma_bf16.cuh) and the head dim
+//   padded to DP = 64 or 256 as in the forward. Their calls move 128-170
+//   FLOP per byte at d = 256, under the H100's 295, so HBM bounds them
+//   (dQ 84.2 MB, 0.0251 ms; dK/dV 101.0 MB, 0.0301 ms at the train cell's
+//   B=32, S=256 call), but mma.sync feeds the tensor cores through
+//   registers, so shared-memory fragment traffic and issue slots are what
+//   they spend their time on. Measured in PERF.md.
+// - dQ in bf16: a block owns DQ_BQ = 128 query rows and loops over key
+//   tiles of DQ_BK = 32 rows, which arrive with their key validity by
+//   cp.async into a ring of two stages, so tile t + 1 loads while tile t
+//   computes; Q and dO are loaded once. Its 16 warps each own 16 query
+//   rows with a partner warp; per key tile a warp computes S = Q K^T and
+//   dP = dO V^T for half of the tile's key columns, writes dS (bf16, the
+//   Pallas cast point) to a 128 x 32 shared tile, and after a barrier
+//   dQ += dS K for half of the head dim, with dS read by ldmatrix and K by
+//   ldmatrix .trans (K as stored: rows = keys = the product's k). The
+//   128 x DP fp32 accumulator is spread at DP / 4 a thread (64 at
+//   DP = 256). ptxas -v: 128 registers at DP = 256 (98 at 64), no spills;
+//   213,248 bytes of dynamic shared memory (Q, dO, two stages of K and V,
+//   dS), one block of 16 warps per SM. The 16 warps hide more of the
+//   ldmatrix -> mma latency, which is what the mma.sync kernels here wait
+//   on, than 8 warps over 64 x 64 tiles (178 registers) did: PERF.md.
+// - dK/dV in bf16, the same roles with keys and queries swapped: a block
+//   owns BK = 64 key rows and loops over query tiles of BQ = 64 rows, which
+//   arrive with their lse and D in a two-stage cp.async ring (K and V are
+//   loaded once); its 8 warps each own 16 key rows and compute
+//   S^T = K Q^T and dP^T = V dO^T for half of the tile's query columns,
+//   write P^T and dS^T (bf16) to shared memory, and then dV += P^T dO and
+//   dK += dS^T Q for half of the head dim (dO and Q by ldmatrix .trans), so
+//   the 2 x 64 x DP fp32 accumulators are spread at DP / 2 a thread (128 at
+//   DP = 256). ptxas -v: 240 registers at DP = 256 (150 at 64), no spills;
+//   222,464 bytes of dynamic shared memory (K, V, two stages of Q and dO,
+//   P^T, dS^T), one block per SM.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v (bmt_tpu_torch/ops/_build.py). No
@@ -92,18 +110,13 @@ constexpr int THREADS = 256;         // 16 x 16 threads
 constexpr int MAX_D = 256;
 constexpr int COLS = MAX_D / 16;     // accumulator columns per thread and row
 
+// The FMA kernels below are instantiated for T = float only (bf16 runs on
+// the tensor-core kernels in namespace tc)
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // x rounded to T and read back as fp32: the Pallas kernels' cast points
@@ -399,6 +412,14 @@ constexpr int BK = 64;               // key rows per block
 constexpr int BQ = 64;               // query rows per tile
 constexpr int THREADS = 256;         // 8 warps: 4 key-row groups x 2 halves
 constexpr int LP = pad_row(BQ);      // row stride of the P^T and dS^T tiles
+constexpr float LOG2E = 1.44269504088896341f;
+// dQ: query rows per block, key rows per tile, and two warps for every 16
+// query rows (each takes half of the key tile and half of the head dim);
+// the fastest of the tile shapes measured (PERF.md)
+constexpr int DQ_BQ = 128;
+constexpr int DQ_BK = 32;
+constexpr int DQ_THREADS = DQ_BQ / 16 * 2 * 32;
+constexpr int LS = pad_row(DQ_BK);   // row stride of dQ's dS tile
 
 // K and V tiles, two stages of Q and dO tiles (head dim padded to DP), the
 // P^T and dS^T tiles, two stages of the query tile's lse and D, and the
@@ -475,7 +496,6 @@ flash_attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   const int km = (warp & 3) * 16;
   const int qn = (warp >> 2) * 32;
   const int dn = (warp >> 2) * (DP / 2);
-  constexpr float LOG2E = 1.44269504088896341f;
   const float scale2 = scale * LOG2E;
   float dk_acc[NH][4], dv_acc[NH][4];
 #pragma unroll
@@ -622,6 +642,234 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// dQ in bf16: tensor cores, the same building blocks
+// ---------------------------------------------------------------------------
+
+// Q and dO tiles (loaded once), two stages of K and V tiles and of their key
+// validity, and the dS tile
+template <int DP> constexpr size_t dq_smem_bytes() {
+  return (size_t)(2 * DQ_BQ + 4 * DQ_BK) * pad_row(DP) * sizeof(bf16) +
+         DQ_BQ * LS * sizeof(bf16) + 2 * DQ_BK * sizeof(int32_t);
+}
+
+// DP: the head dim the tiles are padded to (64 or 256, >= d); the padded
+// columns load as 0 and are not stored
+template <int DP>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const int32_t* __restrict__ key_mask,
+                              const bf16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ drow,
+                              bf16* __restrict__ dq, int H, int Sq, int Sk,
+                              int d, int causal, float scale) {
+  constexpr int LD = pad_row(DP);
+  constexpr int NH = DP / 16;        // 8-wide column tiles in half of DP
+  constexpr int RG = DQ_BQ / 16;     // 16-row groups of the query tile
+  constexpr int NJ = DQ_BK / 32;     // 16-key column pairs a warp takes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // DQ_BQ x LD
+  bf16* dOs = Qs + DQ_BQ * LD;                    // DQ_BQ x LD
+  bf16* Ks = dOs + DQ_BQ * LD;                    // 2 x DQ_BK x LD
+  bf16* Vs = Ks + 2 * DQ_BK * LD;                 // 2 x DQ_BK x LD
+  bf16* dSs = Vs + 2 * DQ_BK * LD;                // DQ_BQ x LS: dS
+  int32_t* valid_s =
+      reinterpret_cast<int32_t*>(dSs + DQ_BQ * LS);   // 2 x DQ_BK
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int group = lane >> 2, tig = lane & 3;
+  const int q0 = blockIdx.x * DQ_BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const bf16* kb = k + bh * Sk * d;
+  const bf16* vb = v + bh * Sk * d;
+  const int32_t* mb = key_mask + (size_t)b * Sk;
+
+  int n_tiles = (Sk + DQ_BK - 1) / DQ_BK;
+  // causal: the tile's last valid row sees keys up to itself
+  if (causal) n_tiles = min(n_tiles, (min(q0 + DQ_BQ, Sq) - 1) / DQ_BK + 1);
+
+  // key tile t into stage t & 1: K, V rows (0 past Sk) and key validity
+  auto load_kv = [&](int t) {
+    const int k0 = t * DQ_BK, st = t & 1;
+    load_rows_async<DP, DQ_THREADS>(Ks + st * DQ_BK * LD, kb, k0, DQ_BK, Sk,
+                                    d, tid);
+    load_rows_async<DP, DQ_THREADS>(Vs + st * DQ_BK * LD, vb, k0, DQ_BK, Sk,
+                                    d, tid);
+    if (tid < DQ_BK) {
+      const bool in = k0 + tid < Sk;
+      cp_async4(valid_s + st * DQ_BK + tid, in ? mb + k0 + tid : mb, in);
+    }
+  };
+  load_rows_async<DP, DQ_THREADS>(Qs, q + bh * Sq * d, q0, DQ_BQ, Sq, d, tid);
+  load_rows_async<DP, DQ_THREADS>(dOs, dout + bh * Sq * d, q0, DQ_BQ, Sq, d,
+                                  tid);
+  load_kv(0);
+  cp_async_commit();
+
+  // warp roles: query rows mq..mq+15 of the tile throughout; key columns
+  // kn..kn+DQ_BK/2-1 of each key tile for S and dP; head-dim columns
+  // dn..dn+DP/2-1 for dQ (each thread holds NH x 4 = DP/4 fp32 accumulators)
+  const int mq = warp % RG * 16;
+  const int kn = warp / RG * (DQ_BK / 2);
+  const int dn = warp / RG * (DP / 2);
+  const float scale2 = scale * LOG2E;
+  // this thread's two query rows (those of its C fragments), their lse in
+  // base-2 units and their D; rows past Sq read nothing and are masked
+  int row[2];
+  float lse2[2], D[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    row[hf] = q0 + mq + group + 8 * hf;
+    const bool in = row[hf] < Sq;
+    lse2[hf] = in ? lse[bh * Sq + row[hf]] * LOG2E : -INFINITY;
+    D[hf] = in ? drow[bh * Sq + row[hf]] : 0.f;
+  }
+  // warp-uniform: false when the warp's rows all lie past Sq (decoder
+  // calls have Sq = 21 in a 128-row tile); such a warp skips its products
+  // but takes part in every barrier
+  const bool rows_live = q0 + mq < Sq;
+  float acc[NH][4];
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // two barriers a tile: after this one, tile t has landed and every warp
+  // is done with tile t - 1, so its stage (which tile t + 1 takes) and the
+  // dS tile are free
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();                    // Q, dO and tile t have landed
+    __syncthreads();
+    if (t + 1 < n_tiles) load_kv(t + 1);   // overlaps this tile
+    cp_async_commit();
+    const int k0 = t * DQ_BK;
+    const bf16* Kt = Ks + (t & 1) * DQ_BK * LD;
+    const bf16* Vt = Vs + (t & 1) * DQ_BK * LD;
+    const int32_t* vt = valid_s + (t & 1) * DQ_BK;
+
+    // S = Q K^T and dP = dO V^T: 16 query rows x DQ_BK/2 key columns. Warp-
+    // uniform skip when the rows all lie past Sq or (causal) every key
+    // column lies after every row; s and dp stay 0 and the mask below
+    // gives P = dS = 0
+    const bool live =
+        rows_live && !(causal && k0 + kn > q0 + mq + 15);
+    float s[2 * NJ][4], dp[2 * NJ][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    if (live) {
+      // every fragment of step kk is loaded before its products, so only
+      // the first mma of a step can wait on an ldmatrix (in-order issue)
+#pragma unroll
+      for (int kk = 0; kk < DP; kk += 16) {
+        uint32_t aq[4], ao[4], bk[NJ][4], bv[NJ][4];
+        ldmatrix_x4(aq, frag_a(Qs, LD, mq, kk, lane));
+        ldmatrix_x4(ao, frag_a(dOs, LD, mq, kk, lane));
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          ldmatrix_x4(bk[j], frag_b_nk(Kt, LD, kn + j * 16, kk, lane));
+          ldmatrix_x4(bv[j], frag_b_nk(Vt, LD, kn + j * 16, kk, lane));
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          mma(s[2 * j], aq, bk[j][0], bk[j][1]);
+          mma(s[2 * j + 1], aq, bk[j][2], bk[j][3]);
+          mma(dp[2 * j], ao, bv[j][0], bv[j][1]);
+          mma(dp[2 * j + 1], ao, bv[j][2], bv[j][3]);
+        }
+      }
+    }
+    // P = valid ? exp(S scale - lse) : 0 (never exp then mask), as
+    // 2^(S scale log2(e) - lse log2(e)) with one exp2f, and
+    // dS = P (dP - D) scale, rounded to bf16 into shared memory (the Pallas
+    // cast point): element e of s[j] is query row mq + group + 8 (e / 2),
+    // key column kn + j 8 + 2 tig + e % 2
+#pragma unroll
+    for (int j = 0; j < 2 * NJ; ++j) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int ql = mq + group + 8 * hf;
+        const int kl = kn + j * 8 + 2 * tig;
+        float ds[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const bool ok = live && vt[kl + u] != 0 && row[hf] < Sq &&
+                          (!causal || k0 + kl + u <= row[hf]);
+          const float p =
+              ok ? exp2f(s[j][2 * hf + u] * scale2 - lse2[hf]) : 0.f;
+          ds[u] = ok ? p * (dp[j][2 * hf + u] - D[hf]) * scale : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(dSs + ql * LS + kl) = pack(ds[0], ds[1]);
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K: 16 query rows x DP/2 columns, K read as it is stored
+    // (rows = keys, the product's k) by ldmatrix .trans; its fragments are
+    // loaded one column pair ahead of their products. Warp-uniform skip
+    // when (causal) every key of the tile lies after the warp's rows: their
+    // dS is 0
+    if (rows_live && !(causal && k0 > q0 + mq + 15)) {
+      constexpr int NP = NH / 2;           // column-tile pairs
+      uint32_t fk[2][4];
+      ldmatrix_x4_trans(fk[0], frag_b_kn(Kt, LD, dn, 0, lane));
+#pragma unroll
+      for (int kk = 0; kk < DQ_BK; kk += 16) {
+        uint32_t a[4];
+        ldmatrix_x4(a, frag_a(dSs, LS, mq, kk, lane));
+#pragma unroll
+        for (int np = 0; np < NP; ++np) {
+          const int i = kk / 16 * NP + np, cur = i & 1;
+          if (i + 1 < DQ_BK / 16 * NP) {
+            const int nc = dn + (i + 1) % NP * 16, nk = (i + 1) / NP * 16;
+            ldmatrix_x4_trans(fk[cur ^ 1], frag_b_kn(Kt, LD, nc, nk, lane));
+          }
+          mma(acc[2 * np], a, fk[cur][0], fk[cur][1]);
+          mma(acc[2 * np + 1], a, fk[cur][2], fk[cur][3]);
+        }
+      }
+    }
+  }
+
+  bf16* gq = dq + bh * Sq * d;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (row[hf] >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < NH; ++n) {
+      const int c = dn + n * 8 + 2 * tig;
+      if (c >= d) continue;
+      *reinterpret_cast<uint32_t*>(gq + (size_t)row[hf] * d + c) =
+          pack(acc[n][2 * hf], acc[n][2 * hf + 1]);
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* key_mask, const void* dout, const void* lse,
+                      const void* drow, void* dq, int B, int H, int Sq, int Sk,
+                      int d, int causal, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attn_bwd_dq_bf16_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + DQ_BQ - 1) / DQ_BQ, H, B);
+  flash_attn_bwd_dq_bf16_kernel<DP><<<grid, DQ_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const int32_t*>(key_mask),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(drow), static_cast<bf16*>(dq), H, Sq, Sk, d,
+      causal, 1.0f / sqrtf((float)d));
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 bool bad_shape(int B, int H, int Sq, int Sk, int d) {
@@ -685,11 +933,14 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  int causal, int is_bf16, void* stream) {
   if (bad_shape(B, H, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)launch_dq<__nv_bfloat16>(q, k, v, key_mask, dout, lse, drow,
-                                         dq, B, H, Sq, Sk, d, causal, s);
-  return (int)launch_dq<float>(q, k, v, key_mask, dout, lse, drow, dq, B, H,
-                               Sq, Sk, d, causal, s);
+  if (!is_bf16)
+    return (int)launch_dq<float>(q, k, v, key_mask, dout, lse, drow, dq, B, H,
+                                 Sq, Sk, d, causal, s);
+  if (d <= 64)
+    return (int)tc::launch_dq<64>(q, k, v, key_mask, dout, lse, drow, dq, B,
+                                  H, Sq, Sk, d, causal, s);
+  return (int)tc::launch_dq<256>(q, k, v, key_mask, dout, lse, drow, dq, B, H,
+                                 Sq, Sk, d, causal, s);
 }
 
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,

@@ -8,9 +8,12 @@ nothing of JAX. Phases, each of which stops the script with a non-zero exit
 when it fails:
 
 1. the device: torch's name for it and nvidia-smi's name and power limit;
-2. build the three CUDA kernels from bmt_tpu_torch/csrc/ (one nvcc per
-   source, started together; timed), print what ptxas reports and fail if
-   any kernel spills registers;
+2. build the CUDA kernels from bmt_tpu_torch/csrc/ (one nvcc per source,
+   started together; timed): the forward, dQ and dK/dV, each as an fp32
+   FMA kernel and a bf16 tensor-core kernel (flash_attn_fwd_bf16_kernel,
+   flash_attn_bwd_dq_bf16_kernel, flash_attn_bwd_dkv_bf16_kernel, each at
+   head dims padded to 64 and 256); print what ptxas reports for each and
+   fail if one is missing or any kernel spills registers;
 3. the forward kernel against its plain PyTorch version on the card, in
    fp32 and bf16, at the serving shapes and at Sq = Sk = 2048, with random
    padded key masks and one batch row whose keys are all masked (NaN in
@@ -19,7 +22,9 @@ when it fails:
    against flash_attention_lse_reference and dQ, dK, dV against their plain
    versions on the same inputs, at the train cell's seven attention shapes
    (B=32, H=4, d=256) and at S=2048 plain and causal; the batch row with
-   every key masked has lse -inf and exactly zero gradients in both;
+   every key masked has lse -inf and exactly zero gradients in both; the
+   bf16 dQ of the 256x256 call is bitwise equal across two launches (no
+   atomics);
 5. serving: a flagship-width BiModalTransformer made from a seed on the card,
    round-tripped through the JAX-layout npz, answers five crops of ragged
    lengths in two buckets through CaptionEngine (bf16); the forward kernel's
@@ -56,6 +61,7 @@ The line before the last is the kernel report as JSON; the last line is
 '''
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -90,6 +96,12 @@ from bmt_tpu_torch.train import (build_optimizer, init_train_state,
 SOURCES = {KERNEL: 'bmt_tpu_torch/csrc/flash_attn_fwd.cu',
            KERNEL_DQ: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu',
            KERNEL_DKV: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu'}
+# the kernels each library holds: fp32 FMA and bf16 tensor cores
+ENTRIES = {KERNEL: ('flash_attn_fwd_kernel', 'flash_attn_fwd_bf16_kernel'),
+           BWD_LIBRARY: ('flash_attn_bwd_dq_kernel',
+                         'flash_attn_bwd_dq_bf16_kernel',
+                         'flash_attn_bwd_dkv_kernel',
+                         'flash_attn_bwd_dkv_bf16_kernel')}
 REPLACES = {KERNEL: 'bmt_tpu/ops/pallas_attention.py:237',  # and :278
             KERNEL_DQ: 'bmt_tpu/ops/pallas_attention.py:473',
             KERNEL_DKV: 'bmt_tpu/ops/pallas_attention.py:498'}
@@ -172,6 +184,20 @@ def device_line():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def kernel_name(line):
+    '''The kernel and template argument of a ptxas "Compiling entry" line:
+    ..tc29flash_attn_bwd_dq_bf16_kernelILi256EEEv.. ->
+    flash_attn_bwd_dq_bf16_kernel<256>. The mangled name's length prefix
+    tells the kernel from the anonymous namespace, which holds the source's
+    file name.'''
+    m = re.search(r'\d+(flash_attn_\w*?_kernel)(?:ILi(\d+)EE|I(f)EE)?',
+                  line)
+    if m is None:
+        return line.strip()
+    arg = m.group(2) or (m.group(3) and 'float')
+    return f'{m.group(1)}<{arg}>' if arg else m.group(1)
 
 
 def cuda_ms(fn, iters):
@@ -315,6 +341,12 @@ def phase_train_kernels(dev):
                     f'Sk={case[4]} causal={case[6]}: out {e_out:.2e} '
                     f'lse {e_lse:.2e}']
             oks = [ok_out, ok_lse]
+            if dtype == torch.bfloat16 and i == 0:     # the 256x256 call
+                again = flash_attention_bwd_dq(q, k, v, km, causal, lse,
+                                               drow, dout)
+                check(torch.equal(dq, again), f'{case[0]} bf16: dQ differs '
+                      f'between two launches on the same inputs')
+                line.append('dq bitwise equal in 2 launches')
             for name, got, want in (('dq', dq, ref_dq), ('dk', dk, ref_dk),
                                     ('dv', dv, ref_dv)):
                 check(not got.isnan().any() and not want.isnan().any(),
@@ -612,14 +644,20 @@ def main():
         list(pool.map(load_library, (KERNEL, BWD_LIBRARY)))
     print(f'[2] kernels {sorted(set(SOURCES.values()))} built and loaded in '
           f'{time.perf_counter() - t0:.2f} s; ptxas:')
-    for lib in (KERNEL, BWD_LIBRARY):
+    for lib, want in ENTRIES.items():
+        built = set()
         for line in ptxas_report(lib).splitlines():
-            if 'Compiling entry' in line or 'registers' in line \
-                    or 'spill' in line:
-                print(f'    {line.strip()}')
+            if 'Compiling entry' in line:
+                entry = kernel_name(line)
+                built.add(entry.split('<')[0])
+                print(f'    {entry}:')
+            elif 'registers' in line or 'spill' in line:
+                print(f'      {line.strip()}')
             if 'spill' in line:
                 check(' 0 bytes spill stores, 0 bytes spill loads' in line,
                       f'{lib}: a kernel spills registers: {line.strip()}')
+        check(set(want) <= built, f'{lib}: ptxas compiled {sorted(built)}, '
+              f'not all of {want}')
 
     print('[3] forward kernel vs plain PyTorch on the card:')
     max_err, worst = phase_kernel(dev)
@@ -776,7 +814,7 @@ def main():
         'library_ms': t['library'], 'library_call': LIBRARY_CALL[kname]}
         for kname, err, t in report]}))
     print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': name,
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
 
 

@@ -138,15 +138,16 @@ def test_training_kernels_match_plain_on_card(cuda, dtype, shape, kind):
     ((2, 4, 129, 70, 256), 'padding'), ((2, 4, 129, 129, 256), 'causal'),
     ((2, 2, 2048, 2048, 256), 'padding'), ((2, 2, 2048, 2048, 256), 'causal')])
 def test_bf16_tensor_core_kernels_match_plain_on_card(cuda, shape, kind):
-    '''The bf16 tensor-core forward (with lse) and dK/dV at head dims that
-    are and are not multiples of 16 (8, 24, 72: zero-padded to the 64- or
-    256-column tile in shared memory), query and key lengths that cut the
-    32- and 64-row tiles (33, 70, 129) and S = 2048; the last batch row has
-    every key masked, so its output is NaN, its lse -inf and its dK, dV
-    0.'''
+    '''The bf16 tensor-core forward (with lse), dQ and dK/dV at head dims
+    that are and are not multiples of 16 (8, 24, 72: zero-padded to the 64-
+    or 256-column tile in shared memory), query and key lengths that cut the
+    32-, 64- and 128-row tiles (33, 70, 129) and S = 2048; the last batch row has
+    every key masked, so its output is NaN, its lse -inf and its dQ, dK, dV
+    exactly 0.'''
     q, k, v, dout, km, causal = _inputs(cuda, torch.bfloat16, shape, kind)
     out, lse = flash_attention_forward(q, k, v, km, causal, with_lse=True)
     drow = row_dot(out, dout)
+    dq = flash_attention_bwd_dq(q, k, v, km, causal, lse, drow, dout)
     dk, dv = flash_attention_bwd_dkv(q, k, v, km, causal, lse, drow, dout)
     torch.cuda.synchronize()
     ref_out, ref_lse = flash_attention_lse_reference(q, k, v, km, causal)
@@ -160,14 +161,34 @@ def test_bf16_tensor_core_kernels_match_plain_on_card(cuda, shape, kind):
     torch.testing.assert_close(lse.nan_to_num(neginf=0.0),
                                ref_lse.nan_to_num(neginf=0.0),
                                atol=LSE_TOL[0], rtol=LSE_TOL[1])
+    ref_dq = flash_attention_bwd_dq_reference(q, k, v, km, causal, lse, drow,
+                                              dout)
     ref_dk, ref_dv = flash_attention_bwd_dkv_reference(q, k, v, km, causal,
                                                        lse, drow, dout)
     atol, rtol = BWD_TOL[torch.bfloat16]
-    for got, want in ((dk, ref_dk), (dv, ref_dv)):
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         assert got.dtype == torch.bfloat16 and not got.isnan().any()
         assert (got[-1] == 0).all() and (want[-1] == 0).all()
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=rtol)
+
+
+@pytest.mark.parametrize('shape,kind', [
+    ((2, 4, 256, 256, 256), 'padding'), ((2, 2, 129, 129, 64), 'causal')])
+def test_bf16_dq_kernel_is_deterministic_on_card(cuda, shape, kind):
+    '''No atomics: one block owns a query tile and sums over the key tiles
+    in one fixed order, so two launches on the same inputs give the same
+    bits.'''
+    q, k, v, dout, km, causal = _inputs(cuda, torch.bfloat16, shape, kind)
+    out, lse = flash_attention_forward(q, k, v, km, causal, with_lse=True)
+    drow = row_dot(out, dout)
+    before = flash_attention_bwd_dq.launches
+    first, second = (flash_attention_bwd_dq(q, k, v, km, causal, lse, drow,
+                                            dout) for _ in range(2))
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq.launches == before + 2
+    assert torch.equal(first, second)
+    assert first.abs().max() > 0
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -185,6 +206,8 @@ def test_kernels_refuse_unaligned_tensors_on_card(cuda, dtype):
         flash_attention(bad, good, good, None)
     with pytest.raises(ValueError, match='16-byte'):
         flash_attention(good, good, bad, None)
+    with pytest.raises(ValueError, match='16-byte'):
+        flash_attention_bwd_dq(good, bad, good, km, False, rows, rows, good)
     with pytest.raises(ValueError, match='16-byte'):
         flash_attention_bwd_dkv(good, good, good, km, False, rows, rows, bad)
     assert launch_counts() == before

@@ -8,7 +8,9 @@ blocks, the last partial), causal with padding, and a batch row with every
 key masked.
 
 Tolerances (fp32): 1e-5 absolute on outputs and lse, 2e-5 on gradients of
-O(1): the same sums in another order over at most 300 keys. The CUDA
+O(1): the same sums in another order over at most 300 keys. The plain
+backward in bf16 is held to the tiled Pallas backward in bf16 within one
+bf16 ulp: the two round at the same points. The CUDA
 kernels are held to these plain versions in test_torch_port_cuda.py and
 chip_smoke.py, which need a card.'''
 import numpy as np
@@ -19,12 +21,15 @@ import jax
 import jax.numpy as jnp
 
 from bmt_tpu.ops.masks import subsequent_mask
-from bmt_tpu.ops.pallas_attention import _flash_attention_tiled
+from bmt_tpu.ops.pallas_attention import (_flash_attention_tiled,
+                                          _flash_attention_tiled_bwd)
 from bmt_tpu.ops.pallas_attention import flash_attention as j_flash_attention
 from bmt_tpu_torch.ops.flash_attention import (
     FlashAttention, flash_attention, flash_attention_backward_reference,
-    flash_attention_bwd_dkv, flash_attention_bwd_dq,
-    flash_attention_lse_reference, key_mask_and_causal, launch_counts)
+    flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
+    flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
+    flash_attention_lse_reference, key_mask_and_causal, launch_counts,
+    row_dot)
 from tests.torch_port_util import assert_close_nan
 
 ATOL, GRAD_ATOL = 1e-5, 2e-5
@@ -99,6 +104,45 @@ def test_backward_matches_jax_vjp(kind, block_k):
                                    err_msg=f'd{name}')
     if kind == 'empty_row':
         assert all(float(g[0].abs().max()) == 0.0 for g in got)
+
+
+@pytest.mark.parametrize('kind', CASES)
+def test_bf16_backward_references_match_tiled_pallas(kind):
+    '''bf16: the plain dQ and dK/dV, which the bf16 CUDA kernels are held to
+    on the card, against the tiled Pallas backward in interpret mode on the
+    same bf16 q, k, v, dO and the JAX forward's lse and out. Both round dS
+    to bf16 before dQ and dK, P before dV, and each gradient to bf16 at the
+    end. Tolerance: one bf16 ulp (2^-7 relative) over atol 1e-3, for the
+    sums of fp32 products taken in another order before the last
+    rounding.'''
+    q, k, v, dout, m = _case(kind, np.random.default_rng(4))
+    key_mask, causal = key_mask_and_causal(torch.from_numpy(m), q.shape[0],
+                                           k.shape[2], 'cpu')
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, dout))
+    jkm = jnp.asarray(key_mask.numpy())
+    jout, jlse = _flash_attention_tiled(jq, jk, jv, jkm, causal,
+                                        interpret=True, block_k=128,
+                                        with_lse=True)
+    want = _flash_attention_tiled_bwd(jq, jk, jv, jkm, jlse, jout, jdo,
+                                      causal, interpret=True, block_k=128)
+
+    def bf16(x):                       # exact: bf16 values are fp32 values
+        return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+    tq, tk, tv, tdo, tout = (bf16(x) for x in (jq, jk, jv, jdo, jout))
+    lse = torch.from_numpy(np.array(jlse)[..., 0])
+    drow = row_dot(tout, tdo)
+    dq = flash_attention_bwd_dq_reference(tq, tk, tv, key_mask, causal, lse,
+                                          drow, tdo)
+    dk, dv = flash_attention_bwd_dkv_reference(tq, tk, tv, key_mask, causal,
+                                               lse, drow, tdo)
+    for name, got, ref in zip(('dq', 'dk', 'dv'), (dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16 and not got.isnan().any(), name
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   rtol=2 ** -7, atol=1e-3, err_msg=name)
+    if kind == 'empty_row':
+        assert all(float(g[0].abs().max()) == 0.0 for g in (dq, dk, dv))
 
 
 @pytest.mark.parametrize('kind', ['sk300_padding', 'causal_padding'])
