@@ -26,7 +26,7 @@
 // whose max is still -inf gets correction 0 and p 0). With `causal`, key
 // tiles wholly above the diagonal are never loaded. Key rows >= Sk are
 // masked and their V rows are loaded as 0, so they never enter the sum.
-// The input's dtype picks one of two kernels of this design:
+// The input's dtype picks one of two tensor-core kernels of this design:
 //
 // bf16 (the serving and training path): tensor cores. What bounds it on
 // this card: the call moves 128 FLOP per byte at d = 256 against the H100's
@@ -52,12 +52,60 @@
 // and barriers. Measured in PERF.md; wgmma and TMA, the only route to the
 // card's full tensor-core rate, are later work.
 //
-// fp32 (the exact route of the fp32 parity checks): fp32 FMA. BQ = BK = 32,
-// 256 threads; each thread computes a 2x2 micro-tile of the logits (one
-// shared-memory load per FMA) and owns 2 rows x d/16 columns of the output
-// accumulator; rows of the K/V/Q tiles are padded by one float so the
-// column-wise reads of K hit 16 distinct banks; ~101 KB of shared memory at
-// d = 256, 128 registers, no spills. Bound by shared-memory bandwidth.
+// fp32 (the single-video app, whose checkpoints are fp32, and the fp32
+// parity checks): tensor cores in TF32, three products per product
+// ("3xTF32", csrc/mma_tf32.cuh), so the result is as accurate as fp32 FMA:
+// one TF32 product misses the fp32 tolerances (tests/test_torch_port_tf32.py).
+// What bounds it on this card: three m16n8k8 products per fp32 product make
+// the peak 495 / 3 = 165 TFLOP/s; the app's caption batch (B=100, H=4,
+// 512x512, d=256) moves 128 FLOP per byte against the 49 at which that
+// peak and HBM's 3.35 TB/s cross, so it is bound by operations (107.4
+// GFLOP, 0.651 ms), and so are the B=1 proposal calls but 300x300. Before
+// the tensor cores come the instructions around them: every operand is
+// split in registers when its fragment loads (hi = rna(x), lo = rna(x -
+// hi): five instructions for each value a warp reads). rna is two integer
+// instructions with the bits of cvt.rna.tf32.f32: cvt itself runs on the
+// conversion unit at 16 results a clock an SM, and with two a split it set
+// the kernel's time (PERF.md, section 6). The design, that of the bf16
+// kernel in fp32, with what registers allow:
+// - BQ = 64 query rows a block and BK = 32-key tiles, 8 warps: warp w takes
+//   rows 16 (w % 4) .. + 15 against keys 16 (w / 4) .. + 15 of every key
+//   tile, with its own online softmax state; at the end the second key
+//   half's warps hand (m, l, O) to the first half's through shared memory,
+//   which joins them as the split's combine does. The O accumulator is
+//   16 x 256 fp32 a warp (128 registers a thread), so a block of 4 warps,
+//   one a row slice, was the most that fit; that first design ran 1.25-1.6x
+//   slower with one warp for each of an SM's four schedulers.
+// - Q K^T: the A fragment of Q and the B fragments of K by ldmatrix.x4 on
+//   the fp32 tiles (one instruction fills four fp32 fragment registers),
+//   loaded one k-step ahead of their products; lo hi, hi lo and hi hi into
+//   three fp32 accumulators, so no mma waits on the one just before it,
+//   summed (lh + hl) + hh.
+// - P stays in registers and is not rounded (the Pallas kernel casts p to
+//   v's dtype, fp32 here): the S accumulator gives lane (group, tig) keys
+//   2 tig and 2 tig + 1, and the A fragment wants k = tig and tig + 4. P V
+//   sums over keys, so the k index is mapped to keys in that order on both
+//   sides: the B fragment's k = tig reads V's row 2 tig, k = tig + 4 row
+//   2 tig + 1 (scalar reads, free of bank conflicts at the padded stride).
+//   The products run in groups of four 8-column tiles of O, product by
+//   product.
+// - Rows padded by 4 floats (16 bytes). Q, K, V and the key validity arrive
+//   by 16- and 4-byte cp.async copies, K/V in a ring of two stages, so tile
+//   t + 1 loads while tile t computes.
+// - The softmax is the bf16 kernel's (fragments, quad shuffles, base-2
+//   units, no rescale while no row maximum grows).
+// - Head dim padded to DP = 64 or 256 as in bf16. At DP = 256 shared memory
+//   is 199,936 bytes (Q 66,560, each K or V stage 33,280): one block an SM.
+//   ptxas -v (sm_90a, CUDA 12.8): 244 registers (144 at DP = 64), no spills.
+// - Key split: B H ceil(Sq / 64) blocks fill 132 SMs only from B ~ 3 at the
+//   proposal shapes (B=1, H=4: 52 blocks at 800 query rows, 20 at 300). The
+//   wrapper (ops/flash_attention.py, `fp32_key_splits`) then splits each
+//   row's key loop over splits = min(key tiles, SMs // blocks) blocks,
+//   cut to ceil(tiles / ceil(tiles / splits)) so no split is empty, which
+//   makes at most one wave. Each split writes its (m, l, unnormalised O) to
+//   fp32 scratch that the wrapper allocates; flash_attn_fwd_combine_kernel
+//   weighs the partials by exp2(m_s - max m) in split order and writes out
+//   and lse. No atomics: the same bits in every run.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v (bmt_tpu_torch/ops/_build.py). No
@@ -69,193 +117,390 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 32;               // query rows per block
-constexpr int BK = 32;               // key rows per tile
-constexpr int THREADS = 256;         // 16 x 16 threads
 constexpr int MAX_D = 256;
-constexpr int COLS = MAX_D / 16;     // accumulator columns per thread and row
-constexpr int ROWS_PER_WARP = BQ / (THREADS / 32);
 
-size_t smem_bytes(int d) {
-  const size_t ld = d + 1;
-  return ((BQ + 2 * BK) * ld + BQ * (BK + 1) + 3 * BQ + BK) * sizeof(float);
+// ---------------------------------------------------------------------------
+// fp32: tensor cores in TF32, three products (mma.sync m16n8k8), cp.async
+// tiles, optional key split with a combine kernel
+// ---------------------------------------------------------------------------
+
+namespace tf32 {
+
+using namespace mma_tf32;
+using mma_bf16::cp_async4;
+using mma_bf16::cp_async_commit;
+using mma_bf16::cp_async_wait;
+using mma_bf16::quad_max;
+using mma_bf16::quad_sum;
+
+constexpr int BQ = 64;               // query rows per block, 16 per warp
+constexpr int BK = 32;               // key rows per tile, 16 per warp
+constexpr int THREADS = 256;         // 8 warps: 4 row slices x 2 key halves
+constexpr int NG = 4;                // O column tiles per group of P V products
+constexpr float LN2 = 0.693147180559945309f;
+
+// Q tile, two stages of K and V tiles (head dim padded to DP), two stages
+// of the tile's key validity
+template <int DP> constexpr size_t smem_bytes() {
+  return (size_t)(BQ + 4 * BK) * pad_f32(DP) * sizeof(float) +
+         2 * BK * sizeof(int32_t);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const int32_t* __restrict__ key_mask,
-                      float* __restrict__ out, float* __restrict__ lse, int H,
-                      int Sq, int Sk, int d, int causal, float scale) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* Qs = smem;                         // BQ x ld
-  float* Ks = Qs + BQ * ld;                 // BK x ld
-  float* Vs = Ks + BK * ld;                 // BK x ld
-  float* Ps = Vs + BK * ld;                 // BQ x (BK + 1): logits, then p
-  float* m_s = Ps + BQ * (BK + 1);          // running row max
-  float* l_s = m_s + BQ;                    // running row sum
-  float* c_s = l_s + BQ;                    // this tile's row correction
-  float* valid_s = c_s + BQ;                // this tile's key validity
+// DP: the head dim the tiles are padded to (a multiple of 32, >= d).
+// Block (x, y, z) takes query tile x of head y, batch z / splits, and the
+// key tiles [s chunk, (s + 1) chunk) with s = z % splits. Warp w takes the
+// tile's rows 16 (w % 4) .. + 15 against key half w / 4 of every key tile,
+// with its own softmax state; at the end the two halves of each row are
+// joined through shared memory. With `part` null (splits = 1) the block
+// writes out and lse; else its partial (m in base-2 units, l, unnormalised
+// O) into `part` (see flash_attn_fwd_split).
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_fwd_tf32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const int32_t* __restrict__ key_mask,
+                           float* __restrict__ out, float* __restrict__ lse,
+                           float* __restrict__ part, int H, int Sq, int Sk,
+                           int d, int causal, int splits, int chunk,
+                           float scale) {
+  constexpr int LD = pad_f32(DP);
+  constexpr int NS = 2;              // 8-key tiles of S: the warp's 16 keys
+  constexpr int NO = DP / 8;         // 8-wide column tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);                  // BQ x LD
+  float* Ks = Qs + BQ * LD;                                         // 2 x BK x LD
+  float* Vs = Ks + 2 * BK * LD;                                     // 2 x BK x LD
+  int32_t* valid_s = reinterpret_cast<int32_t*>(Vs + 2 * BK * LD);  // 2 x BK
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int group = lane >> 2, tig = lane & 3;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
   const size_t bh = (size_t)b * H + h;
-  const float* qb = q + bh * Sq * d;
   const float* kb = k + bh * Sk * d;
   const float* vb = v + bh * Sk * d;
   const int32_t* mb = key_mask + (size_t)b * Sk;
 
-  for (int i = tid; i < BQ * d; i += THREADS) {
-    const int r = i / d, c = i - r * d;
-    Qs[r * ld + c] = q0 + r < Sq ? qb[(size_t)(q0 + r) * d + c] : 0.f;
+  // this block's key tiles [t0, t1); under causal, none wholly above the
+  // diagonal. A split may be left with none: it writes an empty partial
+  const int t0 = sp * chunk;
+  int t1 = min((Sk + BK - 1) / BK, t0 + chunk);
+  if (causal) t1 = min(t1, (min(q0 + BQ, Sq) - 1) / BK + 1);
+
+  // key tile t into stage (t - t0) & 1: K, V rows (0 past Sk), validity
+  auto load_kv = [&](int t) {
+    const int k0 = t * BK, st = (t - t0) & 1;
+    load_rows_async<DP, THREADS>(Ks + st * BK * LD, kb, k0, BK, Sk, d, tid);
+    load_rows_async<DP, THREADS>(Vs + st * BK * LD, vb, k0, BK, Sk, d, tid);
+    if (tid < BK) {
+      const bool in = k0 + tid < Sk;
+      cp_async4(valid_s + st * BK + tid, in ? mb + k0 + tid : mb, in);
+    }
+  };
+  if (t0 < t1) {
+    load_rows_async<DP, THREADS>(Qs, q + bh * Sq * d, q0, BQ, Sq, d, tid);
+    load_kv(t0);
   }
-  if (tid < BQ) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
+  cp_async_commit();
 
-  float acc[2][COLS];
+  const int m0 = (warp & 3) * 16;    // the warp's rows within the Q tile
+  const int kw = (warp >> 2) * 16;   // its keys within each key tile
+  const int row0 = q0 + m0 + group;  // this thread's two query rows
+  const int row1 = row0 + 8;
+  // logits in base-2 units, s log2(e) / sqrt(d), as in the bf16 kernel
+  const float scale2 = scale * 1.44269504088896341f;
+  float o[NO][4];
 #pragma unroll
-  for (int j = 0; j < COLS; ++j) acc[0][j] = acc[1][j] = 0.f;
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
-  int n_tiles = (Sk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers of Ks, Vs and Ps are done
-    for (int i = tid; i < BK * d; i += THREADS) {
-      const int r = i / d, c = i - r * d;
-      const bool in = k0 + r < Sk;
-      const size_t off = (size_t)(k0 + r) * d + c;
-      Ks[r * ld + c] = in ? kb[off] : 0.f;
-      Vs[r * ld + c] = in ? vb[off] : 0.f;
-    }
-    if (tid < BK)
-      valid_s[tid] = (k0 + tid < Sk && mb[k0 + tid] != 0) ? 1.f : 0.f;
+  for (int t = t0; t < t1; ++t) {
+    if (t + 1 < t1) load_kv(t + 1);        // overlaps this tile's products
+    cp_async_commit();
+    cp_async_wait<1>();                    // Q and tile t have landed
     __syncthreads();
-
-    // logits for rows (ty, ty + 16) x key columns (tx, tx + 16)
-    float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
-    const float* q_0 = Qs + ty * ld;
-    const float* q_1 = Qs + (ty + 16) * ld;
-    const float* k_0 = Ks + tx * ld;
-    const float* k_1 = Ks + (tx + 16) * ld;
-#pragma unroll 8
-    for (int c = 0; c < d; ++c) {
-      const float a0 = q_0[c], a1 = q_1[c], b0 = k_0[c], b1 = k_1[c];
-      s00 = fmaf(a0, b0, s00);
-      s01 = fmaf(a0, b1, s01);
-      s10 = fmaf(a1, b0, s10);
-      s11 = fmaf(a1, b1, s11);
-    }
-    const float sv[2][2] = {{s00, s01}, {s10, s11}};
+    const int k0 = t * BK + kw, st = (t - t0) & 1;  // the warp's first key
+    const float* Kt = Ks + (st * BK + kw) * LD;
+    const float* Vt = Vs + (st * BK + kw) * LD;
+    const int32_t* vt = valid_s + st * BK + kw;
+    // warp-uniform skip: the warp's rows all lie past Sq, or (causal) all
+    // its keys lie above them; the state is then unchanged
+    if (q0 + m0 < Sq && !(causal && k0 > q0 + m0 + 15)) {
+      // S = Q K^T, 16 rows x 16 keys, 3xTF32: lo hi, hi lo and hi hi in
+      // three accumulators, so that consecutive products never feed one
+      // another, summed small terms first. The fragments of k-step kk + 1
+      // are loaded before the products of step kk
+      float s[NS][4], slh[NS][4], shl[NS][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int row = ty + 16 * i, col = tx + 16 * j;
-        const bool ok = valid_s[col] != 0.f && (!causal || k0 + col <= q0 + row);
-        Ps[row * (BK + 1) + col] = ok ? sv[i][j] * scale : -INFINITY;
+        for (int e = 0; e < 4; ++e) s[j][e] = slh[j][e] = shl[j][e] = 0.f;
+      uint32_t fq[2][4], fk[2][4];
+      ldmatrix_x4(fq[0], frag_a(Qs, LD, m0, 0, lane));
+      ldmatrix_x4(fk[0], frag_b_nk(Kt, LD, 0, 0, lane));
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const int cur = kk & 1;
+        if (kk + 1 < DP / 8) {
+          ldmatrix_x4(fq[cur ^ 1], frag_a(Qs, LD, m0, kk * 8 + 8, lane));
+          ldmatrix_x4(fk[cur ^ 1], frag_b_nk(Kt, LD, 0, kk * 8 + 8, lane));
+        }
+        uint32_t ah[4], al[4], bhi[NS][2], blo[NS][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split(fq[cur][i], ah[i], al[i]);
+          split(fk[cur][i], bhi[i >> 1][i & 1], blo[i >> 1][i & 1]);
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j) mma(slh[j], al, bhi[j][0], bhi[j][1]);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) mma(shl[j], ah, blo[j][0], blo[j][1]);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) mma(s[j], ah, bhi[j][0], bhi[j][1]);
       }
-    }
-    __syncthreads();
-
-    // online softmax: each warp owns ROWS_PER_WARP rows, lane = key column
+      // scale (to base-2 units) and mask (-inf), then the online softmax
+      // on the fragments: element e of s[j] is row e < 2 ? row0 : row1, key
+      // k0 + j 8 + 2 tig + e % 2
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int row = warp * ROWS_PER_WARP + rr;
-      const float x = Ps[row * (BK + 1) + lane];
-      float mx = x;
+      for (int j = 0; j < NS; ++j) {
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, mx);
-      const bool empty = m_new == -INFINITY;
-      const float p = empty ? 0.f : expf(x - m_new);
-      float sum = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      Ps[row * (BK + 1) + lane] = p;
-      if (lane == 0) {
-        const float corr = empty ? 0.f : expf(m_old - m_new);
-        c_s[row] = corr;
-        l_s[row] = corr * l_s[row] + sum;
-        m_s[row] = m_new;
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * tig + (e & 1);
+          const bool ok =
+              vt[c] != 0 && (!causal || k0 + c <= (e < 2 ? row0 : row1));
+          const float x = (slh[j][e] + shl[j][e]) + s[j][e];
+          s[j][e] = ok ? x * scale2 : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
       }
-    }
-    __syncthreads();
-
-    // acc = corr * acc + p v for rows (ty, ty + 16), columns tx + 16 j
-    const float c0 = c_s[ty], c1 = c_s[ty + 16];
+      float corr[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      acc[0][j] *= c0;
-      acc[1][j] *= c1;
-    }
-    for (int kk = 0; kk < BK; ++kk) {
-      const float p0 = Ps[ty * (BK + 1) + kk];
-      const float p1 = Ps[(ty + 16) * (BK + 1) + kk];
-      const float* vr = Vs + kk * ld;
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+        // a row whose max is still -inf: correction 0 and p 0
+        corr[r] = m_new == -INFINITY ? 0.f : exp2f(m_run[r] - m_new);
+        m_run[r] = m_new;
+      }
 #pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int col = tx + 16 * j;
-        if (col < d) {
-          const float vv = vr[col];
-          acc[0][j] = fmaf(p0, vv, acc[0][j]);
-          acc[1][j] = fmaf(p1, vv, acc[1][j]);
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mr = m_run[e >> 1];
+          const float p = mr == -INFINITY ? 0.f : exp2f(s[j][e] - mr);
+          s[j][e] = p;
+          sum[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l_run[r] = corr[r] * l_run[r] + quad_sum(sum[r]);
+      // once the row maxima stop growing, every correction is 1
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          o[n][0] *= corr[0];
+          o[n][1] *= corr[0];
+          o[n][2] *= corr[1];
+          o[n][3] *= corr[1];
+        }
+      }
+      // O += P V, 3xTF32, p in fp32. Step kk takes the warp's keys
+      // 8 kk .. 8 kk + 7 with k = tig <-> key 2 tig and k = tig + 4 <->
+      // key 2 tig + 1: the A fragment is s[kk] as it stands (a0..a3 = c0,
+      // c2, c1, c3) and the B fragment reads V's rows 2 tig and 2 tig + 1
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        uint32_t ph[4], pl[4];
+        split(s[kk][0], ph[0], pl[0]);
+        split(s[kk][2], ph[1], pl[1]);
+        split(s[kk][1], ph[2], pl[2]);
+        split(s[kk][3], ph[3], pl[3]);
+        const float* v0 = Vt + (kk * 8 + 2 * tig) * LD + group;
+#pragma unroll
+        for (int n0 = 0; n0 < NO; n0 += NG) {
+          uint32_t vh[NG][2], vl[NG][2];
+#pragma unroll
+          for (int g = 0; g < NG; ++g) {
+            split(v0[(n0 + g) * 8], vh[g][0], vl[g][0]);
+            split(v0[LD + (n0 + g) * 8], vh[g][1], vl[g][1]);
+          }
+#pragma unroll
+          for (int g = 0; g < NG; ++g) mma(o[n0 + g], pl, vh[g][0], vh[g][1]);
+#pragma unroll
+          for (int g = 0; g < NG; ++g) mma(o[n0 + g], ph, vl[g][0], vl[g][1]);
+#pragma unroll
+          for (int g = 0; g < NG; ++g) mma(o[n0 + g], ph, vh[g][0], vh[g][1]);
         }
       }
     }
+    __syncthreads();   // every read of this stage is done before its refill
   }
-  __syncthreads();  // m_s and l_s are final
+  cp_async_wait<0>();
 
-  if (lse != nullptr && tid < BQ && q0 + tid < Sq)
-    lse[bh * Sq + q0 + tid] = m_s[tid] + logf(l_s[tid]);  // empty: -inf
-
+  // join the key halves: the second half's warps hand their (m, l, O) to
+  // the first half's through the K stages' memory (BQ x LD floats), which
+  // no warp reads any more
+  float* Oh = Ks;
+  float* ml = Vs;                    // BQ maxima, then BQ sums
+  const int r0 = m0 + group, r1 = r0 + 8;
+  if (kw != 0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = ty + 16 * i;
-    if (q0 + row >= Sq) continue;
-    const float l = l_s[row];
-    float* o = out + (bh * Sq + q0 + row) * d;
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) o[col] = acc[i][j] / l;  // empty row: 0/0
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(Oh + r0 * LD + c) =
+          make_float2(o[n][0], o[n][1]);
+      *reinterpret_cast<float2*>(Oh + r1 * LD + c) =
+          make_float2(o[n][2], o[n][3]);
+    }
+    if (tig == 0) {
+      ml[r0] = m_run[0], ml[r1] = m_run[1];
+      ml[BQ + r0] = l_run[0], ml[BQ + r1] = l_run[1];
     }
   }
+  __syncthreads();
+  if (kw != 0 || q0 + m0 >= Sq) return;
+  float w[2], wh[2];                 // weights of this half and the other
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = r ? r1 : r0;
+    const float mh = ml[rr], m_new = fmaxf(m_run[r], mh);
+    w[r] = m_run[r] == -INFINITY ? 0.f : exp2f(m_run[r] - m_new);
+    wh[r] = mh == -INFINITY ? 0.f : exp2f(mh - m_new);
+    l_run[r] = w[r] * l_run[r] + wh[r] * ml[BQ + rr];
+    m_run[r] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = n * 8 + 2 * tig;
+    const float2 x0 = *reinterpret_cast<const float2*>(Oh + r0 * LD + c);
+    const float2 x1 = *reinterpret_cast<const float2*>(Oh + r1 * LD + c);
+    o[n][0] = w[0] * o[n][0] + wh[0] * x0.x;
+    o[n][1] = w[0] * o[n][1] + wh[0] * x0.y;
+    o[n][2] = w[1] * o[n][2] + wh[1] * x1.x;
+    o[n][3] = w[1] * o[n][3] + wh[1] * x1.y;
+  }
+
+  if (part == nullptr) {
+    if (lse != nullptr && tig == 0) {  // empty row: -inf + log(0) = -inf
+      if (row0 < Sq) lse[bh * Sq + row0] = m_run[0] * LN2 + logf(l_run[0]);
+      if (row1 < Sq) lse[bh * Sq + row1] = m_run[1] * LN2 + logf(l_run[1]);
+    }
+    float* ob = out + bh * Sq * d;
+    // empty row: l = 0, o = 0, so o (1 / l) = 0 inf = NaN
+    const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + 2 * tig;
+      if (c >= d) continue;
+      if (row0 < Sq)
+        *reinterpret_cast<float2*>(ob + (size_t)row0 * d + c) =
+            make_float2(o[n][0] * inv0, o[n][1] * inv0);
+      if (row1 < Sq)
+        *reinterpret_cast<float2*>(ob + (size_t)row1 * d + c) =
+            make_float2(o[n][2] * inv1, o[n][3] * inv1);
+    }
+    return;
+  }
+  // the partial of split sp: O (splits, B H Sq, d), then m and l (splits,
+  // B H Sq) each
+  const size_t rows = (size_t)(gridDim.z / splits) * H * Sq;
+  const size_t p0 = sp * rows + bh * Sq;
+  float* po = part + p0 * d;
+  float* pm = part + (size_t)splits * rows * d + p0;
+  float* pl = pm + (size_t)splits * rows;
+  if (tig == 0) {
+    if (row0 < Sq) pm[row0] = m_run[0], pl[row0] = l_run[0];
+    if (row1 < Sq) pm[row1] = m_run[1], pl[row1] = l_run[1];
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = n * 8 + 2 * tig;
+    if (c >= d) continue;
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(po + (size_t)row0 * d + c) =
+          make_float2(o[n][0], o[n][1]);
+    if (row1 < Sq)
+      *reinterpret_cast<float2*>(po + (size_t)row1 * d + c) =
+          make_float2(o[n][2], o[n][3]);
+  }
 }
 
-cudaError_t launch_fp32(const void* q, const void* k, const void* v,
-                        const void* key_mask, void* out, float* lse, int B,
-                        int H, int Sq, int Sk, int d, int causal,
-                        cudaStream_t stream) {
-  const size_t smem = smem_bytes(d);
+// out and lse of `rows` = B H Sq rows from `splits` partials: one warp a
+// row; weights w_s = exp2(m_s - max m) (0 for an empty partial), l = sum
+// w_s l_s, out = sum w_s O_s / l, lse = max m ln 2 + log l, summed in split
+// order. A row empty in every split: l = 0, O = 0, so out is NaN and lse
+// -inf, as without the split.
+__global__ void __launch_bounds__(128)
+flash_attn_fwd_combine_kernel(const float* __restrict__ part,
+                              float* __restrict__ out,
+                              float* __restrict__ lse, long long rows, int d,
+                              int splits) {
+  const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* pm = part + (size_t)splits * rows * d + row;
+  const float* pl = pm + (size_t)splits * rows;
+  float m = -INFINITY;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, pm[s * rows]);
+  auto weight = [&](int s) {
+    const float ms = pm[s * rows];
+    return ms == -INFINITY ? 0.f : exp2f(ms - m);
+  };
+  float l = 0.f;
+  for (int s = 0; s < splits; ++s) l += weight(s) * pl[s * rows];
+  const float inv = 1.f / l;
+  for (int c = lane * 4; c < d; c += 128) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < splits; ++s) {
+      const float w = weight(s);
+      const float4 x = *reinterpret_cast<const float4*>(
+          part + ((size_t)s * rows + row) * d + c);
+      acc.x += w * x.x;
+      acc.y += w * x.y;
+      acc.z += w * x.z;
+      acc.w += w * x.w;
+    }
+    *reinterpret_cast<float4*>(out + row * d + c) =
+        make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  }
+  if (lse != nullptr && lane == 0) lse[row] = m * LN2 + logf(l);
+}
+
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* key_mask, void* out, float* lse, float* part,
+                   int B, int H, int Sq, int Sk, int d, int causal,
+                   int splits, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_attn_fwd_tf32_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attn_fwd_kernel<<<grid, THREADS, smem, stream>>>(
+  const int tiles = (Sk + BK - 1) / BK;
+  const int chunk = (tiles + splits - 1) / splits;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B * splits);
+  flash_attn_fwd_tf32_kernel<DP><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(key_mask),
-      static_cast<float*>(out), lse, H, Sq, Sk, d, causal,
-      1.0f / sqrtf((float)d));
+      static_cast<float*>(out), lse, splits > 1 ? part : nullptr, H, Sq, Sk,
+      d, causal, splits, chunk, 1.0f / sqrtf((float)d));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long rows = (long long)B * H * Sq;
+  flash_attn_fwd_combine_kernel<<<(unsigned)((rows + 3) / 4), 128, 0,
+                                  stream>>>(part, static_cast<float*>(out),
+                                            lse, rows, d, splits);
   return cudaGetLastError();
 }
+
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16, fp32 accumulators), cp.async tiles
@@ -492,28 +737,66 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+namespace {
+
+bool valid_dims(int B, int H, int Sq, int Sk, int d) {
+  return B > 0 && H > 0 && Sq > 0 && Sk > 0 && d > 0 && d <= MAX_D &&
+         d % 8 == 0 && B <= 65535 && H <= 65535;
+}
+
+cudaError_t launch_fp32(const void* q, const void* k, const void* v,
+                        const void* key_mask, void* out, float* lse,
+                        float* part, int B, int H, int Sq, int Sk, int d,
+                        int causal, int splits, cudaStream_t s) {
+  if (d <= 64)
+    return tf32::launch<64>(q, k, v, key_mask, out, lse, part, B, H, Sq, Sk,
+                            d, causal, splits, s);
+  return tf32::launch<256>(q, k, v, key_mask, out, lse, part, B, H, Sq, Sk, d,
+                           causal, splits, s);
+}
+
+}  // namespace
+
 // q: (B, H, Sq, d), k/v: (B, H, Sk, d), out: (B, H, Sq, d), all contiguous,
 // 16-byte aligned and of one dtype (is_bf16 ? bfloat16 : float32);
 // key_mask: (B, Sk) int32, nonzero = attend; lse: null (no write) or
-// (B, H, Sq) float32. The dtype picks the kernel: the fp32 FMA kernel or the
-// bf16 tensor-core kernel (head dim padded to 64 or 256). Launches on
-// `stream`, allocates nothing, does not synchronise. Returns the cudaError_t
-// of the launch (0 = success).
+// (B, H, Sq) float32. The dtype picks the kernel, both on tensor cores with
+// the head dim padded to 64 or 256: 3xTF32 for fp32, bf16 for bf16.
+// Launches on `stream`, allocates nothing, does not synchronise. Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const void* key_mask, void* out, void* lse,
                               int B, int H, int Sq, int Sk, int d, int causal,
                               int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || d <= 0 || d > MAX_D ||
-      d % 8 != 0 || B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_dims(B, H, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (!is_bf16)
-    return (int)launch_fp32(q, k, v, key_mask, out, l, B, H, Sq, Sk, d,
-                            causal, s);
+    return (int)launch_fp32(q, k, v, key_mask, out, l, nullptr, B, H, Sq, Sk,
+                            d, causal, 1, s);
   if (d <= 64)
     return (int)tc::launch<64>(q, k, v, key_mask, out, l, B, H, Sq, Sk, d,
                                causal, s);
   return (int)tc::launch<256>(q, k, v, key_mask, out, l, B, H, Sq, Sk, d,
                               causal, s);
+}
+
+// The fp32 forward with each row's key loop split over `splits` blocks
+// (1 <= splits <= ceil(Sk / 32), B splits <= 65535): the TF32 kernel writes
+// each split's partial into `part`, fp32 of splits B H Sq (d + 2) floats
+// (O, then m, then l), and flash_attn_fwd_combine_kernel, launched right
+// after it on `stream`, writes out and lse from them. Arguments otherwise as
+// flash_attn_fwd's; is_bf16 must be 0.
+extern "C" int flash_attn_fwd_split(const void* q, const void* k,
+                                    const void* v, const void* key_mask,
+                                    void* out, void* lse, void* part, int B,
+                                    int H, int Sq, int Sk, int d, int causal,
+                                    int splits, int is_bf16, void* stream) {
+  if (!valid_dims(B, H, Sq, Sk, d) || is_bf16 || part == nullptr ||
+      splits < 1 || splits > (Sk + tf32::BK - 1) / tf32::BK ||
+      (long long)B * splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_fp32(q, k, v, key_mask, out, static_cast<float*>(lse),
+                          static_cast<float*>(part), B, H, Sq, Sk, d, causal,
+                          splits, static_cast<cudaStream_t>(stream));
 }

@@ -12,7 +12,10 @@ with no valid key is NaN in the forward and gets zero gradients.
 Three kernels, each with a wrapper, a plain version and a launch counter:
 
 - ``flash_attn_fwd`` (``csrc/flash_attn_fwd.cu``): the output, and with
-  ``with_lse`` the row log-sum-exp (B, H, Sq) fp32 that the backward reads;
+  ``with_lse`` the row log-sum-exp (B, H, Sq) fp32 that the backward reads.
+  In fp32, when the blocks of a call would not fill the card, each row's key
+  loop is split over several blocks and a second kernel combines their
+  partials (``fp32_key_splits``); that is one launch all the same;
 - ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkv`` (``csrc/flash_attn_bwd.cu``):
   dQ, and dK with dV, rebuilding the softmax from the lse.
 
@@ -37,10 +40,30 @@ BWD_LIBRARY = 'flash_attn_bwd'
 KERNEL_DQ = 'flash_attn_bwd_dq'
 KERNEL_DKV = 'flash_attn_bwd_dkv'
 MAX_HEAD_DIM = 256
-# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, fp32
-# outside them, and HBM3
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+# H100 SXM peaks (NVIDIA's data sheet, dense) and HBM3. bf16: the tensor
+# cores' bf16 rate. float32: the TF32 rate over three, because fp32 work on
+# the tensor cores takes three TF32 products for each fp32 product to keep
+# fp32 accuracy (csrc/mma_tf32.cuh), as the fp32 forward kernel does. The
+# fp32 backward kernels, still on fp32 FMA (67 TFLOP/s), are held to the
+# same rate: the least time the card could take for their work
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 495e12 / 3}
 PEAK_BYTES_PER_S = 3.35e12
+# the fp32 forward kernel's tiles: query rows a block, keys a tile
+FP32_BQ, FP32_BK = 64, 32
+
+
+def fp32_key_splits(B: int, H: int, Sq: int, Sk: int, n_sms: int) -> int:
+    '''How many blocks share each query tile's key loop in the fp32
+    forward. B H ceil(Sq / 64) blocks that fill the card's ``n_sms`` SMs
+    (one block an SM at d = 256) take 1. Fewer take min(key tiles, n_sms //
+    blocks), so that all blocks still run in one wave, cut to the least
+    count that gives the same number of key tiles a block (none empty).'''
+    blocks = B * H * -(-Sq // FP32_BQ)
+    tiles = -(-Sk // FP32_BK)
+    if blocks >= n_sms:
+        return 1
+    splits = min(tiles, max(1, n_sms // blocks))
+    return -(-tiles // -(-tiles // splits))
 
 
 def key_mask_and_causal(mask: torch.Tensor | None, B: int, Sk: int,
@@ -194,14 +217,17 @@ def attention_bound_ms(flops: int, nbytes: int, dtype: str):
 
 # ---------------------------------------------------------------------------
 # kernel wrappers: plain version on the CPU, the kernel on CUDA, else raise.
-# The dtype picks the kernel behind each C entry point: fp32 FMA for
-# float32, tensor cores for bfloat16. Both are hand-written kernels of the
-# same function; the choice is the input's type, not a fallback.
+# The dtype picks the kernel behind each C entry point. The forward runs on
+# tensor cores in both: 3xTF32 for float32, bf16 for bfloat16. The backward
+# runs on tensor cores for bfloat16 and on fp32 FMA for float32. All are
+# hand-written kernels of the same function; the choice is the input's
+# type, not a fallback.
 # ---------------------------------------------------------------------------
 
 def flash_attention_forward(q, k, v, key_mask, causal: bool,
                             with_lse: bool = False):
-    '''out, or (out, lse) with ``with_lse``. The kernel's launches are
+    '''out, or (out, lse) with ``with_lse``. In fp32 the key loop is split
+    over ``fp32_key_splits`` blocks for this card. The kernel's launches are
     counted in ``flash_attention.launches``.'''
     if q.device.type == 'cpu':
         if with_lse:
@@ -209,11 +235,20 @@ def flash_attention_forward(q, k, v, key_mask, causal: bool,
         return flash_attention_reference(q, k, v, key_mask, causal)
     _check(KERNEL, q=q, k=k, v=v, mask=key_mask)
     B, H, Sq, d = q.shape
+    key_splits = (fp32_key_splits(B, H, Sq, k.shape[2], _sm_count(q.device))
+                  if q.dtype == torch.float32 else 1)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _run(KERNEL, _fwd_kernel(), q, k, v, key_mask, out, lse, *_dims(q, k),
-         int(causal))
+    fwd, fwd_split = _fwd_kernels()
+    if key_splits == 1:
+        _run(KERNEL, fwd, q, k, v, key_mask, out, lse, *_dims(q, k),
+             int(causal))
+    else:
+        part = torch.empty(key_splits * B * H * Sq * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        _run(KERNEL, fwd_split, q, k, v, key_mask, out, lse, part,
+             *_dims(q, k), int(causal), key_splits)
     flash_attention.launches += 1
     return (out, lse) if with_lse else out
 
@@ -368,13 +403,22 @@ def _run(name, fn, *args):
 
 
 @functools.cache
-def _fwd_kernel():
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def _fwd_kernels():
+    '''(flash_attn_fwd, flash_attn_fwd_split) of the forward library.'''
     from bmt_tpu_torch.ops._build import load_library
-    fn = load_library(KERNEL).flash_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load_library(KERNEL)
+    fwd, split = lib.flash_attn_fwd, lib.flash_attn_fwd_split
+    fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                    + [ctypes.c_void_p])
+    split.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                      + [ctypes.c_void_p])
+    fwd.restype = split.restype = ctypes.c_int
+    return fwd, split
 
 
 @functools.cache

@@ -9,11 +9,14 @@ when it fails:
 
 1. the device: torch's name for it and nvidia-smi's name and power limit;
 2. build the CUDA kernels from bmt_tpu_torch/csrc/ (one nvcc per source,
-   started together; timed): the forward, dQ and dK/dV, each as an fp32
-   FMA kernel and a bf16 tensor-core kernel (flash_attn_fwd_bf16_kernel,
-   flash_attn_bwd_dq_bf16_kernel, flash_attn_bwd_dkv_bf16_kernel, each at
-   head dims padded to 64 and 256); print what ptxas reports for each and
-   fail if one is missing or any kernel spills registers;
+   started together; timed): the forward on tensor cores in fp32
+   (flash_attn_fwd_tf32_kernel, 3xTF32, and flash_attn_fwd_combine_kernel,
+   which combines the partials of a split key loop) and in bf16
+   (flash_attn_fwd_bf16_kernel); dQ and dK/dV as fp32 FMA kernels and bf16
+   tensor-core kernels (flash_attn_bwd_dq_bf16_kernel,
+   flash_attn_bwd_dkv_bf16_kernel); the tensor-core kernels at head dims
+   padded to 64 and 256; print what ptxas reports for each and fail if one
+   is missing or any kernel spills registers;
 3. the forward kernel against its plain PyTorch version on the card, in
    fp32 and bf16, at the serving shapes and at Sq = Sk = 2048, with random
    padded key masks and one batch row whose keys are all masked (NaN in
@@ -46,7 +49,8 @@ when it fails:
    timed in the same turns: F.scaled_dot_product_attention for the forward,
    one autograd.grad through it (dQ, dK and dV together) for the backward
    pair; and each kernel's time per call launched back to back (CUDA
-   events), which the host's launch rate sets for short calls;
+   events), which the host's launch rate sets for short calls; then the
+   same for the three kernels in fp32 at the step's 256x256 call;
 9. the trainer: train_epoch_cap over an in-memory dataset of 20 crops in
    batches of 8 (a ragged tail of 4) through the kernels; the launch counts
    of this run are the ones the kernel report gives;
@@ -107,14 +111,17 @@ when it fails:
     along one trajectory, phase 6's rule); the kernel run launches 8 + 8
     forwards (one proposal forward, one caption batch). The app's seconds
     end to end and by stage, then the fp32 forward kernel's device time
-    where the app launches it, at the four B=1 proposal shapes and the
-    caption batch's four shapes, beside plain, library and bound.
+    where the app launches it, at the four B=1 proposal shapes (key loops
+    split) and the caption batch's four shapes, beside plain, library and
+    bound, and the kernel that scaled_dot_product_attention runs at the
+    caption batch's 512x512 call (torch.profiler).
 
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. The report's `launches` are the captioning
 trainer's (phase 9); `launches_by_path` gives those of each main path's run
 (phases 9, 12, 15 and 16), `proposal_800x800` each kernel's times at the
-proposal cell's 800x800 call.
+proposal cell's 800x800 call, and the forward's `fp32_app` its fp32 times
+at the app's caption-batch 512x512 and B=1 800x800 calls.
 '''
 import contextlib
 import copy
@@ -142,7 +149,7 @@ from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
 from bmt_tpu_torch.ops._build import load_library, ptxas_report
 from bmt_tpu_torch.ops.flash_attention import (
     BWD_LIBRARY, KERNEL, KERNEL_DKV, KERNEL_DQ, attention_bound_ms,
-    attention_cost, flash_attention,
+    attention_cost, flash_attention, fp32_key_splits,
     flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
     flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
     flash_attention_forward, flash_attention_lse_reference,
@@ -173,8 +180,12 @@ from bmt_tpu_torch.utils import (get_corner_coords,
 SOURCES = {KERNEL: 'bmt_tpu_torch/csrc/flash_attn_fwd.cu',
            KERNEL_DQ: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu',
            KERNEL_DKV: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu'}
-# the kernels each library holds: fp32 FMA and bf16 tensor cores
-ENTRIES = {KERNEL: ('flash_attn_fwd_kernel', 'flash_attn_fwd_bf16_kernel'),
+# the kernels each library holds: the forward on tensor cores (3xTF32 with
+# its split's combine, and bf16); the backward on fp32 FMA and bf16 tensor
+# cores
+ENTRIES = {KERNEL: ('flash_attn_fwd_tf32_kernel',
+                    'flash_attn_fwd_combine_kernel',
+                    'flash_attn_fwd_bf16_kernel'),
            BWD_LIBRARY: ('flash_attn_bwd_dq_kernel',
                          'flash_attn_bwd_dq_bf16_kernel',
                          'flash_attn_bwd_dkv_kernel',
@@ -678,20 +689,31 @@ def phase_train_timing(dev, smi):
               + '; '.join(times_line(n, v) for n, v in t.items())
               + f'; dQ + dK/dV {pair:.4f} vs library backward '
               f'{t[KERNEL_DQ]["library"]:.4f}')
+    # fp32 at the encoder's 256x256 call: the forward on tensor cores
+    # (3xTF32), dQ and dK/dV on fp32 FMA (no main path launches the fp32
+    # backward: training computes in bf16)
+    case = TRAIN_CASES[0]
+    t = kernel_times(case, dev, dtype=torch.float32)
+    pair = t[KERNEL_DQ]['kernel'] + t[KERNEL_DKV]['kernel']
+    print(f'    fp32, {case[0]} B={TB} Sq={case[3]} Sk={case[4]} (library '
+          f'backward: autograd.grad through fp32 '
+          f'scaled_dot_product_attention): '
+          + '; '.join(times_line(n, v) for n, v in t.items())
+          + f'; dQ + dK/dV {pair:.4f} vs library backward '
+          f'{t[KERNEL_DQ]["library"]:.4f}')
     return med, ms
 
 
-def kernel_times(case, dev, lengths=None):
+def kernel_times(case, dev, lengths=None, dtype=torch.bfloat16):
     '''{kernel: {'kernel', 'plain', 'library', 'bound', 'bound_by'} ms}
-    of the lse forward, dQ and dK/dV at ``case`` in bf16, timed in turns
-    with their plain versions and the library yardsticks: one
+    of the lse forward, dQ and dK/dV at ``case`` in ``dtype``, timed in
+    turns with their plain versions and the library yardsticks: one
     scaled_dot_product_attention call for the forward, one autograd.grad
     through it (dQ, dK and dV together) for the backward pair.'''
     _, b, h, sq, sk, d, causal = case
-    q, k, v, mask, _ = attention_inputs(case, torch.bfloat16, dev, 1,
-                                        lengths)
+    q, k, v, mask, _ = attention_inputs(case, dtype, dev, 1, lengths)
     g = torch.Generator(device=dev).manual_seed(2)
-    dout = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
     km, causal = key_mask_and_causal(mask, q.shape[0], k.shape[2], dev)
     out, lse = flash_attention_forward(q, k, v, km, causal, with_lse=True)
     drow = row_dot(out, dout)
@@ -714,9 +736,9 @@ def kernel_times(case, dev, lengths=None):
     for kname, key, lib in ((KERNEL, 'fwd', 'fwd library'),
                             (KERNEL_DQ, 'dq', 'bwd library'),
                             (KERNEL_DKV, 'dkv', 'bwd library')):
+        name = str(dtype).removeprefix('torch.')
         bound, by = attention_bound_ms(
-            *attention_cost(kname, b, h, sq, sk, d, 'bfloat16', causal),
-            'bfloat16')
+            *attention_cost(kname, b, h, sq, sk, d, name, causal), name)
         res[kname] = {'kernel': t[f'{key} kernel']['device'],
                       'plain': t[f'{key} plain']['device'],
                       'library': t[lib]['device'],
@@ -754,10 +776,10 @@ def times_line(name, t):
             f'{t["launched"]:.4f})')
 
 
-def device_busy(fn):
-    '''(ms of device kernels, their number, the five longest by name, ms of
-    each attention kernel by name) in one call of fn() under
-    torch.profiler.'''
+def device_busy(fn, width=40):
+    '''(ms of device kernels, their number, the five longest by name, cut
+    to ``width`` characters, ms of each attention kernel by name) in one
+    call of fn() under torch.profiler.'''
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -772,7 +794,7 @@ def device_busy(fn):
         return None, 0, 'not measured: the profiler saw no device kernel', {}
     kernels.sort(key=lambda e: -e.self_device_time_total)
     short = {e.key: e.key.replace('void ', '').replace(
-        '(anonymous namespace)::', '')[:40] for e in kernels}
+        '(anonymous namespace)::', '')[:width] for e in kernels}
     top = {short[e.key]: round(e.self_device_time_total / 1e3, 3)
            for e in kernels[:5]}
     attn = {short[e.key]: round(e.self_device_time_total / 1e3, 3)
@@ -1498,13 +1520,51 @@ def phase_single_video_app(dev, smi):
                                       ('self-attn video', sv, sv, 'video'),
                                       ('cross audio->video', sa, sv, 'video'),
                                       ('cross video->audio', sv, sa, 'audio'))]
-    print(f'    the fp32 forward kernel at the app\'s shapes (H=4, d=256; '
-          f'{smi}):')
+    print(f'    the fp32 forward kernel (3xTF32) at the app\'s shapes (H=4, '
+          f'd=256; {smi}):')
+    app_ms = {}
     for i, (case, keys) in enumerate(cases):
         t = forward_times(case, dev, 600 + i, keys, torch.float32)
+        splits = fp32_key_splits(
+            *case[1:5], torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
         print(f'    B={case[1]:<3d} {case[0]:28s} Sq={case[3]:3d} '
-              f'Sk={case[4]:3d}: ' + times_line('fp32 forward', t))
-    return counts['native', 'kernel']
+              f'Sk={case[4]:3d} key splits {splits}: '
+              + times_line('fp32 forward', t))
+        if i in (0, len(PROP_CASES)):    # B=1 800x800, the batch's audio self
+            app_ms[f'B={case[1]} {case[3]}x{case[4]}'] = t
+    case, keys = cases[len(PROP_CASES)]
+    print(f'    scaled_dot_product_attention, fp32 B={case[1]} {case[3]}x'
+          f'{case[4]}, runs (torch.profiler, device ms by kernel over 3 '
+          f'calls): {library_kernels(case, keys)}')
+    return counts['native', 'kernel'], app_ms
+
+
+def library_kernels(case, keys):
+    '''The device kernels scaled_dot_product_attention runs at ``case`` in
+    fp32 with these key lengths, by name with their ms over 3 calls, from a
+    torch.profiler session in a child process: after this process's four
+    sessions (phases 8 and 15) a fifth saw no device event.'''
+    proc = subprocess.run(
+        [sys.executable, '-c', 'import sys, chip_smoke; '
+         'chip_smoke.print_library_kernels(sys.argv[1], sys.argv[2])',
+         json.dumps(case), ','.join(str(int(x)) for x in keys)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f'library profile failed: {proc.stderr}')
+    return proc.stdout.strip().splitlines()[-1]
+
+
+def print_library_kernels(case, keys):
+    '''library_kernels' child: one profiler session around 3 calls.'''
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    keys = torch.tensor([int(x) for x in keys.split(',')], device=dev)
+    q, k, v, mask, _ = attention_inputs(json.loads(case), torch.float32, dev,
+                                        700, keys)
+    F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    _, _, top, _ = device_busy(lambda: [F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask) for _ in range(3)], width=160)
+    print(top)
 
 
 def app_kernel_vs_plain(ckpt, paths, vocab, seconds, kernel, plain, dev,
@@ -1771,7 +1831,7 @@ def main():
 
     print(f'[16] the single-video app from checkpoints (fp32, train_cap and '
           f'train_prop defaults, max_prop_per_vid {MAX_PROPS}) on {smi}:')
-    app_launches = phase_single_video_app(dev, smi)
+    app_launches, app_ms = phase_single_video_app(dev, smi)
 
     # times at the train cell's encoder 256x256 call (forward with lse), and
     # at the proposal cell's 800x800 call; launches of each main path's run
@@ -1799,7 +1859,12 @@ def main():
             'ms': at_prop[kname]['kernel'], 'plain_ms': at_prop[kname]['plain'],
             'bound_ms': at_prop[kname]['bound'],
             'bound_by': at_prop[kname]['bound_by'],
-            'library_ms': at_prop[kname]['library']}}
+            'library_ms': at_prop[kname]['library']},
+        **({'fp32_app': {shape: {
+            'ms': a['kernel'], 'plain_ms': a['plain'],
+            'library_ms': a['library'], 'bound_ms': a['bound'],
+            'bound_by': a['bound_by']} for shape, a in app_ms.items()}}
+           if kname == KERNEL else {})}
         for kname, err, t in report]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ Neither needs a card or nvcc.'''
 import pytest
 
 from bmt_tpu_torch.ops import _build
-from bmt_tpu_torch.ops.flash_attention import (KERNEL, KERNEL_DKV, KERNEL_DQ,
+from bmt_tpu_torch.ops.flash_attention import (FP32_BK, FP32_BQ, KERNEL,
+                                               KERNEL_DKV, KERNEL_DQ,
                                                attention_bound_ms,
-                                               attention_cost)
+                                               attention_cost,
+                                               fp32_key_splits)
 
 # the train cell's encoder self-attention call: B=32, H=4, S=256, d=256
 TRAIN_CALL = (32, 4, 256, 256, 256)
@@ -58,7 +60,30 @@ def test_bound_takes_the_slower_of_operations_and_bytes():
         (1.0, 'operations'))
     assert attention_bound_ms(1, 3.35e9, 'bfloat16') == pytest.approx(
         (1.0, 'bytes'))
-    assert attention_bound_ms(67e9, 1, 'float32')[0] == pytest.approx(1.0)
+    # fp32 on the tensor cores: three TF32 products a product, 495 / 3
+    assert attention_bound_ms(165e9, 1, 'float32')[0] == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize('B,Sq,Sk,splits', [
+    (1, 800, 800, 2), (1, 300, 300, 5), (1, 800, 300, 2), (1, 300, 800, 5),
+    (100, 512, 512, 1), (100, 192, 192, 1), (2, 64, 64, 2), (1, 64, 2048, 32)])
+def test_fp32_key_splits_fill_one_wave(B, Sq, Sk, splits):
+    '''The fp32 forward at H=4 on 132 SMs: the app's B=1 proposal calls
+    split their key loops (52 blocks at 800 query rows take 2 splits of 13
+    key tiles; 20 blocks at 300 rows take 5), its B=100 caption calls do
+    not, and no split is empty.'''
+    assert fp32_key_splits(B, 4, Sq, Sk, 132) == splits
+    blocks, tiles = B * 4 * -(-Sq // FP32_BQ), -(-Sk // FP32_BK)
+    chunk = -(-tiles // splits)
+    assert blocks * splits <= max(blocks, 132)
+    assert (splits - 1) * chunk < tiles <= splits * chunk
+
+
+def test_fp32_key_splits_never_exceed_the_key_tiles():
+    for Sk in (1, 31, 32, 33, 95):
+        for n_sms in (1, 8, 132, 1000):
+            splits = fp32_key_splits(1, 1, 1, Sk, n_sms)
+            assert 1 <= splits <= -(-Sk // FP32_BK)
 
 
 def test_library_path_changes_with_any_header(tmp_path, monkeypatch):
@@ -82,9 +107,13 @@ def test_library_path_changes_with_any_header(tmp_path, monkeypatch):
 
 
 def test_the_real_sources_hash_their_header():
-    '''Both kernel sources include the shared header, which exists.'''
+    '''Both kernel sources include the shared header, which exists; the
+    forward also includes the TF32 one.'''
     header = _build.CSRC_DIR / 'mma_bf16.cuh'
     assert header.exists()
     for name in ('flash_attn_fwd', 'flash_attn_bwd'):
         assert '#include "mma_bf16.cuh"' in (
             _build.CSRC_DIR / f'{name}.cu').read_text()
+    assert (_build.CSRC_DIR / 'mma_tf32.cuh').exists()
+    assert '#include "mma_tf32.cuh"' in (
+        _build.CSRC_DIR / 'flash_attn_fwd.cu').read_text()

@@ -17,7 +17,7 @@ from bmt_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
     flash_attention_bwd_dq_reference, flash_attention_forward,
     flash_attention_lse_reference, flash_attention_reference,
-    key_mask_and_causal, launch_counts, row_dot)
+    fp32_key_splits, key_mask_and_causal, launch_counts, row_dot)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -152,6 +152,7 @@ def test_kernels_at_proposal_shapes_match_plain_on_card(cuda, dtype, sq, sk):
     _check_training_kernels(q, k, v, dout, km, False, dtype)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape,kind', [
     ((2, 2, 33, 70, 8), 'padding'), ((2, 2, 70, 70, 8), 'causal'),
     ((2, 2, 129, 33, 24), 'padding'), ((2, 2, 70, 70, 24), 'causal'),
@@ -159,40 +160,93 @@ def test_kernels_at_proposal_shapes_match_plain_on_card(cuda, dtype, sq, sk):
     ((2, 2, 70, 129, 72), 'padding'), ((2, 2, 129, 129, 72), 'causal'),
     ((2, 4, 129, 70, 256), 'padding'), ((2, 4, 129, 129, 256), 'causal'),
     ((2, 2, 2048, 2048, 256), 'padding'), ((2, 2, 2048, 2048, 256), 'causal')])
-def test_bf16_tensor_core_kernels_match_plain_on_card(cuda, shape, kind):
-    '''The bf16 tensor-core forward (with lse), dQ and dK/dV at head dims
-    that are and are not multiples of 16 (8, 24, 72: zero-padded to the 64-
-    or 256-column tile in shared memory), query and key lengths that cut the
-    32-, 64- and 128-row tiles (33, 70, 129) and S = 2048; the last batch row has
-    every key masked, so its output is NaN, its lse -inf and its dQ, dK, dV
-    exactly 0.'''
-    q, k, v, dout, km, causal = _inputs(cuda, torch.bfloat16, shape, kind)
-    out, lse = flash_attention_forward(q, k, v, km, causal, with_lse=True)
-    drow = row_dot(out, dout)
-    dq = flash_attention_bwd_dq(q, k, v, km, causal, lse, drow, dout)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, km, causal, lse, drow, dout)
+def test_tensor_core_kernels_match_plain_on_card(cuda, dtype, shape, kind):
+    '''The tensor-core forward (with lse; 3xTF32 in fp32, bf16 in bf16)
+    and the dQ and dK/dV of that dtype at head dims that are and are not
+    multiples of 16 (8, 24, 72: zero-padded to the 64- or 256-column tile in
+    shared memory), query and key lengths that cut the 32-, 64- and 128-row
+    tiles (33, 70, 129) and S = 2048; the last batch row has every key
+    masked, so its output is NaN, its lse -inf and its dQ, dK, dV exactly
+    0. The small fp32 shapes fill few blocks, so their key loops split.'''
+    _check_training_kernels(*_inputs(cuda, dtype, shape, kind), dtype)
+
+
+def _app_key_mask(cuda, B, Sk, seed):
+    '''B=1: every key valid (the proposal forward of a video as long as the
+    pad). B>1: ragged valid lengths, as a caption batch's crops have.'''
+    if B == 1:
+        return torch.ones(1, Sk, dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lengths = torch.randint(1, Sk + 1, (B,), generator=g, device=cuda)
+    return (torch.arange(Sk, device=cuda)[None, :]
+            < lengths[:, None]).int()
+
+
+@pytest.mark.parametrize('B,Sq,Sk', [
+    (1, 800, 800), (1, 300, 300), (1, 800, 300), (1, 300, 800),
+    (100, 512, 512), (100, 192, 192), (100, 512, 192), (100, 192, 512)])
+def test_fp32_forward_at_the_app_shapes_on_card(cuda, B, Sq, Sk):
+    '''The fp32 forward and lse where the single-video app launches them
+    (H=4, d=256): the B=1 proposal forward, whose key loops split, and the
+    B=100 caption batch with ragged key lengths.'''
+    q, k, v, _, _, _ = _inputs(cuda, torch.float32, (B, 4, Sq, Sk, 256),
+                               'none')
+    km = _app_key_mask(cuda, B, Sk, seed=Sq + Sk)
+    before = flash_attention.launches
+    out, lse = flash_attention_forward(q, k, v, km, False, with_lse=True)
     torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref_out, ref_lse = flash_attention_lse_reference(q, k, v, km, False)
+    atol, rtol = KERNEL_TOL[torch.float32]
+    torch.testing.assert_close(out, ref_out, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL[0],
+                               rtol=LSE_TOL[1])
+
+
+@pytest.mark.parametrize('shape,kind,n_sms,splits', [
+    ((1, 4, 800, 800, 256), 'none', None, 2),
+    ((1, 4, 300, 300, 256), 'none', 200, 10),
+    ((2, 4, 300, 800, 256), 'padding', 120, 3),
+    ((2, 2, 129, 129, 64), 'causal', 60, 5)])
+def test_fp32_key_split_is_deterministic_on_card(cuda, monkeypatch, shape,
+                                                 kind, n_sms, splits):
+    '''The fp32 forward with each row's key loop split over blocks: the
+    count the rule picks for this card at B=1 (2 at 800 query rows), or one
+    forced by giving the rule another SM count. Out and lse are the same
+    bits in two launches (no atomics), agree with the unsplit kernel (one
+    SM: no split) and the plain version, and a batch row with every key
+    masked is NaN with lse -inf. Under causal the last splits of the first
+    query tiles hold no key tile and write empty partials.'''
+    from bmt_tpu_torch.ops import flash_attention as fa
+    q, k, v, _, km, causal = _inputs(cuda, torch.float32, shape, kind)
+    if kind == 'none':
+        km = torch.ones_like(km)
+    if n_sms is not None:
+        monkeypatch.setattr(fa, '_sm_count', lambda device: n_sms)
+    B, H, Sq, Sk, _ = shape
+    assert fp32_key_splits(B, H, Sq, Sk, fa._sm_count(q.device)) == splits
+    before = flash_attention.launches
+    first, second = (flash_attention_forward(q, k, v, km, causal,
+                                             with_lse=True)
+                     for _ in range(2))
+    monkeypatch.setattr(fa, '_sm_count', lambda device: 1)
+    whole = flash_attention_forward(q, k, v, km, causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 3
+    assert torch.equal(first[0].nan_to_num(7.0), second[0].nan_to_num(7.0))
+    assert torch.equal(first[1], second[1])
     ref_out, ref_lse = flash_attention_lse_reference(q, k, v, km, causal)
-    torch.testing.assert_close(out.float(), ref_out.float(),
-                               atol=KERNEL_TOL[torch.bfloat16][0],
-                               rtol=KERNEL_TOL[torch.bfloat16][1],
-                               equal_nan=True)
-    assert out[-1].isnan().all() and not out[0].isnan().any()
-    assert torch.equal(lse.isneginf(), ref_lse.isneginf())
-    assert lse[-1].isneginf().all()
-    torch.testing.assert_close(lse.nan_to_num(neginf=0.0),
-                               ref_lse.nan_to_num(neginf=0.0),
-                               atol=LSE_TOL[0], rtol=LSE_TOL[1])
-    ref_dq = flash_attention_bwd_dq_reference(q, k, v, km, causal, lse, drow,
-                                              dout)
-    ref_dk, ref_dv = flash_attention_bwd_dkv_reference(q, k, v, km, causal,
-                                                       lse, drow, dout)
-    atol, rtol = BWD_TOL[torch.bfloat16]
-    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
-        assert got.dtype == torch.bfloat16 and not got.isnan().any()
-        assert (got[-1] == 0).all() and (want[-1] == 0).all()
-        torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                                   rtol=rtol)
+    atol, rtol = KERNEL_TOL[torch.float32]
+    for out, lse in (first, whole):
+        torch.testing.assert_close(out, ref_out, atol=atol, rtol=rtol,
+                                   equal_nan=True)
+        assert torch.equal(lse.isneginf(), ref_lse.isneginf())
+        torch.testing.assert_close(lse.nan_to_num(neginf=0.0),
+                                   ref_lse.nan_to_num(neginf=0.0),
+                                   atol=LSE_TOL[0], rtol=LSE_TOL[1])
+    if kind != 'none':
+        assert first[0][-1].isnan().all() and first[1][-1].isneginf().all()
+        assert not first[0][0].isnan().any()
 
 
 @pytest.mark.parametrize('shape,kind', [
