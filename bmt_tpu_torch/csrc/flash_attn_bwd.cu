@@ -1,11 +1,13 @@
 // Masked attention backward for Hopper (sm_90a), written by hand: two
-// kernels, dQ and dK/dV.
+// kernels, dQ and dK/dV, in a tensor-core version for each dtype.
 //
 // Replaces the two Pallas backward kernels of bmt_tpu/ops/pallas_attention.py,
 // both launched by `_flash_attention_tiled_bwd`:
-//   flash_attn_bwd_dq_kernel (fp32), tc::flash_attn_bwd_dq_bf16_kernel
+//   tf32::flash_attn_bwd_dq_tf32_kernel (fp32),
+//   tc::flash_attn_bwd_dq_bf16_kernel (bf16)
 //       <- `_dq_kernel`  (:351-389, pallas_call :473)
-//   flash_attn_bwd_dkv_kernel (fp32), tc::flash_attn_bwd_dkv_bf16_kernel
+//   tf32::flash_attn_bwd_dkv_tf32_kernel (fp32),
+//   tc::flash_attn_bwd_dkv_bf16_kernel (bf16)
 //       <- `_dkv_kernel` (:392-431, pallas_call :498)
 // and the XLA recompute of the single-block custom VJP (`_fa_bwd`, :558-581),
 // which computes the same gradient.
@@ -26,59 +28,92 @@
 //
 // Design. No atomics: as in the JAX design, dQ and dK/dV are two kernels, so
 // every gradient element is summed by one thread in one fixed order and the
-// gradients are deterministic run to run. The input's dtype picks each
-// kernel: fp32 FMA for float32, tensor cores for bfloat16.
-// - dQ: one thread block per (query tile of BQ rows, head, batch). It keeps
-//   its Q and dO tiles in shared memory and loops over key tiles of BK rows,
-//   rebuilding P and dS per tile; dQ accumulates in registers (fp32: 2 rows x
-//   d/16 columns a thread, as the forward's output; bf16: below). With
-//   `causal`, key tiles wholly above the diagonal are never loaded.
-// - dK/dV: one block per (key tile of BK rows, head, batch). It keeps its K
-//   and V tiles in shared memory and loops over query tiles; dK and dV
-//   accumulate in registers for the block's life (fp32: 2 key rows x d/16
-//   columns each, 64 fp32 a thread; bf16: below). With `causal`, query
-//   tiles that end before the key tile starts (q0 + BQ - 1 < k0) are
-//   skipped. The sequential grid axis that carried the Pallas accumulators
-//   in VMEM becomes this in-block loop; nothing crosses blocks.
-// Ragged edges: key rows >= Sk load as 0 and are masked, query rows >= Sq
-// load as 0 and get P = 0 (not relying on dO = 0 there), and gradient rows
-// past Sq or Sk are not stored.
+// gradients are the same bits from run to run.
+// - dQ: one thread block per (query tile, head, batch). It keeps its Q and
+//   dO tiles in shared memory and loops over key tiles, rebuilding P and dS
+//   per tile; dQ accumulates in registers. With `causal`, key tiles wholly
+//   above the diagonal are never loaded.
+// - dK/dV: one block per (key tile, head, batch). It keeps its K and V
+//   tiles in shared memory and loops over query tiles; dK and dV accumulate
+//   in registers for the block's life. With `causal`, query tiles that end
+//   before the key tile starts are skipped. The sequential grid axis that
+//   carried the Pallas accumulators in VMEM becomes this in-block loop;
+//   nothing crosses blocks.
+// Both run every product on tensor cores by mma.sync: 3xTF32 m16n8k8 for
+// float32 (below), bf16 m16n8k16 for bfloat16 (further below); the head dim
+// is padded to DP = 64 or 256 (a template parameter; the padded columns load
+// as 0 and are not stored), so d need only be a multiple of 8. Ragged edges:
+// key rows >= Sk load as 0 and are masked, query rows >= Sq load as 0 and
+// get P = 0 (not relying on dO = 0 there), and gradient rows past Sq or Sk
+// are not stored. Tiles arrive by 16-byte cp.async copies in a ring of two
+// stages, so tile t + 1 loads while tile t computes.
 //
-// What bounds them on this card, and what the design does about it.
-// - In fp32 both run every product as fp32 FMA from shared-memory tiles.
-//   Each (query tile, key tile) pair costs 2 BQ BK d FMAs for S and dO v^T,
-//   plus BQ BK d (dQ) or 2 BQ BK d (dK, dV), and the S / dO v^T loop issues
-//   one shared-memory load per FMA, so they are bound by shared-memory
-//   bandwidth and, at one block per SM, by latency. At d = 256 a dQ block
-//   holds Q, dO, K and V tiles of 32 x 257 fp32 plus the dS tile: 136,192
-//   bytes of dynamic shared memory; a dK/dV block adds a P tile: 140,416
-//   bytes. Either allows one block (8 warps) per SM. ptxas -v (sm_90a,
-//   CUDA 12.8): dQ 104, dK/dV 137 registers, no spills. They serve fp32
-//   callers (the parity checks), not the bf16 train path.
-// - In bf16 both run on tensor cores, with mma.sync m16n8k16 (bf16 in, fp32
-//   accumulators) for every product, fragments by ldmatrix from tiles with
-//   16-byte row padding (no bank conflicts, mma_bf16.cuh) and the head dim
-//   padded to DP = 64 or 256 as in the forward. Their calls move 128-170
-//   FLOP per byte at d = 256, under the H100's 295, so HBM bounds them
-//   (dQ 84.2 MB, 0.0251 ms; dK/dV 101.0 MB, 0.0301 ms at the train cell's
-//   B=32, S=256 call), but mma.sync feeds the tensor cores through
-//   registers, so shared-memory fragment traffic and issue slots are what
-//   they spend their time on. Measured in PERF.md.
+// fp32 (the fp32 train steps: make_cap_train_step's and
+// make_prop_train_step's default compute dtype, and the parity checks):
+// tensor cores in TF32, three products per product (csrc/mma_tf32.cuh), so
+// the gradients are as accurate as fp32 FMA; one TF32 product misses the
+// fp32 tolerances (tests/test_torch_port_tf32.py). What bounds them on this
+// card: three m16n8k8 products per fp32 product make the peak 495 / 3 = 165
+// TFLOP/s, and the train cell's 256x256 calls move 77-85 FLOP per byte
+// against the 49 at which that peak and HBM's 3.35 TB/s cross, so they are
+// bound by operations (dQ 12.9 GFLOP, 0.078 ms; dK/dV 17.2 GFLOP, 0.104 ms).
+// Before the tensor cores come the instructions around them: each operand is
+// split in registers into hi + lo (five instructions a value, mma_tf32.cuh),
+// which set the pace of the fp32 forward (PERF.md). The design (the same for
+// both kernels, with the roles of queries and keys swapped; "rows" are the
+// block's queries in dQ and its keys in dK/dV, "columns" those of the loop's
+// tiles):
+// - BM = 64 rows a block, tiles of BN = 16 columns, 8 warps. Warps w and
+//   w + 4 share rows 16 (w % 4) .. + 15 and all 16 columns of each tile.
+//   Warp w computes S and dP (dQ: S = Q K^T, dP = dO V^T; dK/dV: S^T =
+//   K Q^T, dP^T = V dO^T) over head-dim half w / 4 only: the rows' A
+//   fragments and the tile's B fragments by ldmatrix, each value split once
+//   for the three products lo hi, hi lo and hi hi, which go into three
+//   accumulators summed (lh + hl) + hh. The pair then hands its halves to
+//   each other through shared memory (a named barrier of 64 threads) and
+//   both add them, x + y being y + x, so both hold the same S and dP.
+// - P and dS are rebuilt in registers (exp2 of base-2 logits) and used as
+//   they stand as the A fragment of the gradient product, as the fp32
+//   forward uses P: the S accumulator gives lane (group, tig) columns
+//   2 tig and 2 tig + 1 where the A fragment wants k = tig and tig + 4, so k
+//   is mapped to columns in that order and the B operand (K for dQ = dS K;
+//   dO and Q for dV = P^T dO and dK = dS^T Q) is read by scalar loads of its
+//   rows 2 tig and 2 tig + 1, free of bank conflicts at the padded stride.
+//   TF32 fragments cannot be transposed by ldmatrix .trans (16-bit words
+//   only); this way no operand needs it and P and dS never touch shared
+//   memory.
+// - Warp w accumulates the gradient for head-dim half w / 4: dQ 16 x DP/2
+//   (64 registers a thread at DP = 256), dK and dV 2 x 16 x DP/2 (128).
+// - Shared memory at DP = 256, rows of 256 + 4 floats: the block's two 64-row
+//   tiles (133,120 bytes), two stages of the loop's two 16-row tiles
+//   (66,560) and the pair exchange (16,384): 216,192 bytes (dQ) and 216,576
+//   (dK/dV, with the query tiles' lse and D), one block an SM. Registers
+//   from ptxas -v are in PERF.md.
+//
+// bf16 (the bf16 train and serving paths): tensor cores in bf16, with
+// mma.sync m16n8k16 (bf16 in, fp32 accumulators) for every product,
+// fragments by ldmatrix from tiles with 16-byte row padding (no bank
+// conflicts, mma_bf16.cuh). Their calls move 128-170 FLOP per byte at
+// d = 256, under the H100's 295, so HBM bounds them (dQ 84.2 MB, 0.0251 ms;
+// dK/dV 101.0 MB, 0.0301 ms at the train cell's B=32, S=256 call), but
+// mma.sync feeds the tensor cores through registers, so shared-memory
+// fragment traffic and issue slots are what they spend their time on.
+// Measured in PERF.md.
 // - dQ in bf16: a block owns DQ_BQ = 128 query rows and loops over key
 //   tiles of DQ_BK = 32 rows, which arrive with their key validity by
-//   cp.async into a ring of two stages, so tile t + 1 loads while tile t
-//   computes; Q and dO are loaded once. Its 16 warps each own 16 query
-//   rows with a partner warp; per key tile a warp computes S = Q K^T and
-//   dP = dO V^T for half of the tile's key columns, writes dS (bf16, the
-//   Pallas cast point) to a 128 x 32 shared tile, and after a barrier
-//   dQ += dS K for half of the head dim, with dS read by ldmatrix and K by
-//   ldmatrix .trans (K as stored: rows = keys = the product's k). The
-//   128 x DP fp32 accumulator is spread at DP / 4 a thread (64 at
-//   DP = 256). ptxas -v: 128 registers at DP = 256 (98 at 64), no spills;
-//   213,248 bytes of dynamic shared memory (Q, dO, two stages of K and V,
-//   dS), one block of 16 warps per SM. The 16 warps hide more of the
-//   ldmatrix -> mma latency, which is what the mma.sync kernels here wait
-//   on, than 8 warps over 64 x 64 tiles (178 registers) did: PERF.md.
+//   cp.async into a ring of two stages; Q and dO are loaded once. Its 16
+//   warps each own 16 query rows with a partner warp; per key tile a warp
+//   computes S = Q K^T and dP = dO V^T for half of the tile's key columns,
+//   writes dS (bf16, the Pallas cast point) to a 128 x 32 shared tile, and
+//   after a barrier dQ += dS K for half of the head dim, with dS read by
+//   ldmatrix and K by ldmatrix .trans (K as stored: rows = keys = the
+//   product's k). The 128 x DP fp32 accumulator is spread at DP / 4 a
+//   thread (64 at DP = 256). ptxas -v: 128 registers at DP = 256 (98 at
+//   64), no spills; 213,248 bytes of dynamic shared memory (Q, dO, two
+//   stages of K and V, dS), one block of 16 warps per SM. The 16 warps hide
+//   more of the ldmatrix -> mma latency, which is what the mma.sync kernels
+//   here wait on, than 8 warps over 64 x 64 tiles (178 registers) did:
+//   PERF.md.
 // - dK/dV in bf16, the same roles with keys and queries swapped: a block
 //   owns BK = 64 key rows and loops over query tiles of BQ = 64 rows, which
 //   arrive with their lse and D in a two-stage cp.async ring (K and V are
@@ -101,303 +136,465 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 32;               // query rows per tile
-constexpr int BK = 32;               // key rows per tile
-constexpr int THREADS = 256;         // 16 x 16 threads
 constexpr int MAX_D = 256;
-constexpr int COLS = MAX_D / 16;     // accumulator columns per thread and row
 
-// The FMA kernels below are instantiated for T = float only (bf16 runs on
-// the tensor-core kernels in namespace tc)
-__device__ __forceinline__ float to_float(float x) { return x; }
+// ---------------------------------------------------------------------------
+// fp32: tensor cores in TF32, three products (mma.sync m16n8k8), cp.async
+// tiles
+// ---------------------------------------------------------------------------
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
+namespace tf32 {
+
+using namespace mma_tf32;
+using mma_bf16::cp_async4;
+using mma_bf16::cp_async_commit;
+using mma_bf16::cp_async_wait;
+
+constexpr int BM = 64;               // rows a block: dQ queries, dK/dV keys
+constexpr int BN = 16;               // rows a tile of the block's loop
+constexpr int THREADS = 256;         // 8 warps: 4 row slices x 2 dim halves
+constexpr int NG = 4;                // column tiles a group of products
+constexpr int XCH = 16;              // floats a lane hands its partner a tile
+constexpr float LOG2E = 1.44269504088896341f;
+
+// the block's two BM-row tiles, two stages of the loop's two BN-row tiles
+// (head dim padded to DP), the pair exchange, then `extra` bytes of small
+// arrays
+template <int DP> constexpr size_t smem_bytes(size_t extra) {
+  return (size_t)(2 * BM + 4 * BN) * pad_f32(DP) * sizeof(float) +
+         THREADS * XCH * sizeof(float) + extra;
 }
 
-// x rounded to T and read back as fp32: the Pallas kernels' cast points
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
+// c = a b^T for rows [m0, m0 + 16) of tile A and rows [0, 16) of tile Bt
+// (both row stride LD), over the KS k-steps of 8 columns from column k0:
+// each step's fragments by ldmatrix (those of step kk + 1 loaded before the
+// products of step kk), each split once for its three products lo hi,
+// hi lo and hi hi, which go into three accumulators so that no mma waits
+// on the one before it, summed (lh + hl) + hh. c[j][e]: row
+// m0 + group + 8 (e / 2), column j 8 + 2 tig + e % 2
+template <int KS>
+__device__ __forceinline__ void product_abt(const float* A, const float* Bt,
+                                            int LD, int m0, int k0, int lane,
+                                            float c[2][4]) {
+  float lh[2][4], hl[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = lh[j][e] = hl[j][e] = 0.f;
+  uint32_t fa[2][4], fb[2][4];
+  ldmatrix_x4(fa[0], frag_a(A, LD, m0, k0, lane));
+  ldmatrix_x4(fb[0], frag_b_nk(Bt, LD, 0, k0, lane));
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int cur = kk & 1;
+    if (kk + 1 < KS) {
+      ldmatrix_x4(fa[cur ^ 1], frag_a(A, LD, m0, k0 + kk * 8 + 8, lane));
+      ldmatrix_x4(fb[cur ^ 1], frag_b_nk(Bt, LD, 0, k0 + kk * 8 + 8, lane));
+    }
+    uint32_t ah[4], al[4], bhi[2][2], blo[2][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      split(fa[cur][i], ah[i], al[i]);
+      split(fb[cur][i], bhi[i >> 1][i & 1], blo[i >> 1][i & 1]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) mma(lh[j], al, bhi[j][0], bhi[j][1]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) mma(hl[j], ah, blo[j][0], blo[j][1]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) mma(c[j], ah, bhi[j][0], bhi[j][1]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = (lh[j][e] + hl[j][e]) + c[j][e];
 }
 
-// rows [r0, r0 + R) of a (S, d) matrix into an R x ld fp32 tile, 0 past S
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int R, int S, int d, int ld,
-                                          int tid) {
-  for (int i = tid; i < R * d; i += THREADS) {
-    const int r = i / d, c = i - r * d;
-    dst[r * ld + c] = r0 + r < S ? to_float(src[(size_t)(r0 + r) * d + c]) : 0.f;
+// The two warps of a row slice each hold S and dP over one half of the head
+// dim: each writes its halves to `mine`, waits for its partner at named
+// barrier 1 + slice (64 threads; 0 is __syncthreads), and adds the
+// partner's from `theirs`. x + y is y + x, so both warps end with the same
+// bits. `mine` is written again only after the next __syncthreads, which
+// the partner reaches after its reads
+__device__ __forceinline__ void pair_sum(float s[2][4], float dp[2][4],
+                                         float* mine, const float* theirs,
+                                         int slice, int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mine[i * 32 + lane] = s[i >> 2][i & 3];
+    mine[(8 + i) * 32 + lane] = dp[i >> 2][i & 3];
+  }
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slice) : "memory");
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    s[i >> 2][i & 3] += theirs[i * 32 + lane];
+    dp[i >> 2][i & 3] += theirs[(8 + i) * 32 + lane];
   }
 }
 
-// S = A B^T and dP = G W^T for rows (ty, ty + 16) of the A/G tiles and rows
-// (tx, tx + 16) of the B/W tiles: a 2x2 micro-tile of each
-__device__ __forceinline__ void two_products(const float* A, const float* G,
-                                             const float* Bt, const float* W,
-                                             int ld, int d, int ty, int tx,
-                                             float s[2][2], float dp[2][2]) {
-  const float* a0 = A + ty * ld;
-  const float* a1 = A + (ty + 16) * ld;
-  const float* g0 = G + ty * ld;
-  const float* g1 = G + (ty + 16) * ld;
-  const float* b0 = Bt + tx * ld;
-  const float* b1 = Bt + (tx + 16) * ld;
-  const float* w0 = W + tx * ld;
-  const float* w1 = W + (tx + 16) * ld;
+// acc += a b over 16 k for the NT 8-wide column tiles of b from column n0:
+// a (16 x 16) as the C fragments product_abt gives (a[j][e]: row
+// group + 8 (e / 2), k j 8 + 2 tig + e % 2), b rows [0, 16) of tile B (row
+// stride LD, rows = k). The mma's k = tig and tig + 4 of step j take a's k
+// j 8 + 2 tig and j 8 + 2 tig + 1, so the A fragment is a[j] in the order
+// c0, c2, c1, c3 and b's B fragment is its rows j 8 + 2 tig and + 1 at
+// column group, read as scalars. Each value is split once. Per group of NG
+// column tiles the two steps' lo hi, hi lo and hi hi go into a zeroed
+// accumulator, which is then added to acc in fp32: an mma adds its sum to
+// its accumulator truncated, not rounded, and a long run of small terms
+// into a large accumulator drifts (dV of a causal call's first keys
+// gathers thousands of them), while one rounded add a tile does not
+template <int NT>
+__device__ __forceinline__ void product_acc(float acc[NT][4],
+                                            const float a[2][4],
+                                            const float* B, int LD, int n0,
+                                            int tig, int group) {
+  uint32_t ah[2][4], al[2][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < 2; ++j) {
+    split(a[j][0], ah[j][0], al[j][0]);
+    split(a[j][2], ah[j][1], al[j][1]);
+    split(a[j][1], ah[j][2], al[j][2]);
+    split(a[j][3], ah[j][3], al[j][3]);
+  }
+  const float* b0 = B + 2 * tig * LD + n0 + group;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < d; ++c) {
-    const float qa = a0[c], qb = a1[c], ka = b0[c], kb = b1[c];
-    const float ga = g0[c], gb = g1[c], va = w0[c], vb = w1[c];
-    s[0][0] = fmaf(qa, ka, s[0][0]);
-    s[0][1] = fmaf(qa, kb, s[0][1]);
-    s[1][0] = fmaf(qb, ka, s[1][0]);
-    s[1][1] = fmaf(qb, kb, s[1][1]);
-    dp[0][0] = fmaf(ga, va, dp[0][0]);
-    dp[0][1] = fmaf(ga, vb, dp[0][1]);
-    dp[1][0] = fmaf(gb, va, dp[1][0]);
-    dp[1][1] = fmaf(gb, vb, dp[1][1]);
+  for (int n = 0; n < NT; n += NG) {
+    float t[NG][4];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) t[g][0] = t[g][1] = t[g][2] = t[g][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        split(b0[j * 8 * LD + (n + g) * 8], bh[g][0], bl[g][0]);
+        split(b0[(j * 8 + 1) * LD + (n + g) * 8], bh[g][1], bl[g][1]);
+      }
+#pragma unroll
+      for (int g = 0; g < NG; ++g) mma(t[g], al[j], bh[g][0], bh[g][1]);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) mma(t[g], ah[j], bl[g][0], bl[g][1]);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) mma(t[g], ah[j], bh[g][0], bh[g][1]);
+    }
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n + g][e] += t[g][e];
   }
 }
 
-size_t dq_smem_bytes(int d) {
-  const size_t ld = d + 1;
-  return ((2 * BQ + 2 * BK) * ld + BQ * (BK + 1) + 2 * BQ + BK) *
-         sizeof(float);
-}
-
-size_t dkv_smem_bytes(int d) {
-  const size_t ld = d + 1;
-  return ((2 * BQ + 2 * BK) * ld + 2 * BQ * (BK + 1) + 2 * BQ + BK) *
-         sizeof(float);
-}
-
-template <typename T>
+// dQ. Block (x, y, z): query rows [64 x, 64 x + 64) of head y, batch z;
+// key tiles of BN rows in order. DP: the head dim the tiles are padded to
+// (64 or 256, >= d)
+template <int DP>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v,
-                         const int32_t* __restrict__ key_mask,
-                         const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ drow, T* __restrict__ dq,
-                         int H, int Sq, int Sk, int d, int causal,
-                         float scale) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* Qs = smem;                         // BQ x ld
-  float* dOs = Qs + BQ * ld;                // BQ x ld
-  float* Ks = dOs + BQ * ld;                // BK x ld
-  float* Vs = Ks + BK * ld;                 // BK x ld
-  float* dSs = Vs + BK * ld;                // BQ x (BK + 1)
-  float* lse_s = dSs + BQ * (BK + 1);       // this tile's row lse
-  float* D_s = lse_s + BQ;                  // this tile's row dot D
-  float* valid_s = D_s + BQ;                // this key tile's validity
+flash_attn_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const int32_t* __restrict__ key_mask,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ drow,
+                              float* __restrict__ dq, int H, int Sq, int Sk,
+                              int d, int causal, float scale) {
+  constexpr int LD = pad_f32(DP);
+  constexpr int HD = DP / 2;         // the warp's half of the head dim
+  constexpr int NT = HD / 8;         // its 8-wide column tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);   // BM x LD
+  float* dOs = Qs + BM * LD;                        // BM x LD
+  float* Ks = dOs + BM * LD;                        // 2 x BN x LD
+  float* Vs = Ks + 2 * BN * LD;                     // 2 x BN x LD
+  float* xs = Vs + 2 * BN * LD;                     // 8 warps x XCH x 32
+  int32_t* valid_s = reinterpret_cast<int32_t*>(xs + THREADS * XCH);  // 2 x BN
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int group = lane >> 2, tig = lane & 3;
+  const int q0 = blockIdx.x * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const T* kb = k + bh * Sk * d;
-  const T* vb = v + bh * Sk * d;
+  const float* kb = k + bh * Sk * d;
+  const float* vb = v + bh * Sk * d;
   const int32_t* mb = key_mask + (size_t)b * Sk;
 
-  load_tile(Qs, q + bh * Sq * d, q0, BQ, Sq, d, ld, tid);
-  load_tile(dOs, dout + bh * Sq * d, q0, BQ, Sq, d, ld, tid);
-  if (tid < BQ) {
-    const bool in = q0 + tid < Sq;
-    lse_s[tid] = in ? lse[bh * Sq + q0 + tid] : -INFINITY;
-    D_s[tid] = in ? drow[bh * Sq + q0 + tid] : 0.f;
-  }
+  int n_tiles = (Sk + BN - 1) / BN;
+  // causal: the block's last valid row sees keys up to itself
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BM, Sq) - 1) / BN + 1);
 
-  float acc[2][COLS];
+  // key tile t into stage t & 1: K, V rows (0 past Sk) and key validity
+  auto load_kv = [&](int t) {
+    const int k0 = t * BN, st = t & 1;
+    load_rows_async<DP, THREADS>(Ks + st * BN * LD, kb, k0, BN, Sk, d, tid);
+    load_rows_async<DP, THREADS>(Vs + st * BN * LD, vb, k0, BN, Sk, d, tid);
+    if (tid < BN) {
+      const bool in = k0 + tid < Sk;
+      cp_async4(valid_s + st * BN + tid, in ? mb + k0 + tid : mb, in);
+    }
+  };
+  load_rows_async<DP, THREADS>(Qs, q + bh * Sq * d, q0, BM, Sq, d, tid);
+  load_rows_async<DP, THREADS>(dOs, dout + bh * Sq * d, q0, BM, Sq, d, tid);
+  load_kv(0);
+  cp_async_commit();
+
+  // warp roles: query rows m0..m0+15 of the block with its partner warp
+  // ^ 4; head-dim columns c0..c0+HD-1 for its halves of S and dP and for dQ
+  const int slice = warp & 3, m0 = slice * 16, c0 = (warp >> 2) * HD;
+  float* mine = xs + warp * XCH * 32;
+  const float* theirs = xs + (warp ^ 4) * XCH * 32;
+  const float scale2 = scale * LOG2E;
+  // this thread's two query rows (those of its C fragments), their lse in
+  // base-2 units and their D; rows past Sq read nothing and are masked
+  int row[2];
+  float lse2[2], D[2];
 #pragma unroll
-  for (int j = 0; j < COLS; ++j) acc[0][j] = acc[1][j] = 0.f;
+  for (int hf = 0; hf < 2; ++hf) {
+    row[hf] = q0 + m0 + group + 8 * hf;
+    const bool in = row[hf] < Sq;
+    lse2[hf] = in ? lse[bh * Sq + row[hf]] * LOG2E : -INFINITY;
+    D[hf] = in ? drow[bh * Sq + row[hf]] : 0.f;
+  }
+  // uniform over the pair: false when its rows all lie past Sq (decoder
+  // calls have Sq = 21 in a 64-row block)
+  const bool rows_live = q0 + m0 < Sq;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  int n_tiles = (Sk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
-
+  // one barrier a tile: after it, tile t has landed and every warp is done
+  // with tile t - 1, so its stage (which tile t + 1 takes) and the pair
+  // exchange are free
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers of Ks and dSs are done
-    load_tile(Ks, kb, k0, BK, Sk, d, ld, tid);
-    load_tile(Vs, vb, k0, BK, Sk, d, ld, tid);
-    if (tid < BK)
-      valid_s[tid] = (k0 + tid < Sk && mb[k0 + tid] != 0) ? 1.f : 0.f;
+    cp_async_wait<0>();                    // Q, dO and tile t have landed
     __syncthreads();
-
-    float s[2][2], dp[2][2];
-    two_products(Qs, dOs, Ks, Vs, ld, d, ty, tx, s, dp);
+    if (t + 1 < n_tiles) load_kv(t + 1);   // overlaps this tile
+    cp_async_commit();
+    const int k0 = t * BN;
+    const float* Kt = Ks + (t & 1) * BN * LD;
+    const float* Vt = Vs + (t & 1) * BN * LD;
+    const int32_t* vt = valid_s + (t & 1) * BN;
+    // skip, uniform over the pair, when its rows all lie past Sq or
+    // (causal) every key of the tile lies after them: dS is 0 there
+    if (!rows_live || (causal && k0 > q0 + m0 + 15)) continue;
+    float s[2][4], dp[2][4];
+    product_abt<HD / 8>(Qs, Kt, LD, m0, c0, lane, s);
+    product_abt<HD / 8>(dOs, Vt, LD, m0, c0, lane, dp);
+    pair_sum(s, dp, mine, theirs, slice, lane);
+    // P = valid ? exp(S scale - lse) : 0 (never exp then mask), as
+    // 2^(S scale log2(e) - lse log2(e)), and dS = P (dP - D) scale into s
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int row = ty + 16 * i, col = tx + 16 * j;
-        const bool ok = valid_s[col] != 0.f && q0 + row < Sq &&
-                        (!causal || k0 + col <= q0 + row);
-        const float p = ok ? expf(s[i][j] * scale - lse_s[row]) : 0.f;
-        dSs[row * (BK + 1) + col] =
-            round_to<T>(p * (dp[i][j] - D_s[row]) * scale);
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1, kl = j * 8 + 2 * tig + (e & 1);
+        const bool ok = vt[kl] != 0 && row[hf] < Sq &&
+                        (!causal || k0 + kl <= row[hf]);
+        const float p = ok ? exp2f(s[j][e] * scale2 - lse2[hf]) : 0.f;
+        s[j][e] = ok ? p * (dp[j][e] - D[hf]) * scale : 0.f;
       }
     }
-    __syncthreads();
-
-    // dQ += dS K for rows (ty, ty + 16), columns tx + 16 j
-    for (int kk = 0; kk < BK; ++kk) {
-      const float d0 = dSs[ty * (BK + 1) + kk];
-      const float d1 = dSs[(ty + 16) * (BK + 1) + kk];
-      const float* kr = Ks + kk * ld;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int col = tx + 16 * j;
-        if (col < d) {
-          const float kv = kr[col];
-          acc[0][j] = fmaf(d0, kv, acc[0][j]);
-          acc[1][j] = fmaf(d1, kv, acc[1][j]);
-        }
-      }
-    }
+    // dQ += dS K for head-dim columns c0..c0+HD-1
+    product_acc<NT>(acc, s, Kt, LD, c0, tig, group);
   }
 
+  float* gq = dq + bh * Sq * d;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = ty + 16 * i;
-    if (q0 + row >= Sq) continue;
-    T* o = dq + (bh * Sq + q0 + row) * d;
+  for (int hf = 0; hf < 2; ++hf) {
+    if (row[hf] >= Sq) continue;
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) o[col] = from_float<T>(acc[i][j]);
+    for (int n = 0; n < NT; ++n) {
+      const int c = c0 + n * 8 + 2 * tig;
+      if (c >= d) continue;
+      *reinterpret_cast<float2*>(gq + (size_t)row[hf] * d + c) =
+          make_float2(acc[n][2 * hf], acc[n][2 * hf + 1]);
     }
   }
 }
 
-template <typename T>
+// dK/dV. Block (x, y, z): key rows [64 x, 64 x + 64) of head y, batch z;
+// query tiles of BN rows in order, with their lse and D. DP as above
+template <int DP>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const int32_t* __restrict__ key_mask,
-                          const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ drow, T* __restrict__ dk,
-                          T* __restrict__ dv, int H, int Sq, int Sk, int d,
-                          int causal, float scale) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* Ks = smem;                         // BK x ld
-  float* Vs = Ks + BK * ld;                 // BK x ld
-  float* Qs = Vs + BK * ld;                 // BQ x ld
-  float* dOs = Qs + BQ * ld;                // BQ x ld
-  float* Ps = dOs + BQ * ld;                // BQ x (BK + 1)
-  float* dSs = Ps + BQ * (BK + 1);          // BQ x (BK + 1)
-  float* lse_s = dSs + BQ * (BK + 1);       // this query tile's row lse
-  float* D_s = lse_s + BQ;                  // this query tile's row dot D
-  float* valid_s = D_s + BQ;                // this block's key validity
+flash_attn_bwd_dkv_tf32_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const int32_t* __restrict__ key_mask,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ drow,
+                               float* __restrict__ dk, float* __restrict__ dv,
+                               int H, int Sq, int Sk, int d, int causal,
+                               float scale) {
+  constexpr int LD = pad_f32(DP);
+  constexpr int HD = DP / 2;
+  constexpr int NT = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);   // BM x LD
+  float* Vs = Ks + BM * LD;                         // BM x LD
+  float* Qs = Vs + BM * LD;                         // 2 x BN x LD
+  float* dOs = Qs + 2 * BN * LD;                    // 2 x BN x LD
+  float* xs = dOs + 2 * BN * LD;                    // 8 warps x XCH x 32
+  float* lse_s = xs + THREADS * XCH;                // 2 x BN
+  float* D_s = lse_s + 2 * BN;                      // 2 x BN
+  int32_t* valid_s = reinterpret_cast<int32_t*>(D_s + 2 * BN);  // BM
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int group = lane >> 2, tig = lane & 3;
+  const int k0 = blockIdx.x * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const T* qb = q + bh * Sq * d;
-  const T* ob = dout + bh * Sq * d;
+  const float* qb = q + bh * Sq * d;
+  const float* ob = dout + bh * Sq * d;
+  const float* lb = lse + bh * Sq;
+  const float* db = drow + bh * Sq;
   const int32_t* mb = key_mask + (size_t)b * Sk;
 
-  load_tile(Ks, k + bh * Sk * d, k0, BK, Sk, d, ld, tid);
-  load_tile(Vs, v + bh * Sk * d, k0, BK, Sk, d, ld, tid);
-  if (tid < BK)
-    valid_s[tid] = (k0 + tid < Sk && mb[k0 + tid] != 0) ? 1.f : 0.f;
+  load_rows_async<DP, THREADS>(Ks, k + bh * Sk * d, k0, BM, Sk, d, tid);
+  load_rows_async<DP, THREADS>(Vs, v + bh * Sk * d, k0, BM, Sk, d, tid);
+  if (tid < BM) {
+    const bool in = k0 + tid < Sk;
+    cp_async4(valid_s + tid, in ? mb + k0 + tid : mb, in);   // 0 past Sk
+  }
+  const int n_tiles = (Sq + BN - 1) / BN;
+  // causal: tile t ends at row t BN + BN - 1, before k0 for t < k0 / BN
+  const int first = causal ? k0 / BN : 0;
+  // query tile t into stage (t - first) & 1: Q, dO rows (0 past Sq), lse, D
+  auto load_q = [&](int t) {
+    const int q0 = t * BN, st = (t - first) & 1;
+    load_rows_async<DP, THREADS>(Qs + st * BN * LD, qb, q0, BN, Sq, d, tid);
+    load_rows_async<DP, THREADS>(dOs + st * BN * LD, ob, q0, BN, Sq, d, tid);
+    if (tid < BN) {
+      const bool in = q0 + tid < Sq;
+      cp_async4(lse_s + st * BN + tid, in ? lb + q0 + tid : lb, in);
+      cp_async4(D_s + st * BN + tid, in ? db + q0 + tid : db, in);
+    }
+  };
+  if (first < n_tiles) load_q(first);
+  cp_async_commit();
 
-  // key rows (ty, ty + 16) x columns tx + 16 j
-  float dk_acc[2][COLS], dv_acc[2][COLS];
+  // warp roles: key rows m0..m0+15 of the block with its partner warp ^ 4;
+  // head-dim columns c0..c0+HD-1 for its halves of S^T and dP^T and for dK
+  // and dV
+  const int slice = warp & 3, m0 = slice * 16, c0 = (warp >> 2) * HD;
+  float* mine = xs + warp * XCH * 32;
+  const float* theirs = xs + (warp ^ 4) * XCH * 32;
+  const float scale2 = scale * LOG2E;
+  // uniform over the pair: false when its key rows all lie past Sk
+  const bool keys_live = k0 + m0 < Sk;
+  float dk_acc[NT][4], dv_acc[NT][4];
 #pragma unroll
-  for (int j = 0; j < COLS; ++j)
-    dk_acc[0][j] = dk_acc[1][j] = dv_acc[0][j] = dv_acc[1][j] = 0.f;
-
-  const int n_tiles = (Sq + BQ - 1) / BQ;
-  // causal: tile i ends at row i BQ + BQ - 1, before k0 for i < k0 / BQ
-  const int first = causal ? k0 / BQ : 0;
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
   for (int t = first; t < n_tiles; ++t) {
-    const int q0 = t * BQ;
-    __syncthreads();  // the previous tile's readers of Qs, dOs, Ps, dSs done
-    load_tile(Qs, qb, q0, BQ, Sq, d, ld, tid);
-    load_tile(dOs, ob, q0, BQ, Sq, d, ld, tid);
-    if (tid < BQ) {
-      const bool in = q0 + tid < Sq;
-      lse_s[tid] = in ? lse[bh * Sq + q0 + tid] : -INFINITY;
-      D_s[tid] = in ? drow[bh * Sq + q0 + tid] : 0.f;
-    }
+    cp_async_wait<0>();                    // K, V and tile t have landed
     __syncthreads();
-
-    // query rows (ty, ty + 16) x key columns (tx, tx + 16)
-    float s[2][2], dp[2][2];
-    two_products(Qs, dOs, Ks, Vs, ld, d, ty, tx, s, dp);
+    if (t + 1 < n_tiles) load_q(t + 1);    // overlaps this tile
+    cp_async_commit();
+    const int q0 = t * BN, st = (t - first) & 1;
+    const float* Qt = Qs + st * BN * LD;
+    const float* dOt = dOs + st * BN * LD;
+    const float* lt = lse_s + st * BN;
+    const float* Dt = D_s + st * BN;
+    // skip, uniform over the pair, when its key rows all lie past Sk or
+    // (causal) after every query of the tile: P and dS are 0 there
+    if (!keys_live || (causal && k0 + m0 > q0 + BN - 1)) continue;
+    float s[2][4], dp[2][4], ds[2][4];
+    product_abt<HD / 8>(Ks, Qt, LD, m0, c0, lane, s);     // S^T
+    product_abt<HD / 8>(Vs, dOt, LD, m0, c0, lane, dp);   // dP^T
+    pair_sum(s, dp, mine, theirs, slice, lane);
+    // P^T = valid ? exp(S^T scale - lse) : 0 (never exp then mask) into s,
+    // and dS^T = P^T (dP^T - D) scale: element e of s[j] is key row
+    // m0 + group + 8 (e / 2), query column j 8 + 2 tig + e % 2
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int row = ty + 16 * i, col = tx + 16 * j;
-        const bool ok = valid_s[col] != 0.f && q0 + row < Sq &&
-                        (!causal || k0 + col <= q0 + row);
-        const float p = ok ? expf(s[i][j] * scale - lse_s[row]) : 0.f;
-        Ps[row * (BK + 1) + col] = round_to<T>(p);
-        dSs[row * (BK + 1) + col] =
-            round_to<T>(p * (dp[i][j] - D_s[row]) * scale);
+      for (int e = 0; e < 4; ++e) {
+        const int kl = m0 + group + 8 * (e >> 1);
+        const int ql = j * 8 + 2 * tig + (e & 1), qi = q0 + ql;
+        const bool ok = valid_s[kl] != 0 && qi < Sq &&
+                        (!causal || k0 + kl <= qi);
+        const float p =
+            ok ? exp2f(s[j][e] * scale2 - lt[ql] * LOG2E) : 0.f;
+        ds[j][e] = ok ? p * (dp[j][e] - Dt[ql]) * scale : 0.f;
+        s[j][e] = p;
       }
     }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q for key rows (ty, ty + 16)
-    for (int qq = 0; qq < BQ; ++qq) {
-      const float p0 = Ps[qq * (BK + 1) + ty];
-      const float p1 = Ps[qq * (BK + 1) + ty + 16];
-      const float s0 = dSs[qq * (BK + 1) + ty];
-      const float s1 = dSs[qq * (BK + 1) + ty + 16];
-      const float* gr = dOs + qq * ld;
-      const float* qr = Qs + qq * ld;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int col = tx + 16 * j;
-        if (col < d) {
-          const float g = gr[col], x = qr[col];
-          dv_acc[0][j] = fmaf(p0, g, dv_acc[0][j]);
-          dv_acc[1][j] = fmaf(p1, g, dv_acc[1][j]);
-          dk_acc[0][j] = fmaf(s0, x, dk_acc[0][j]);
-          dk_acc[1][j] = fmaf(s1, x, dk_acc[1][j]);
-        }
-      }
-    }
+    // dV += P^T dO and dK += dS^T Q for head-dim columns c0..c0+HD-1
+    product_acc<NT>(dv_acc, s, dOt, LD, c0, tig, group);
+    product_acc<NT>(dk_acc, ds, Qt, LD, c0, tig, group);
   }
+  cp_async_wait<0>();  // nothing left in flight (no query tile at all)
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = ty + 16 * i;
-    if (k0 + row >= Sk) continue;
-    T* gk = dk + (bh * Sk + k0 + row) * d;
-    T* gv = dv + (bh * Sk + k0 + row) * d;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kr = k0 + m0 + group + 8 * hf;
+    if (kr >= Sk) continue;
+    float* gk = dk + (bh * Sk + kr) * d;
+    float* gv = dv + (bh * Sk + kr) * d;
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) {
-        gk[col] = from_float<T>(dk_acc[i][j]);
-        gv[col] = from_float<T>(dv_acc[i][j]);
-      }
+    for (int n = 0; n < NT; ++n) {
+      const int c = c0 + n * 8 + 2 * tig;
+      if (c >= d) continue;
+      *reinterpret_cast<float2*>(gk + c) =
+          make_float2(dk_acc[n][2 * hf], dk_acc[n][2 * hf + 1]);
+      *reinterpret_cast<float2*>(gv + c) =
+          make_float2(dv_acc[n][2 * hf], dv_acc[n][2 * hf + 1]);
     }
   }
 }
+
+template <int DP>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* key_mask, const void* dout, const void* lse,
+                      const void* drow, void* dq, int B, int H, int Sq, int Sk,
+                      int d, int causal, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<DP>(2 * BN * sizeof(int32_t));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attn_bwd_dq_tf32_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + BM - 1) / BM, H, B);
+  flash_attn_bwd_dq_tf32_kernel<DP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int32_t*>(key_mask),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(drow), static_cast<float*>(dq), H, Sq, Sk, d,
+      causal, 1.0f / sqrtf((float)d));
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* key_mask, const void* dout,
+                       const void* lse, const void* drow, void* dk, void* dv,
+                       int B, int H, int Sq, int Sk, int d, int causal,
+                       cudaStream_t stream) {
+  constexpr size_t smem =
+      smem_bytes<DP>(4 * BN * sizeof(float) + BM * sizeof(int32_t));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attn_bwd_dkv_tf32_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sk + BM - 1) / BM, H, B);
+  flash_attn_bwd_dkv_tf32_kernel<DP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int32_t*>(key_mask),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(drow), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Sq, Sk, d, causal, 1.0f / sqrtf((float)d));
+  return cudaGetLastError();
+}
+
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // dK/dV in bf16: tensor cores (mma.sync m16n8k16, fp32 accumulators),
@@ -877,55 +1074,16 @@ bool bad_shape(int B, int H, int Sq, int Sk, int d) {
          d % 8 != 0 || B > 65535 || H > 65535;
 }
 
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* key_mask, const void* dout, const void* lse,
-                      const void* drow, void* dq, int B, int H, int Sq, int Sk,
-                      int d, int causal, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_bwd_dq_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attn_bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(key_mask),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(drow), static_cast<T*>(dq), H, Sq, Sk, d,
-      causal, 1.0f / sqrtf((float)d));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* key_mask, const void* dout,
-                       const void* lse, const void* drow, void* dk, void* dv,
-                       int B, int H, int Sq, int Sk, int d, int causal,
-                       cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_bwd_dkv_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + BK - 1) / BK, H, B);
-  flash_attn_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(key_mask),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(drow), static_cast<T*>(dk),
-      static_cast<T*>(dv), H, Sq, Sk, d, causal, 1.0f / sqrtf((float)d));
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// q, dout, dq: (B, H, Sq, d); k, v, dk, dv: (B, H, Sk, d); all contiguous and
-// of one dtype (is_bf16 ? bfloat16 : float32). key_mask: (B, Sk) int32,
-// nonzero = attend. lse, drow: (B, H, Sq) float32 (the forward's row
-// log-sum-exp and rowsum(dout * out) with NaN -> 0). Each launches on
-// `stream`, allocates nothing, does not synchronise, and returns the
-// cudaError_t of the launch (0 = success).
+// q, dout, dq: (B, H, Sq, d); k, v, dk, dv: (B, H, Sk, d); all contiguous,
+// 16-byte aligned and of one dtype (is_bf16 ? bfloat16 : float32). key_mask:
+// (B, Sk) int32, nonzero = attend. lse, drow: (B, H, Sq) float32 (the
+// forward's row log-sum-exp and rowsum(dout * out) with NaN -> 0). The dtype
+// picks the kernel, both on tensor cores with the head dim padded to 64 or
+// 256: 3xTF32 for fp32, bf16 for bf16. Each launches on `stream`, allocates
+// nothing, does not synchronise, and returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* key_mask, const void* dout,
                                  const void* lse, const void* drow, void* dq,
@@ -933,9 +1091,13 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  int causal, int is_bf16, void* stream) {
   if (bad_shape(B, H, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return (int)launch_dq<float>(q, k, v, key_mask, dout, lse, drow, dq, B, H,
-                                 Sq, Sk, d, causal, s);
+  if (!is_bf16) {
+    if (d <= 64)
+      return (int)tf32::launch_dq<64>(q, k, v, key_mask, dout, lse, drow, dq,
+                                      B, H, Sq, Sk, d, causal, s);
+    return (int)tf32::launch_dq<256>(q, k, v, key_mask, dout, lse, drow, dq,
+                                     B, H, Sq, Sk, d, causal, s);
+  }
   if (d <= 64)
     return (int)tc::launch_dq<64>(q, k, v, key_mask, dout, lse, drow, dq, B,
                                   H, Sq, Sk, d, causal, s);
@@ -951,9 +1113,13 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   void* stream) {
   if (bad_shape(B, H, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return (int)launch_dkv<float>(q, k, v, key_mask, dout, lse, drow, dk, dv,
-                                  B, H, Sq, Sk, d, causal, s);
+  if (!is_bf16) {
+    if (d <= 64)
+      return (int)tf32::launch_dkv<64>(q, k, v, key_mask, dout, lse, drow, dk,
+                                       dv, B, H, Sq, Sk, d, causal, s);
+    return (int)tf32::launch_dkv<256>(q, k, v, key_mask, dout, lse, drow, dk,
+                                      dv, B, H, Sq, Sk, d, causal, s);
+  }
   if (d <= 64)
     return (int)tc::launch_dkv<64>(q, k, v, key_mask, dout, lse, drow, dk, dv,
                                    B, H, Sq, Sk, d, causal, s);

@@ -53,7 +53,7 @@
 // card's full tensor-core rate, are later work.
 //
 // fp32 (the single-video app, whose checkpoints are fp32, and the fp32
-// parity checks): tensor cores in TF32, three products per product
+// train steps): tensor cores in TF32, three products per product
 // ("3xTF32", csrc/mma_tf32.cuh), so the result is as accurate as fp32 FMA:
 // one TF32 product misses the fp32 tolerances (tests/test_torch_port_tf32.py).
 // What bounds it on this card: three m16n8k8 products per fp32 product make

@@ -1,8 +1,8 @@
-// Tensor-core building blocks of the fp32 attention forward
-// (flash_attn_fwd.cu), for sm_80 and later (built for sm_90a here): fp32
-// tiles by cp.async, fragments by ldmatrix, and the m16n8k8 TF32 mma.sync
-// with fp32 accumulators, used three times per product so that the result
-// keeps fp32 accuracy ("3xTF32").
+// Tensor-core building blocks of the fp32 attention kernels
+// (flash_attn_fwd.cu, flash_attn_bwd.cu), for sm_80 and later (built for
+// sm_90a here): fp32 tiles by cp.async, fragments by ldmatrix, and the
+// m16n8k8 TF32 mma.sync with fp32 accumulators, used three times per
+// product so that the result keeps fp32 accuracy ("3xTF32").
 //
 // Fragment layouts of mma.sync.m16n8k8 .tf32 (PTX ISA, "Matrix Fragments
 // for mma.m16n8k8"), one element a register, with group = lane / 4 and

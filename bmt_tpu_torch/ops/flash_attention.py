@@ -43,9 +43,7 @@ MAX_HEAD_DIM = 256
 # H100 SXM peaks (NVIDIA's data sheet, dense) and HBM3. bf16: the tensor
 # cores' bf16 rate. float32: the TF32 rate over three, because fp32 work on
 # the tensor cores takes three TF32 products for each fp32 product to keep
-# fp32 accuracy (csrc/mma_tf32.cuh), as the fp32 forward kernel does. The
-# fp32 backward kernels, still on fp32 FMA (67 TFLOP/s), are held to the
-# same rate: the least time the card could take for their work
+# fp32 accuracy (csrc/mma_tf32.cuh), as the fp32 kernels do
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 495e12 / 3}
 PEAK_BYTES_PER_S = 3.35e12
 # the fp32 forward kernel's tiles: query rows a block, keys a tile
@@ -217,9 +215,8 @@ def attention_bound_ms(flops: int, nbytes: int, dtype: str):
 
 # ---------------------------------------------------------------------------
 # kernel wrappers: plain version on the CPU, the kernel on CUDA, else raise.
-# The dtype picks the kernel behind each C entry point. The forward runs on
-# tensor cores in both: 3xTF32 for float32, bf16 for bfloat16. The backward
-# runs on tensor cores for bfloat16 and on fp32 FMA for float32. All are
+# The dtype picks the kernel behind each C entry point; every kernel runs on
+# tensor cores: 3xTF32 for float32, bf16 for bfloat16. Both are
 # hand-written kernels of the same function; the choice is the input's
 # type, not a fallback.
 # ---------------------------------------------------------------------------

@@ -9,14 +9,14 @@ when it fails:
 
 1. the device: torch's name for it and nvidia-smi's name and power limit;
 2. build the CUDA kernels from bmt_tpu_torch/csrc/ (one nvcc per source,
-   started together; timed): the forward on tensor cores in fp32
-   (flash_attn_fwd_tf32_kernel, 3xTF32, and flash_attn_fwd_combine_kernel,
-   which combines the partials of a split key loop) and in bf16
-   (flash_attn_fwd_bf16_kernel); dQ and dK/dV as fp32 FMA kernels and bf16
-   tensor-core kernels (flash_attn_bwd_dq_bf16_kernel,
-   flash_attn_bwd_dkv_bf16_kernel); the tensor-core kernels at head dims
-   padded to 64 and 256; print what ptxas reports for each and fail if one
-   is missing or any kernel spills registers;
+   started together; timed), all on tensor cores at head dims padded to 64
+   and 256: the forward in fp32 (flash_attn_fwd_tf32_kernel, 3xTF32, and
+   flash_attn_fwd_combine_kernel, which combines the partials of a split
+   key loop) and in bf16 (flash_attn_fwd_bf16_kernel); dQ and dK/dV in fp32
+   (flash_attn_bwd_dq_tf32_kernel, flash_attn_bwd_dkv_tf32_kernel, 3xTF32)
+   and in bf16 (flash_attn_bwd_dq_bf16_kernel,
+   flash_attn_bwd_dkv_bf16_kernel); print what ptxas reports for each and
+   fail if one is missing or any kernel spills registers;
 3. the forward kernel against its plain PyTorch version on the card, in
    fp32 and bf16, at the serving shapes and at Sq = Sk = 2048, with random
    padded key masks and one batch row whose keys are all masked (NaN in
@@ -25,9 +25,9 @@ when it fails:
    against flash_attention_lse_reference and dQ, dK, dV against their plain
    versions on the same inputs, at the train cell's seven attention shapes
    (B=32, H=4, d=256) and at S=2048 plain and causal; the batch row with
-   every key masked has lse -inf and exactly zero gradients in both; the
-   bf16 dQ of the 256x256 call is bitwise equal across two launches (no
-   atomics);
+   every key masked has lse -inf and exactly zero gradients in both; dQ,
+   dK and dV of the 256x256 call are bitwise equal across two launches in
+   both dtypes (no atomics);
 5. serving: a flagship-width BiModalTransformer made from a seed on the card,
    round-tripped through the JAX-layout npz, answers five crops of ragged
    lengths in two buckets through CaptionEngine (bf16); the forward kernel's
@@ -38,19 +38,20 @@ when it fails:
 7. train-step parity (fp32, flagship width, B=4, dropout off): two Adam
    steps through attention_impl 'kernel' and 'torch'; loss, grad_norm,
    gradients and parameters agree;
-8. train-step timing (bf16) at bench.py's train cell (B=32, Sa=256, Sv=96,
-   Sc=22, flagship, Adam lr 5e-5, clip 1.0, smoothing 0.7, dropout 0.1):
-   ms per step through both paths (median of alternating repetitions), 14
-   launches of each kernel per step, a loss that falls over 10 steps on one
-   repeated batch, the device-busy time of one step of each path
-   (torch.profiler), and at the step's seven attention shapes in bf16 each
-   kernel's device time (torch.profiler) beside its plain version's, its
-   bound (attention_cost) and its share of it, and the library yardsticks
-   timed in the same turns: F.scaled_dot_product_attention for the forward,
-   one autograd.grad through it (dQ, dK and dV together) for the backward
-   pair; and each kernel's time per call launched back to back (CUDA
-   events), which the host's launch rate sets for short calls; then the
-   same for the three kernels in fp32 at the step's 256x256 call;
+8. train-step timing at bench.py's train cell (B=32, Sa=256, Sv=96,
+   Sc=22, flagship, Adam lr 5e-5, clip 1.0, smoothing 0.7, dropout 0.1),
+   in bf16 and then in fp32 (the train steps' default compute dtype): ms
+   per step through both paths (median of alternating repetitions), 14
+   launches of each kernel per step, the device-busy time of one step of
+   each path (torch.profiler), and in bf16 a loss that falls over 10 steps
+   on one repeated batch; then at the step's seven attention shapes, in
+   bf16 and in fp32, each kernel's device time (device_ms) beside its
+   plain version's, its bound (attention_cost) and its share of it, and
+   the library yardsticks timed in the same turns:
+   F.scaled_dot_product_attention for the forward, one autograd.grad
+   through it (dQ, dK and dV together) for the backward pair; and each
+   kernel's time per call launched back to back (CUDA events), which the
+   host's launch rate sets for short calls;
 9. the trainer: train_epoch_cap over an in-memory dataset of 20 crops in
    batches of 8 (a ragged tail of 4) through the kernels; the launch counts
    of this run are the ones the kernel report gives;
@@ -65,7 +66,9 @@ when it fails:
     with key masks of videos shorter than the pad (65%, 40%, 90% of the
     rows) and one batch row with every key masked; then each kernel's
     device time in bf16 beside its plain version's, the library call's and
-    its bound, at B=16 and (the serving forward) B=1;
+    its bound, at B=16 and (the serving forward) B=1, and the same in fp32
+    at B=16 (the shapes of a fp32 proposal train step, which launches 8 dQ
+    and 8 dK/dV);
 12. dense captioning (bf16): a flagship MultimodalProposalGenerator
     (PropModelDims(): 10 + 10 conv heads, 48 + 128 anchors as bench.py sets
     them) from a seed, round-tripped through the JAX-layout npz, serves two
@@ -120,8 +123,11 @@ The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. The report's `launches` are the captioning
 trainer's (phase 9); `launches_by_path` gives those of each main path's run
 (phases 9, 12, 15 and 16), `proposal_800x800` each kernel's times at the
-proposal cell's 800x800 call, and the forward's `fp32_app` its fp32 times
-at the app's caption-batch 512x512 and B=1 800x800 calls.
+proposal cell's 800x800 call, `fp32_train_256x256` its fp32 times at the
+train cell's 256x256 call, and the forward's `fp32_app` its fp32 times at
+the app's caption-batch 512x512 and B=1 800x800 calls; the report's
+`fp32_train_step_ms` holds the fp32 captioner train step's medians through
+'kernel' and 'torch' (phase 8).
 '''
 import contextlib
 import copy
@@ -180,15 +186,14 @@ from bmt_tpu_torch.utils import (get_corner_coords,
 SOURCES = {KERNEL: 'bmt_tpu_torch/csrc/flash_attn_fwd.cu',
            KERNEL_DQ: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu',
            KERNEL_DKV: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu'}
-# the kernels each library holds: the forward on tensor cores (3xTF32 with
-# its split's combine, and bf16); the backward on fp32 FMA and bf16 tensor
-# cores
+# the kernels each library holds, all on tensor cores: 3xTF32 for fp32 (the
+# forward with its split's combine) and bf16
 ENTRIES = {KERNEL: ('flash_attn_fwd_tf32_kernel',
                     'flash_attn_fwd_combine_kernel',
                     'flash_attn_fwd_bf16_kernel'),
-           BWD_LIBRARY: ('flash_attn_bwd_dq_kernel',
+           BWD_LIBRARY: ('flash_attn_bwd_dq_tf32_kernel',
                          'flash_attn_bwd_dq_bf16_kernel',
-                         'flash_attn_bwd_dkv_kernel',
+                         'flash_attn_bwd_dkv_tf32_kernel',
                          'flash_attn_bwd_dkv_bf16_kernel')}
 REPLACES = {KERNEL: 'bmt_tpu/ops/pallas_attention.py:237',  # and :278
             KERNEL_DQ: 'bmt_tpu/ops/pallas_attention.py:473',
@@ -434,11 +439,13 @@ def phase_kernel(dev):
 
 
 def check_kernels(case, dtype, dev, seed, dout_seed, lengths=None,
-                  backward=True, bitwise_dq=False):
+                  backward=True, bitwise=False):
     '''The lse forward and, with ``backward``, dQ and dK/dV against their
     plain versions at ``case``; the plain backward gets the kernel's lse and
     D (the same inputs). A batch row with every key masked has lse -inf and
-    exactly zero gradients in both. Returns {kernel: max abs error}.'''
+    exactly zero gradients in both. With ``bitwise``, a second launch of
+    each backward kernel gives the same bits. Returns {kernel: max abs
+    error}.'''
     q, k, v, mask, empty = attention_inputs(case, dtype, dev, seed, lengths)
     km, causal = key_mask_and_causal(mask, q.shape[0], k.shape[2], dev)
     out, lse = flash_attention_forward(q, k, v, km, causal, with_lse=True)
@@ -469,12 +476,15 @@ def check_kernels(case, dtype, dev, seed, dout_seed, lengths=None,
         ref_dk, ref_dv = flash_attention_bwd_dkv_reference(
             q, k, v, km, causal, lse, drow, dout)
         torch.cuda.synchronize()
-        if bitwise_dq:
-            again = flash_attention_bwd_dq(q, k, v, km, causal, lse, drow,
-                                           dout)
-            check(torch.equal(dq, again), f'{case[0]} {dtype}: dQ differs '
-                  f'between two launches on the same inputs')
-            line.append('dq bitwise equal in 2 launches')
+        if bitwise:
+            again = (flash_attention_bwd_dq(q, k, v, km, causal, lse, drow,
+                                            dout),
+                     *flash_attention_bwd_dkv(q, k, v, km, causal, lse, drow,
+                                              dout))
+            check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+                  f'{case[0]} {dtype}: dQ, dK or dV differs between two '
+                  f'launches on the same inputs')
+            line.append('dq, dk, dv bitwise equal in 2 launches')
         empty_row = bool(empty[-1].all())
         for name, got, want in (('dq', dq, ref_dq), ('dk', dk, ref_dk),
                                 ('dv', dv, ref_dv)):
@@ -503,7 +513,7 @@ def phase_train_kernels(dev):
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate(TRAIN_CASES):
             e = check_kernels(case, dtype, dev, 100 + i, 200 + i,
-                              bitwise_dq=dtype == torch.bfloat16 and i == 0)
+                              bitwise=i == 0)
             err = {n: max(err[n], e[n]) for n in err}
     return err
 
@@ -632,11 +642,11 @@ def step_ms(state, step, batch):
     return (time.perf_counter() - t0) * 1e3, m
 
 
-def phase_train_timing(dev, smi):
-    dims = CapModelDims(voc_size=VOC)                 # dropout 0.1
-    batch = train_batch(30, TB, SV, SA, TSC, dims)
-    paths = {impl: trainer(dims, dev, impl, torch.bfloat16)
-             for impl in ('torch', 'kernel')}
+def step_medians(paths, batch, label, smi):
+    '''{impl: ms per step} of each path's train step on ``batch``: the
+    median of alternating repetitions after a warm-up step each, with a
+    finite loss and CALLS_PER_STEP launches of each kernel in every
+    'kernel' step (none in a 'torch' step).'''
     for impl, (state, step) in paths.items():        # warm-up
         step_ms(state, step, batch)
     times = {'torch': [], 'kernel': []}
@@ -646,62 +656,83 @@ def phase_train_timing(dev, smi):
         ms, m = step_ms(state, step, batch)
         counts = launch_counts()
         times[impl].append(ms)
-        check(torch.isfinite(m['loss']).item(), f'{impl}: loss not finite')
+        check(torch.isfinite(m['loss']).item(),
+              f'{label} {impl}: loss not finite')
         want = CALLS_PER_STEP if impl == 'kernel' else 0
         check(all(n == want for n in counts.values()),
-              f'{impl} step launched {counts}, {want} of each expected')
+              f'{label} {impl} step launched {counts}, {want} of each '
+              f'expected')
     med = {impl: statistics.median(t) for impl, t in times.items()}
-    print(f'    ms per step (median of {2 * TRAIN_ROUNDS}; {smi}): kernel '
-          f'{med["kernel"]:.2f} '
+    print(f'    {label}: ms per step (median of {2 * TRAIN_ROUNDS}; {smi}): '
+          f'kernel {med["kernel"]:.2f} '
           f'{[round(t, 2) for t in times["kernel"]]}, torch '
           f'{med["torch"]:.2f} {[round(t, 2) for t in times["torch"]]}; '
           f'launches per kernel step {CALLS_PER_STEP} of each kernel')
+    return med
+
+
+def print_busy(paths, batch, med, label):
+    '''The device-busy time of one step of each path (torch.profiler).'''
+    for impl, (state, step) in paths.items():
+        busy, n, top, attn = device_busy(lambda: step(state, batch))
+        share = 'not measured' if busy is None else (
+            f'{busy:.2f} ms of the median {med[impl]:.2f} ms step '
+            f'({busy / med[impl]:.1%})')
+        print(f'    {label} {impl}: device busy {share} in {n} kernels and '
+              f'copies; top (ms): {top}; attention kernels (ms): {attn}')
+
+
+def phase_train_timing(dev, smi):
+    '''The train step through both paths in bf16 and then in fp32 (the
+    steps' default compute dtype), then the kernels' times at the step's
+    shapes. Returns (bf16 medians, fp32 medians, bf16 kernel_times at
+    256x256, fp32 kernel_times at 256x256).'''
+    dims = CapModelDims(voc_size=VOC)                 # dropout 0.1
+    batch = train_batch(30, TB, SV, SA, TSC, dims)
+    paths = {impl: trainer(dims, dev, impl, torch.bfloat16)
+             for impl in ('torch', 'kernel')}
+    med = step_medians(paths, batch, 'bf16', smi)
 
     state, step = paths['kernel']
     losses = []
     for _ in range(10):
         state, m = step(state, batch)
         losses.append(m['loss'].item())
-    print(f'    10 more steps on the same batch (kernel): loss '
+    print(f'    10 more steps on the same batch (bf16, kernel): loss '
           f'{[round(x, 4) for x in losses]}')
     # dropout makes single steps noisy: compare the first and last three
     check(sum(losses[-3:]) < sum(losses[:3]), 'the loss does not fall')
+    print_busy(paths, batch, med, 'bf16')
+    del paths, state, step
+    torch.cuda.empty_cache()
 
-    for impl, (state, step) in paths.items():
-        busy, n, top, attn = device_busy(lambda: step(state, batch))
-        share = 'not measured' if busy is None else (
-            f'{busy:.2f} ms of the median {med[impl]:.2f} ms step '
-            f'({busy / med[impl]:.1%})')
-        print(f'    {impl}: device busy {share} in {n} kernels and copies; '
-              f'top (ms): {top}; attention kernels (ms): {attn}')
+    paths = {impl: trainer(dims, dev, impl, torch.float32)
+             for impl in ('torch', 'kernel')}
+    med32 = step_medians(paths, batch, 'fp32', smi)
+    print_busy(paths, batch, med32, 'fp32')
+    del paths
+    torch.cuda.empty_cache()
 
     # the three kernels against their plain versions and the library at
-    # the step's seven attention shapes; the first (encoder 256x256) goes
-    # into the report. The library's backward computes dQ, dK and dV
-    # together: it compares with the sum of the two backward kernels
-    ms = {}
-    print(f'    device ms per call (bf16, B={TB}, H=4, d=256; {smi}):')
-    for case in TRAIN_CASES[:7]:
-        t = kernel_times(case, dev)
-        ms = ms or t
-        pair = t[KERNEL_DQ]['kernel'] + t[KERNEL_DKV]['kernel']
-        print(f'    {case[0]:24s} Sq={case[3]:3d} Sk={case[4]:3d}: '
-              + '; '.join(times_line(n, v) for n, v in t.items())
-              + f'; dQ + dK/dV {pair:.4f} vs library backward '
-              f'{t[KERNEL_DQ]["library"]:.4f}')
-    # fp32 at the encoder's 256x256 call: the forward on tensor cores
-    # (3xTF32), dQ and dK/dV on fp32 FMA (no main path launches the fp32
-    # backward: training computes in bf16)
-    case = TRAIN_CASES[0]
-    t = kernel_times(case, dev, dtype=torch.float32)
-    pair = t[KERNEL_DQ]['kernel'] + t[KERNEL_DKV]['kernel']
-    print(f'    fp32, {case[0]} B={TB} Sq={case[3]} Sk={case[4]} (library '
-          f'backward: autograd.grad through fp32 '
-          f'scaled_dot_product_attention): '
-          + '; '.join(times_line(n, v) for n, v in t.items())
-          + f'; dQ + dK/dV {pair:.4f} vs library backward '
-          f'{t[KERNEL_DQ]["library"]:.4f}')
-    return med, ms
+    # the step's seven attention shapes, in bf16 and in fp32 (3xTF32); the
+    # first (encoder 256x256) goes into the report. The library's backward
+    # computes dQ, dK and dV together: it compares with the sum of the two
+    # backward kernels
+    first = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f'    device ms per call ({str(dtype).removeprefix("torch.")}, '
+              f'B={TB}, H=4, d=256; library backward: autograd.grad through '
+              f'scaled_dot_product_attention of that dtype; {smi}):')
+        for case in TRAIN_CASES[:7]:
+            t = kernel_times(case, dev, dtype=dtype)
+            first.setdefault(dtype, t)
+            pair = t[KERNEL_DQ]['kernel'] + t[KERNEL_DKV]['kernel']
+            print(f'    {case[0]:24s} Sq={case[3]:3d} Sk={case[4]:3d}: '
+                  + '; '.join(times_line(n, v) for n, v in t.items())
+                  + f'; dQ + dK/dV {pair:.4f} vs library backward '
+                  f'{t[KERNEL_DQ]["library"]:.4f}')
+    ms, ms32 = first[torch.bfloat16], first[torch.float32]
+    return med, med32, ms, ms32
 
 
 def kernel_times(case, dev, lengths=None, dtype=torch.bfloat16):
@@ -850,9 +881,10 @@ def prop_key_lengths(b, sk, dev):
 def phase_prop_kernels(dev, smi):
     '''The three kernels against their plain versions at the proposal
     shapes (fp32 and bf16; the forward at B = 1 and B = 16, dQ and dK/dV at
-    B = 16), then their device times in bf16 beside the plain versions, the
-    library calls and the bounds. Returns (max abs error by kernel,
-    {case: kernel_times at B = 16}).'''
+    B = 16), then their device times in bf16 (B = 16 and B = 1) and in fp32
+    (B = 16) beside the plain versions, the library calls and the bounds.
+    Returns (max abs error by kernel, {case: bf16 kernel_times at
+    B = 16}).'''
     err = {KERNEL: 0.0, KERNEL_DQ: 0.0, KERNEL_DKV: 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate(PROP_CASES):
@@ -876,6 +908,19 @@ def phase_prop_kernels(dev, smi):
         t = forward_times(c, dev, 500 + i, prop_key_lengths(1, case[4], dev))
         print(f'    B=1  {case[0]:24s} Sq={case[3]:3d} Sk={case[4]:3d}: '
               + times_line('forward (no lse)', t))
+    # fp32 at B=16: what a fp32 proposal train step launches (16 forward,
+    # 8 dQ and 8 dK/dV calls at these four shapes)
+    print(f'    device ms per call (fp32, B={PB}, H=4, d=256; library '
+          f'backward: autograd.grad through fp32 '
+          f'scaled_dot_product_attention; {smi}):')
+    for case in PROP_CASES:
+        lengths = prop_key_lengths(PB, case[4], dev)
+        t = kernel_times(case, dev, lengths, dtype=torch.float32)
+        pair = t[KERNEL_DQ]['kernel'] + t[KERNEL_DKV]['kernel']
+        print(f'    B={PB} {case[0]:24s} Sq={case[3]:3d} Sk={case[4]:3d}: '
+              + '; '.join(times_line(n, v) for n, v in t.items())
+              + f'; dQ + dK/dV {pair:.4f} vs library backward '
+              f'{t[KERNEL_DQ]["library"]:.4f}')
     return err, train
 
 
@@ -1756,9 +1801,11 @@ def main():
           f'Sc={TSC}, dropout off, 2 Adam steps, eps {PARITY_CFG.eps}):')
     phase_train_parity(dev)
 
-    print(f'[8] train step (bf16, B={TB}, Sa={SA}, Sv={SV}, Sc={TSC}, '
-          f'dropout 0.1, Adam lr {TRAIN_CFG.lr}, clip 1.0) on {smi}:')
-    train_ms, train_kernel_ms = phase_train_timing(dev, smi)
+    print(f'[8] train step (bf16, then fp32; B={TB}, Sa={SA}, Sv={SV}, '
+          f'Sc={TSC}, dropout 0.1, Adam lr {TRAIN_CFG.lr}, clip 1.0) on '
+          f'{smi}:')
+    train_ms, train_ms32, train_kernel_ms, train_kernel_ms32 = \
+        phase_train_timing(dev, smi)
 
     print('[9] trainer: train_epoch_cap (bf16, kernels):')
     trainer_launches = phase_trainer(dev)
@@ -1796,8 +1843,9 @@ def main():
     print(f'    uncached decoder (once): {base_s:.3f} s = '
           f'{B / base_s:.1f} captions/s; vs_baseline '
           f'{cps["kernel"] / (B / base_s):.2f}x')
-    print(f'    train step ms: kernel {train_ms["kernel"]:.2f}, torch '
-          f'{train_ms["torch"]:.2f}')
+    print(f'    train step ms: bf16 kernel {train_ms["kernel"]:.2f}, torch '
+          f'{train_ms["torch"]:.2f}; fp32 kernel '
+          f'{train_ms32["kernel"]:.2f}, torch {train_ms32["torch"]:.2f}')
     del model16, x16
     torch.cuda.empty_cache()
 
@@ -1837,6 +1885,7 @@ def main():
     # at the proposal cell's 800x800 call; launches of each main path's run
     # (the captioning trainer's are the report's `launches`)
     at_prop = prop_kernel_ms[PROP_CASES[0][0]]
+    at32 = train_kernel_ms32
     paths = {'train_epoch_cap': trainer_launches,
              'video_pipeline': pipeline_launches,
              'train_epoch_prop': prop_launches,
@@ -1860,12 +1909,18 @@ def main():
             'bound_ms': at_prop[kname]['bound'],
             'bound_by': at_prop[kname]['bound_by'],
             'library_ms': at_prop[kname]['library']},
+        'fp32_train_256x256': {
+            'ms': at32[kname]['kernel'], 'plain_ms': at32[kname]['plain'],
+            'bound_ms': at32[kname]['bound'],
+            'bound_by': at32[kname]['bound_by'],
+            'library_ms': at32[kname]['library']},
         **({'fp32_app': {shape: {
             'ms': a['kernel'], 'plain_ms': a['plain'],
             'library_ms': a['library'], 'bound_ms': a['bound'],
             'bound_by': a['bound_by']} for shape, a in app_ms.items()}}
            if kname == KERNEL else {})}
-        for kname, err, t in report]}))
+        for kname, err, t in report],
+        'fp32_train_step_ms': train_ms32}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

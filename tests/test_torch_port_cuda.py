@@ -249,22 +249,30 @@ def test_fp32_key_split_is_deterministic_on_card(cuda, monkeypatch, shape,
         assert not first[0][0].isnan().any()
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape,kind', [
-    ((2, 4, 256, 256, 256), 'padding'), ((2, 2, 129, 129, 64), 'causal')])
-def test_bf16_dq_kernel_is_deterministic_on_card(cuda, shape, kind):
-    '''No atomics: one block owns a query tile and sums over the key tiles
-    in one fixed order, so two launches on the same inputs give the same
-    bits.'''
-    q, k, v, dout, km, causal = _inputs(cuda, torch.bfloat16, shape, kind)
+    ((2, 4, 256, 256, 256), 'padding'), ((2, 2, 129, 129, 64), 'causal'),
+    ((2, 4, 256, 256, 256), 'causal')])
+def test_backward_kernels_are_deterministic_on_card(cuda, dtype, shape,
+                                                    kind):
+    '''No atomics: one block owns a query tile (dQ) or a key tile (dK/dV)
+    and sums over the other side's tiles in one fixed order, so two
+    launches on the same inputs give the same bits, in fp32 (3xTF32) and in
+    bf16.'''
+    q, k, v, dout, km, causal = _inputs(cuda, dtype, shape, kind)
     out, lse = flash_attention_forward(q, k, v, km, causal, with_lse=True)
     drow = row_dot(out, dout)
-    before = flash_attention_bwd_dq.launches
-    first, second = (flash_attention_bwd_dq(q, k, v, km, causal, lse, drow,
-                                            dout) for _ in range(2))
+    args = (q, k, v, km, causal, lse, drow, dout)
+    before = (flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    first, second = ((flash_attention_bwd_dq(*args),
+                      *flash_attention_bwd_dkv(*args)) for _ in range(2))
     torch.cuda.synchronize()
-    assert flash_attention_bwd_dq.launches == before + 2
-    assert torch.equal(first, second)
-    assert first.abs().max() > 0
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == tuple(n + 2 for n in before)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+        assert a.abs().max() > 0
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

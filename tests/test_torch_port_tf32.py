@@ -1,8 +1,8 @@
-'''The numerical plan of the fp32 attention forward kernel
-(csrc/flash_attn_fwd.cu, csrc/mma_tf32.cuh), held to the JAX package on the
-CPU.
+'''The numerical plan of the fp32 attention kernels on tensor cores
+(csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu, csrc/mma_tf32.cuh), held
+to the JAX package on the CPU.
 
-The kernel runs fp32 products on the tensor cores in TF32: each operand x is
+The kernels run fp32 products on the tensor cores in TF32: each operand x is
 split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and each m16n8k8
 step adds lo hi, hi lo, then hi hi into fp32 accumulators: three for
 S = Q K^T, summed (lh + hl) + hh at the end, and O itself for P V. P V pairs
@@ -10,17 +10,31 @@ P's key columns 2 t, 2 t + 1 with the mma's k = t, t + 4, and reads V's
 rows in the same order. Each warp takes one half (16 keys) of every 32-key
 tile with its own softmax state, and the two halves of a row are joined at
 the end. With a key split, blocks write per-chunk (m, l, O) partials that a
-second kernel combines the same way. This file emulates that arithmetic in numpy (a
-test helper, not part of the package): the tensor core's products of TF32
-values are exact, and each k-step's sum is added to the fp32 accumulator
-with one rounding. The emulation is then held to the tiled Pallas forward of
-``bmt_tpu.ops.pallas_attention`` in interpret mode, as
-tests/test_pallas_attention.py runs it.
+second kernel combines the same way.
 
-Tolerances are those the kernel is held to on the card (chip_smoke.py
-``TOL[float32]``, ``LSE_TOL``; tests/test_torch_port_cuda.py): out within
-1e-4 + 1e-5 |ref|, lse within 1e-5 + 1e-5 |ref|. Three products read
-2-9e-7 against Pallas; one product reads 1.8-4.1e-4 on out and 1e-4 to
+The backward kernels (dQ over 16-key tiles, dK/dV over 16-query tiles) take
+S and dP in two head-dim halves, each summed alone as S is above, then add
+the halves; they rebuild P = exp2(S scale log2(e) - lse log2(e)) and
+dS = P (dP - D) scale where the logit is valid (0 elsewhere), and sum each
+tile's dS K, P^T dO and dS^T Q in two 8-wide steps with the columns paired
+as in P V into a zeroed accumulator, which one fp32 add joins to dQ, dV or
+dK. (The tensor core adds each mma's sum to its accumulator truncated, not
+rounded, which this emulation cannot see; the zeroed accumulator keeps
+that drift to one tile's terms: tests/test_torch_port_cuda.py holds it at
+S = 2048, causal, on the card.)
+
+This file emulates that arithmetic in numpy (a test helper, not part of the
+package): the tensor core's products of TF32 values are exact, and each
+k-step's sum is added to the fp32 accumulator with one rounding. The
+emulation is then held to the tiled Pallas forward and backward of
+``bmt_tpu.ops.pallas_attention`` in interpret mode, as
+tests/test_pallas_attention.py runs them.
+
+Tolerances are those the kernels are held to on the card (chip_smoke.py
+``TOL[float32]``, ``LSE_TOL``, ``BWD_TOL[float32]``;
+tests/test_torch_port_cuda.py): out and the gradients within
+1e-4 + 1e-5 |ref|, lse within 1e-5 + 1e-5 |ref|. Forward: three products
+read 2-9e-7 against Pallas; one product reads 1.8-4.1e-4 on out and 1e-4 to
 1.9e-4 on lse, outside both, which is why the kernel takes three.
 '''
 import numpy as np
@@ -28,11 +42,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from bmt_tpu.ops.pallas_attention import _flash_attention_tiled
+from bmt_tpu.ops.pallas_attention import (_flash_attention_tiled,
+                                          _flash_attention_tiled_bwd)
 
 TOL = (1e-4, 1e-5)
 LSE_TOL = (1e-5, 1e-5)
-BK = 32                      # the kernel's key tile
+BK = 32                      # the forward kernel's key tile
+BN = 16                      # the backward kernels' loop tile
 LN2 = np.float32(0.693147180559945309)
 LOG2E = np.float32(1.44269504088896341)
 # mma k index -> key within an 8-key step: k = t <-> 2 t, k = t + 4 <-> 2 t + 1
@@ -273,3 +289,168 @@ def test_split_partials_combine_to_the_unsplit_result(Sk, splits, causal,
     assert outside(got[fin], jout[fin], TOL) == 0
     fin = ~np.isneginf(jlse)
     assert outside(got_lse[fin], jlse[fin], LSE_TOL) == 0
+
+
+# ---------------------------------------------------------------------------
+# the backward: dQ, dK, dV
+# ---------------------------------------------------------------------------
+
+def pad_dim(x):
+    '''x with its head dim zero-padded to the kernels' DP (64 or 256).'''
+    d = x.shape[-1]
+    dp = 64 if d <= 64 else 256
+    return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, dp - d)])
+
+
+def halves_logits(a, b, products):
+    '''a b^T (a (BH, M, DP), b (BH, N, DP)) as the backward kernels take
+    S and dP: each head-dim half summed alone into three accumulators
+    (tf32_logits), then the two halves added.'''
+    h = a.shape[-1] // 2
+    return (tf32_logits(a[..., :h], b[..., :h].swapaxes(-1, -2), products)
+            + tf32_logits(a[..., h:], b[..., h:].swapaxes(-1, -2), products))
+
+
+def grad_product(acc, a, b, products):
+    '''acc + a b over one 16-wide tile (a (BH, M, 16), b (BH, 16, n)) as
+    the kernels add dS K, P^T dO and dS^T Q: two 8-wide steps with the
+    columns in KEY_ORDER into a zeroed accumulator, then one fp32 add.'''
+    t = np.zeros_like(acc)
+    for c0 in (0, 8):
+        cols = c0 + KEY_ORDER
+        t = tf32_product(t, a[..., cols], b[:, cols], products)
+    return acc + t
+
+
+def probs(s, dp, ok, lse, D, scale):
+    '''(P, dS) from the logits and dP, masked where the logit is not
+    valid (never exp then mask): lse and D broadcast against s.'''
+    with np.errstate(invalid='ignore', over='ignore'):
+        p = np.where(ok, np.exp2(s * (scale * LOG2E) - lse * LOG2E),
+                     0).astype(np.float32)
+        ds = np.where(ok, p * (dp - D) * scale, 0).astype(np.float32)
+    return p, ds
+
+
+def tile(x, r0):
+    '''Rows [r0, r0 + BN) of x (BH, S, ...), zero past S.'''
+    out = np.zeros((x.shape[0], BN) + x.shape[2:], x.dtype)
+    n = max(0, min(BN, x.shape[1] - r0))
+    out[:, :n] = x[:, r0:r0 + n]
+    return out
+
+
+def emulate_bwd(q, k, v, km, lse, D, dout, causal=False, products=3):
+    '''The kernels' (dQ, dK, dV) for (B, H, S, d) inputs, the forward's lse
+    and D (B, H, Sq). Rows are independent, so each kernel's blocks are
+    emulated all at once: dQ over key tiles of BN in order, dK/dV over
+    query tiles of BN in order. A tile a block skips (causal) holds no
+    valid logit and adds exact zeros here.'''
+    B, H, Sq, d = q.shape
+    Sk = k.shape[2]
+    scale = np.float32(1 / np.sqrt(np.float32(d)))
+    valid = np.repeat(km[:, None, :] != 0, H, axis=1).reshape(B * H, Sk)
+    qf, kf, vf, of = (pad_dim(x).reshape(B * H, x.shape[2], -1)
+                      for x in (q, k, v, dout))
+    lf, Df = lse.reshape(B * H, Sq), D.reshape(B * H, Sq)
+    qrow = np.arange(Sq)
+    dq = np.zeros_like(qf)
+    for k0 in range(0, Sk, BN):           # dQ: S (BH, Sq, BN)
+        kt, vt = tile(kf, k0), tile(vf, k0)
+        cols = k0 + np.arange(BN)
+        ok = tile(valid, k0)[:, None, :]
+        if causal:
+            ok = ok & (cols[None, :] <= qrow[:, None])
+        _, ds = probs(halves_logits(qf, kt, products),
+                      halves_logits(of, vt, products), ok,
+                      lf[..., None], Df[..., None], scale)
+        dq = grad_product(dq, ds, kt, products)
+    dk, dv = np.zeros_like(kf), np.zeros_like(vf)
+    krow = np.arange(Sk)
+    for q0 in range(0, Sq, BN):           # dK/dV: S^T (BH, Sk, BN)
+        qt, ot = tile(qf, q0), tile(of, q0)
+        lt, Dt = tile(lf, q0), tile(Df, q0)
+        cols = q0 + np.arange(BN)
+        ok = valid[..., None] & (cols < Sq)[None, None, :]
+        if causal:
+            ok = ok & (krow[:, None] <= cols[None, :])
+        p, ds = probs(halves_logits(kf, qt, products),
+                      halves_logits(vf, ot, products), ok,
+                      lt[:, None, :], Dt[:, None, :], scale)
+        dv = grad_product(dv, p, ot, products)
+        dk = grad_product(dk, ds, qt, products)
+    return tuple(g[..., :d].reshape(B, H, -1, d) for g in (dq, dk, dv))
+
+
+def bwd_inputs(Sq, Sk, causal=False, empty_row=False, seed=0, d=256):
+    '''q, k, v, key mask (inputs()), dO, and the Pallas forward's out and
+    lse and D = rowsum(dO out) (NaN -> 0) for them.'''
+    q, k, v, km = inputs(Sk, seed, Sq=Sq, d=d, empty_row=empty_row)
+    dout = np.random.default_rng(seed + 1).normal(
+        size=q.shape).astype(np.float32)
+    out, lse = pallas(q, k, v, km, causal)
+    D = (dout * out).sum(-1, dtype=np.float32)
+    return q, k, v, km, dout, out, lse, np.where(np.isnan(D), 0,
+                                                 D).astype(np.float32)
+
+
+def pallas_bwd(q, k, v, km, dout, out, lse, causal=False):
+    '''(dq, dk, dv) of the tiled Pallas backward in interpret mode.'''
+    lse8 = np.broadcast_to(lse[..., None], lse.shape + (8,))
+    got = _flash_attention_tiled_bwd(
+        *(jnp.asarray(x) for x in (q, k, v, km, lse8, out, dout)), causal,
+        interpret=True, block_k=128)
+    return tuple(np.asarray(g) for g in got)
+
+
+BWD_CASES = {                 # (Sq, Sk, causal, empty_row, d)
+    'sk192': (72, 192, False, False, 256),
+    'sk300_padding': (72, 300, False, False, 256),
+    'sk800_empty_row': (72, 800, False, True, 256),
+    'causal': (72, 72, True, False, 256),
+    'causal_d64_empty_row': (40, 40, True, True, 64)}
+
+
+@pytest.mark.parametrize('case', list(BWD_CASES))
+def test_three_tf32_products_match_pallas_backward(case):
+    '''dQ, dK and dV by three products, S and dP in head-dim halves, meet
+    the fp32 tolerance against the Pallas backward: with Sk cut by the
+    16-key tiles (300), Sq by the 16- and 64-row tiles (72, 40), causal, and
+    a batch row with every key masked, whose gradients are exactly 0.'''
+    Sq, Sk, causal, empty_row, d = BWD_CASES[case]
+    q, k, v, km, dout, out, lse, D = bwd_inputs(Sq, Sk, causal, empty_row,
+                                                d=d)
+    got = emulate_bwd(q, k, v, km, lse, D, dout, causal)
+    want = pallas_bwd(q, k, v, km, dout, out, lse, causal)
+    for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        assert not np.isnan(g).any(), name
+        assert outside(g, w, TOL) == 0, name
+        np.testing.assert_allclose(g, w, atol=1e-5, err_msg=name)
+        if empty_row:
+            assert (g[1] == 0).all() and (w[1] == 0).all(), name
+
+
+@pytest.mark.parametrize('case', ['sk192', 'sk800_empty_row', 'causal'])
+def test_one_tf32_product_in_the_backward(case):
+    '''hi hi alone, for S, dP and the gradient products, leaves each of
+    dQ, dK and dV outside the fp32 tolerance against the Pallas backward
+    (read: 1.4e-4 to 2.4e-3, against 1.8e-7 to 3.3e-6 with three): this is
+    why the backward kernels take three products too.'''
+    Sq, Sk, causal, empty_row, d = BWD_CASES[case]
+    q, k, v, km, dout, out, lse, D = bwd_inputs(Sq, Sk, causal, empty_row,
+                                                d=d)
+    got = emulate_bwd(q, k, v, km, lse, D, dout, causal, products=1)
+    want = pallas_bwd(q, k, v, km, dout, out, lse, causal)
+    for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        assert outside(g, w, TOL) > 0, name
+
+
+def test_halves_of_the_head_dim_sum_to_the_product():
+    '''S and dP in two head-dim halves, each with its three accumulators,
+    added: the product up to fp32 rounding.'''
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(2, 16, 256)).astype(np.float32)
+    b = rng.normal(size=(2, 16, 256)).astype(np.float32)
+    want = a.astype(np.float64) @ b.swapaxes(-1, -2)
+    np.testing.assert_allclose(halves_logits(a, b, 3), want, rtol=1e-6,
+                               atol=2e-5)
