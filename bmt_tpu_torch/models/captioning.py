@@ -26,10 +26,11 @@ POS_ENC_LEN = 3660  # rows of the positional table, as in the reference
 @dataclasses.dataclass(frozen=True)
 class CapModelDims:
     '''Static architecture config; same fields and defaults as
-    ``bmt_tpu.models.captioning.CapModelDims``. The port builds dense FFNs
-    only, so ``moe_experts`` must stay 0 or 1. ``remat`` recomputes each
-    bi-modal encoder layer in the backward (``torch.utils.checkpoint``, the
-    counterpart of ``jax.checkpoint``).'''
+    ``bmt_tpu.models.captioning.CapModelDims``. ``moe_experts`` > 1 makes
+    every FFN (the encoder's two a layer, the decoder's one) a Switch MoE of
+    that many experts with capacity factor ``moe_cf`` (``ops.moe``).
+    ``remat`` recomputes each bi-modal encoder layer in the backward
+    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).'''
     voc_size: int
     d_model_A: int = 128
     d_model_V: int = 1024
@@ -53,12 +54,7 @@ class CapModelDims:
     def from_config(cls, cfg, voc_size: int) -> 'CapModelDims':
         '''The dims from a ``Config`` (the trainer's attribute names). The
         d_ff_* exist only for the modalities the config was built with
-        (reference: config_constructor.py:86-90). Raises on a MoE config
-        (``moe_experts`` > 1), which the port does not build.'''
-        moe_experts = getattr(cfg, 'moe_experts', 0) or 0
-        if moe_experts > 1:
-            raise ValueError(f'moe_experts {moe_experts}: MoE FFNs are not '
-                             f'ported yet (ROADMAP queue 1 item 8)')
+        (reference: config_constructor.py:86-90).'''
         d_model_A = getattr(cfg, 'd_model_audio', 128)
         d_model_V = getattr(cfg, 'd_model_video', 1024)
         return cls(
@@ -72,7 +68,7 @@ class CapModelDims:
             dout_p=cfg.dout_p, use_linear_embedder=cfg.use_linear_embedder,
             d_vid=cfg.d_vid, d_aud=cfg.d_aud, modality=cfg.modality,
             remat=getattr(cfg, 'remat', False),
-            moe_experts=moe_experts,
+            moe_experts=getattr(cfg, 'moe_experts', 0) or 0,
             moe_cf=getattr(cfg, 'moe_capacity_factor', 1.25),
         )
 
@@ -102,19 +98,20 @@ class BiModalTransformer(nn.Module):
         if dims.modality != 'audio_video':
             raise ValueError(f'modality {dims.modality!r}: only the bi-modal '
                              f'(audio_video) model is ported')
-        if dims.moe_experts > 1:
-            raise ValueError('MoE FFNs are not ported yet')
         self.dims = dims
         self.emb_C = VocabularyEmbedder(dims.voc_size, dims.d_model_C,
                                         table_dim, device)
         self.encoder = BiModalEncoder(dims.d_model_A, dims.d_model_V,
                                       dims.d_model, dims.d_ff_A, dims.d_ff_V,
                                       dims.N, dims.H, dims.dout_p, device,
-                                      remat=dims.remat)
+                                      remat=dims.remat,
+                                      moe_experts=dims.moe_experts,
+                                      moe_cf=dims.moe_cf)
         self.decoder = BiModalDecoder(dims.d_model_A, dims.d_model_V,
                                       dims.d_model_C, dims.d_model,
                                       dims.d_ff_C, dims.N, dims.H,
-                                      dims.dout_p, device)
+                                      dims.dout_p, device, dims.moe_experts,
+                                      dims.moe_cf)
         self.generator = nn.Linear(dims.d_model_C, dims.voc_size,
                                    device=device)
         if dims.use_linear_embedder:
@@ -137,23 +134,25 @@ class BiModalTransformer(nn.Module):
         return (self.dropout(positional_encode(self.pe_A, A)),
                 self.dropout(positional_encode(self.pe_V, V)))
 
-    def encode(self, src: dict, masks: dict,
-               attention_impl: str = 'torch'):
+    def encode(self, src: dict, masks: dict, attention_impl: str = 'torch',
+               aux_out: list | None = None):
         '''Embeddings and the bi-modal encoder; returns (Av, Va).
         src: {'rgb', 'flow': (B, Sv, d_vid), 'audio': (B, Sa, d_aud)}.'''
         A, V = self._embed_av(src)
         return self.encoder(A, V, masks['A_mask'], masks['V_mask'],
-                            attention_impl)
+                            attention_impl, aux_out)
 
     def forward(self, src: dict, trg: torch.Tensor, masks: dict,
-                attention_impl: str = 'torch',
-                return_logits: bool = False) -> torch.Tensor:
+                attention_impl: str = 'torch', return_logits: bool = False,
+                aux_out: list | None = None) -> torch.Tensor:
         '''Teacher-forced forward -> (B, Sc, voc_size) fp32 log-probs, or
-        the logits in the compute dtype with ``return_logits``.'''
-        Av, Va = self.encode(src, masks, attention_impl)
+        the logits in the compute dtype with ``return_logits``. ``aux_out``
+        gains the MoE load-balance losses: one per encoder layer (the sum
+        of its two FFNs'), then one per decoder layer.'''
+        Av, Va = self.encode(src, masks, attention_impl, aux_out)
         C = self.dropout(positional_encode(self.pe_C, self.emb_C(trg)))
         C = self.decoder(C, Av, Va, masks['A_mask'], masks['V_mask'],
-                         masks['C_mask'], attention_impl)
+                         masks['C_mask'], attention_impl, aux_out)
         logits = self.generator(C)
         if return_logits:
             return logits

@@ -7,7 +7,9 @@ a bridge (2 Dc -> Dc), then a feed-forward, all pre-norm residual. Both the
 teacher-forced forward and the KV-cached one-token step are here; the step
 equals the forward's last position, because LayerNorm is per token, the
 causal mask limits self-attention to the cached prefix, and the cross,
-bridge and FFN blocks are position-wise.
+bridge and FFN blocks are position-wise. A MoE feed-forward
+(``moe_experts`` > 1) keeps that: the step runs its lossless form, which is
+per token too.
 '''
 from __future__ import annotations
 
@@ -17,14 +19,14 @@ from torch import nn
 from bmt_tpu_torch.ops.attention import (MultiheadAttention,
                                          cross_attention_step, precompute_kv,
                                          self_attention_step)
-from bmt_tpu_torch.ops.layers import (Bridge, Dropout, FeedForward, LayerNorm,
-                                      residual)
+from bmt_tpu_torch.ops.layers import Bridge, Dropout, LayerNorm, residual
+from bmt_tpu_torch.ops.moe import ffn_apply, ffn_or_moe
 
 
 class BiModalDecoderLayer(nn.Module):
     def __init__(self, d_model_A: int, d_model_V: int, d_model_C: int,
                  d_model: int, d_ff_C: int, H: int, dout_p: float = 0.0,
-                 device=None):
+                 device=None, moe_experts: int = 0, moe_cf: float = 1.25):
         super().__init__()
         self.self_att = MultiheadAttention(d_model_C, d_model_C, d_model_C,
                                            d_model, H, dout_p, device)
@@ -33,7 +35,8 @@ class BiModalDecoderLayer(nn.Module):
         self.enc_att_V = MultiheadAttention(d_model_C, d_model_V, d_model_V,
                                             d_model, H, dout_p, device)
         self.bridge = Bridge(2 * d_model_C, d_model_C, dout_p, device)
-        self.ff = FeedForward(d_model_C, d_ff_C, dout_p, device)
+        self.ff = ffn_or_moe(d_model_C, d_ff_C, moe_experts, dout_p, moe_cf,
+                             device)
         self.res_self = LayerNorm(d_model_C, device=device)
         self.res_enc_A = LayerNorm(d_model_C, device=device)
         self.res_enc_V = LayerNorm(d_model_C, device=device)
@@ -41,7 +44,7 @@ class BiModalDecoderLayer(nn.Module):
         self.dropout = Dropout(dout_p)
 
     def forward(self, C, Av, Va, A_mask, V_mask, C_mask,
-                attention_impl='torch'):
+                attention_impl='torch', aux_out=None):
         drop = self.dropout
         C = residual(self.res_self, C, lambda y: self.self_att(
             y, y, y, C_mask, attention_impl), drop)
@@ -50,7 +53,8 @@ class BiModalDecoderLayer(nn.Module):
         Cv = residual(self.res_enc_V, C, lambda y: self.enc_att_V(
             y, Va, Va, V_mask, attention_impl), drop)
         C = self.bridge(torch.cat([Ca, Cv], dim=-1))
-        return residual(self.res_ff, C, self.ff, drop)
+        return residual(self.res_ff, C,
+                        lambda y: ffn_apply(self.ff, y, aux_out), drop)
 
     def step(self, s: dict, c_t, A_mask, V_mask, step: int):
         '''One KV-cached step; ``s`` is this layer's decode state, whose
@@ -63,26 +67,31 @@ class BiModalDecoderLayer(nn.Module):
         Cv = c_t + cross_attention_step(self.enc_att_V, self.res_enc_V(c_t),
                                         s['kvV'], V_mask)
         c_t = self.bridge(torch.cat([Ca, Cv], dim=-1))
-        return c_t + self.ff(self.res_ff(c_t))
+        return c_t + ffn_apply(self.ff, self.res_ff(c_t), deterministic=True)
 
 
 class BiModalDecoder(nn.Module):
     def __init__(self, d_model_A: int, d_model_V: int, d_model_C: int,
                  d_model: int, d_ff_C: int, N: int, H: int,
-                 dout_p: float = 0.0, device=None):
+                 dout_p: float = 0.0, device=None, moe_experts: int = 0,
+                 moe_cf: float = 1.25):
         super().__init__()
         self.layers = nn.ModuleList(
             BiModalDecoderLayer(d_model_A, d_model_V, d_model_C, d_model,
-                                d_ff_C, H, dout_p, device)
+                                d_ff_C, H, dout_p, device, moe_experts,
+                                moe_cf)
             for _ in range(N))
 
     def forward(self, C, Av, Va, A_mask, V_mask, C_mask,
-                attention_impl: str = 'torch') -> torch.Tensor:
+                attention_impl: str = 'torch',
+                aux_out: list | None = None) -> torch.Tensor:
         '''Teacher-forced forward (JAX ``bimodal_decoder_forward``):
         C (B, Sc, Dc) embedded captions, C_mask (B, Sc, Sc)
-        causal+padding. Returns (B, Sc, Dc).'''
+        causal+padding. Returns (B, Sc, Dc); ``aux_out`` gains each layer's
+        MoE load-balance loss.'''
         for layer in self.layers:
-            C = layer(C, Av, Va, A_mask, V_mask, C_mask, attention_impl)
+            C = layer(C, Av, Va, A_mask, V_mask, C_mask, attention_impl,
+                      aux_out)
         return C
 
     def init_decode_state(self, Av: torch.Tensor, Va: torch.Tensor,

@@ -9,6 +9,11 @@ With ``remat`` each layer runs under ``checkpoint`` while autograd records
 what reaches the encoder:
 its activations are recomputed in the backward instead of kept (the JAX
 package's ``jax.checkpoint`` per layer, ``encoders.py:190-191``).
+
+The feed-forwards are dense, or Switch MoE with ``moe_experts`` > 1
+(``ops.moe``). Given an ``aux_out`` list, each layer appends the sum of its
+two MoE load-balance losses, returned out of the (possibly recomputed)
+layer rather than appended inside it, as the JAX encoder does.
 '''
 from __future__ import annotations
 
@@ -16,14 +21,15 @@ import torch
 from torch import nn
 
 from bmt_tpu_torch.ops.attention import MultiheadAttention
-from bmt_tpu_torch.ops.layers import (Dropout, FeedForward, LayerNorm,
-                                      checkpoint, residual)
+from bmt_tpu_torch.ops.layers import (Dropout, LayerNorm, checkpoint,
+                                      residual)
+from bmt_tpu_torch.ops.moe import ffn_apply, ffn_or_moe
 
 
 class BiModalEncoderLayer(nn.Module):
     def __init__(self, d_model_M1: int, d_model_M2: int, d_model: int,
                  d_ff_M1: int, d_ff_M2: int, H: int, dout_p: float = 0.0,
-                 device=None):
+                 device=None, moe_experts: int = 0, moe_cf: float = 1.25):
         super().__init__()
         self.self_att_M1 = MultiheadAttention(d_model_M1, d_model_M1,
                                               d_model_M1, d_model, H, dout_p,
@@ -37,16 +43,22 @@ class BiModalEncoderLayer(nn.Module):
         self.cross_att_M2 = MultiheadAttention(d_model_M2, d_model_M1,
                                                d_model_M1, d_model, H, dout_p,
                                                device)
-        self.ff_M1 = FeedForward(d_model_M1, d_ff_M1, dout_p, device)
-        self.ff_M2 = FeedForward(d_model_M2, d_ff_M2, dout_p, device)
+        self.ff_M1 = ffn_or_moe(d_model_M1, d_ff_M1, moe_experts, dout_p,
+                                moe_cf, device)
+        self.ff_M2 = ffn_or_moe(d_model_M2, d_ff_M2, moe_experts, dout_p,
+                                moe_cf, device)
         self.res_M1 = nn.ModuleList(LayerNorm(d_model_M1, device=device)
                                     for _ in range(3))
         self.res_M2 = nn.ModuleList(LayerNorm(d_model_M2, device=device)
                                     for _ in range(3))
         self.dropout = Dropout(dout_p)
 
-    def forward(self, M1, M2, M1_mask, M2_mask, attention_impl='torch'):
+    def forward(self, M1, M2, M1_mask, M2_mask, attention_impl='torch',
+                with_aux: bool = False):
+        '''(M1m2, M2m1), and with ``with_aux`` the sum of the layer's MoE
+        load-balance losses third (0 for dense FFNs).'''
         drop = self.dropout
+        aux = [] if with_aux else None
         # 1. self-attention
         M1 = residual(self.res_M1[0], M1, lambda y: self.self_att_M1(
             y, y, y, M1_mask, attention_impl), drop)
@@ -58,34 +70,45 @@ class BiModalEncoderLayer(nn.Module):
         M2m1 = residual(self.res_M2[1], M2, lambda y: self.cross_att_M2(
             y, M1, M1, M1_mask, attention_impl), drop)
         # 3. feed-forward
-        M1m2 = residual(self.res_M1[2], M1m2, self.ff_M1, drop)
-        M2m1 = residual(self.res_M2[2], M2m1, self.ff_M2, drop)
-        return M1m2, M2m1
+        M1m2 = residual(self.res_M1[2], M1m2,
+                        lambda y: ffn_apply(self.ff_M1, y, aux), drop)
+        M2m1 = residual(self.res_M2[2], M2m1,
+                        lambda y: ffn_apply(self.ff_M2, y, aux), drop)
+        if not with_aux:
+            return M1m2, M2m1
+        return M1m2, M2m1, (sum(aux) if aux
+                            else M1m2.new_zeros((), dtype=torch.float32))
 
 
 class BiModalEncoder(nn.Module):
     def __init__(self, d_model_A: int, d_model_V: int, d_model: int,
                  d_ff_A: int, d_ff_V: int, N: int, H: int,
-                 dout_p: float = 0.0, device=None, remat: bool = False):
+                 dout_p: float = 0.0, device=None, remat: bool = False,
+                 moe_experts: int = 0, moe_cf: float = 1.25):
         super().__init__()
         self.remat = remat
         self.layers = nn.ModuleList(
             BiModalEncoderLayer(d_model_A, d_model_V, d_model, d_ff_A, d_ff_V,
-                                H, dout_p, device)
+                                H, dout_p, device, moe_experts, moe_cf)
             for _ in range(N))
 
     def forward(self, A: torch.Tensor, V: torch.Tensor, A_mask, V_mask,
-                attention_impl: str = 'torch'):
+                attention_impl: str = 'torch', aux_out: list | None = None):
         '''A (B, Sa, d_model_A), V (B, Sv, d_model_V); masks (B, 1, S).
-        Returns (Av, Va). Remat applies only when the backward will reach
-        the encoder: a frozen encoder fed features that need no gradient
-        runs its layers plainly, recording no graph.'''
+        Returns (Av, Va); ``aux_out`` gains one load-balance loss a layer.
+        Remat applies only when the backward will reach the encoder: a
+        frozen encoder fed features that need no gradient runs its layers
+        plainly, recording no graph.'''
         remat = (self.remat and torch.is_grad_enabled()
                  and (A.requires_grad or V.requires_grad
                       or any(p.requires_grad for p in self.parameters())))
+        args = (A_mask, V_mask, attention_impl, aux_out is not None)
         for layer in self.layers:
             if remat:
-                A, V = checkpoint(layer, A, V, A_mask, V_mask, attention_impl)
+                out = checkpoint(layer, A, V, *args)
             else:
-                A, V = layer(A, V, A_mask, V_mask, attention_impl)
+                out = layer(A, V, *args)
+            A, V = out[:2]
+            if aux_out is not None:
+                aux_out.append(out[2])
         return A, V

@@ -29,6 +29,7 @@ from torch import nn
 
 from bmt_tpu_torch.ops.flash_attention import flash_attention
 from bmt_tpu_torch.ops.layers import Dropout
+from bmt_tpu_torch.ops.quant import per_127
 
 ATTENTION_IMPLS = ('torch', 'kernel')
 
@@ -129,7 +130,7 @@ def _quantize_per_channel(x: torch.Tensor):
     (batch, head, channel), so every stored value is exactly q * scale.'''
     x32 = x.float()
     amax = x32.abs().amax(dim=2, keepdim=True)             # (B, H, 1, d_k)
-    scale = torch.clamp_min(amax / 127.0, 1e-12)
+    scale = torch.clamp_min(per_127(amax), 1e-12)
     return torch.round(x32 / scale).to(torch.int8), scale
 
 

@@ -1,4 +1,4 @@
-'''LoRA adapters, the serving half (counterpart of ``bmt_tpu.ops.lora``).
+'''LoRA adapters (counterpart of ``bmt_tpu.ops.lora``).
 
 A rank-r adapter adds ``(alpha / r) x A B`` to a linear's output: A
 (d_in, r), B (r, d_out) and the scale s, in the JAX package's layout (its
@@ -11,7 +11,8 @@ base product. Two ways to carry adapters:
 
 - ``add_lora`` / ``attach_lora``: the adapter is the linear's own
   parameters (``lora_a``, ``lora_b``, the buffer ``lora_s``), as in a
-  finetuned tree. ``merge_lora`` folds them into the weights,
+  finetuned tree; train_cap's ``--lora_rank`` trains them alone
+  (``lora_frozen_predicate``). ``merge_lora`` folds them into the weights,
   ``count_lora`` counts them, ``params.to_jax_tree`` and
   ``train.checkpoint.save_lora_npz`` write them under the JAX tree's
   paths.
@@ -173,6 +174,13 @@ def count_lora(model: nn.Module) -> tuple:
     sites = [m for m in model.modules() if has_lora(m)]
     return len(sites), sum(m.lora_a.numel() + m.lora_b.numel()
                            for m in sites)
+
+
+def lora_frozen_predicate(path_keys) -> bool:
+    '''Freeze predicate of LoRA finetuning on a JAX tree path: only the
+    adapters' A and B train (``lora_s`` is a fixed scale, frozen like the
+    base weights).'''
+    return path_keys[-1] not in ('lora_a', 'lora_b')
 
 
 @contextlib.contextmanager

@@ -33,6 +33,15 @@ _MULTIPLE = 8          # torch._int_mm: inner and outer sizes
 _MIN_ROWS = 17         # torch._int_mm: more than 16 rows
 
 
+def per_127(x: torch.Tensor) -> torch.Tensor:
+    '''x / 127, correctly rounded on every device: the divisor is a 0-dim
+    tensor on x's device. A CPU scalar divisor would let the card's
+    true-divide multiply by its reciprocal instead, which rounds some
+    scales (and so the int8 levels) one ulp away from the CPU's and the
+    JAX package's.'''
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
+
+
 def _round_up(n: int, m: int = _MULTIPLE) -> int:
     return -(-n // m) * m
 
@@ -41,8 +50,17 @@ def quantize_linear_int8(weight: torch.Tensor):
     '''A torch-layout weight (d_out, d_in) -> (w_q (d_out, d_in) int8,
     w_scale (d_out,) fp32), per-output-channel symmetric scales.'''
     w = weight.detach().float()
-    scale = torch.clamp_min(w.abs().amax(dim=1), _EPS) / 127.0
+    scale = per_127(torch.clamp_min(w.abs().amax(dim=1), _EPS))
     return torch.round(w / scale[:, None]).to(torch.int8), scale
+
+
+def quantize_rows_int8(x: torch.Tensor):
+    '''Activations (..., k) -> (x_q int8, x_scale (..., 1) fp32), one
+    symmetric scale per row.'''
+    x32 = x.float()
+    x_scale = per_127(torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True),
+                                      _EPS))
+    return torch.round(x32 / x_scale).to(torch.int8), x_scale
 
 
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -62,10 +80,7 @@ def qlinear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     y = x @ w^T + b within quantization error, in x's dtype. ``w_q`` may be
     zero-padded beyond (len(w_scale), x.shape[-1]).'''
     n = w_scale.shape[0]
-    x32 = x.float()
-    x_scale = torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True),
-                              _EPS) / 127.0
-    x_q = torch.round(x32 / x_scale).to(torch.int8)
+    x_q, x_scale = quantize_rows_int8(x)
     lead = x_q.shape[:-1]
     x_q = x_q.reshape(-1, x_q.shape[-1])
     if x_q.shape[1] != w_q.shape[1]:

@@ -13,7 +13,8 @@ keys as attribute names, so one walk maps a tree onto a module:
 - a list becomes an ``nn.ModuleList``;
 - any other dict becomes a module whose parameters and children carry the
   dict's keys (LayerNorm ``scale``/``bias``, the embedding ``table``, the
-  proposal generator's top-level ``anchors_A``/``anchors_V``);
+  proposal generator's top-level ``anchors_A``/``anchors_V``, a MoE FFN's
+  ``router/w`` and ``experts/{w1,b1,w2,b2}`` in their JAX layout);
 - a LoRA-adapted linear's dict also holds ``lora_a`` (d_in, r), ``lora_b``
   (r, d_out) and ``lora_s``: the linear module carries them in that layout
   (``ops.lora.attach_lora``).
@@ -80,8 +81,10 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
     package's recipe (``bmt_tpu/ops/layers.py``,
     ``bmt_tpu/models/proposal.py``): xavier-uniform weight matrices,
     U(+-1/sqrt(fan_in)) linear biases, conv weights and biases from
-    U(+-1/sqrt(d_in k)), ones/zeros LayerNorms. Other parameters (the
-    proposal anchors) keep their values.'''
+    U(+-1/sqrt(d_in k)), ones/zeros LayerNorms, MoE routers and experts as
+    ``init_moe_ffn``. Other parameters (the proposal anchors) keep their
+    values.'''
+    from bmt_tpu_torch.ops.moe import MoEFeedForward
     for m in module.modules():
         if isinstance(m, nn.Linear):
             _xavier_(m.weight, m.in_features, m.out_features, generator)
@@ -96,6 +99,8 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
         elif isinstance(m, VocabularyEmbedder):
             _xavier_(m.table, *m.table.shape, generator)
+        elif isinstance(m, MoEFeedForward):
+            m.init_from(generator)
 
 
 def _copy(param: torch.Tensor, value, path: str) -> None:
@@ -128,9 +133,14 @@ def load_jax_params(module: nn.Module, tree, path: str = '') -> None:
               f'{path}/w')
         _copy(module.bias, tree['b'], f'{path}/b')
         if lora:
-            from bmt_tpu_torch.ops.lora import attach_lora
-            attach_lora(module, *(np.asarray(tree[k], np.float32)
-                                  for k in LORA_LEAVES))
+            from bmt_tpu_torch.ops.lora import attach_lora, has_lora
+            if has_lora(module):
+                # into the adapter in place: an optimizer holds its tensors
+                for k in LORA_LEAVES:
+                    _copy(getattr(module, k), tree[k], f'{path}/{k}')
+            else:
+                attach_lora(module, *(np.asarray(tree[k], np.float32)
+                                      for k in LORA_LEAVES))
         return
     if isinstance(module, nn.ModuleList):
         if not isinstance(tree, (list, tuple)) or len(tree) != len(module):

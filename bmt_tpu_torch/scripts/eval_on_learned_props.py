@@ -4,14 +4,19 @@ scripts/eval_on_learned_props.py:14-135).
 
 Flow: proposals JSON -> tsv meta (filtering unavailable videos) ->
 'learned_props' captioning dataset (features re-cropped per proposal) ->
-batched KV-cached greedy decode -> submission JSON -> densevid scoring
-against both validation references at tIoUs [0.3, 0.5, 0.7, 0.9].
+batched KV-cached decode -> submission JSON -> densevid scoring against both
+validation references at tIoUs [0.3, 0.5, 0.7, 0.9].
 
 The model config, its decode dtype (``compute_dtype``) and its attention
 (``--attention_impl``, ``pallas`` as the port's kernels and ``xla`` as
 plain attention) come from the checkpoint, as in the JAX script; a
 reference ``.pt`` config has neither and decodes in fp32 through plain
-attention.
+attention. The decode options come from the command line:
+``--decode_strategy`` (greedy, beam or sample) with ``--kv_cache_int8``,
+and ``--weights_int8``, which quantizes the linears after the dtype cast
+(``ops.quant.quantize_tree_int8``; a MoE FFN's router and experts stay as
+they are, as in the JAX package, whose quantizer takes {w, b} linears
+only).
 '''
 from __future__ import annotations
 
@@ -21,13 +26,14 @@ import os
 from bmt_tpu_torch.config import Config
 from bmt_tpu_torch.data.captioning import CaptioningDataset
 from bmt_tpu_torch.data.vocab import Vocab, build_vocab_from_meta
-from bmt_tpu_torch.decode.greedy import greedy_decode_bimodal
 from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
+from bmt_tpu_torch.ops.quant import quantize_tree_int8
 from bmt_tpu_torch.params import load_jax_params
 from bmt_tpu_torch.train.checkpoint import (
     _strip_module, _unimodal, import_cap_model, load_model_params,
     load_torch_checkpoint, native_table_dim, read_checkpoint_meta)
-from bmt_tpu_torch.train.loops import make_decode_fn, validation_1by1
+from bmt_tpu_torch.train.loops import (make_decode_fn, make_strategy_fn,
+                                       validation_1by1)
 from bmt_tpu_torch.train.options import (attention_impl, check_model_ported,
                                          check_ported, compute_dtype,
                                          resolve_device)
@@ -142,10 +148,10 @@ def eval_on_learned_props(args_cfg: Config, device=None):
     dtype = compute_dtype(cfg)
     impl = attention_impl(cfg)
     model = model.to(dtype=dtype).eval()
+    if getattr(args_cfg, 'weights_int8', False):
+        quantize_tree_int8(model)
     decode_fn = make_decode_fn(
-        lambda m, src: greedy_decode_bimodal(
-            m, src, cfg.max_len, ds.start_idx, ds.end_idx, ds.pad_idx, impl),
-        dtype)
+        make_strategy_fn(args_cfg, dims, cfg.max_len, ds, impl), dtype)
     metrics = validation_1by1(cfg, model, decode_fn, ds, epoch, logger=None,
                               phase='learned_props')
     print(metrics)

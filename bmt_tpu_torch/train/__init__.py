@@ -2,9 +2,10 @@
 optimizers, steps, epoch loops and validation (counterpart of
 ``bmt_tpu.train``). The trainers, ``train.cap_trainer.train_cap`` and
 ``train.prop_trainer.train_prop``, are imported from their modules.'''
-from bmt_tpu_torch.train.loops import (make_decode_fn, train_epoch_cap,
-                                       train_epoch_prop, validate_next_word,
-                                       validate_prop, validation_1by1)
+from bmt_tpu_torch.train.loops import (make_decode_fn, make_strategy_fn,
+                                       train_epoch_cap, train_epoch_prop,
+                                       validate_next_word, validate_prop,
+                                       validation_1by1)
 from bmt_tpu_torch.train.losses import (caption_loss, label_smoothing_kl,
                                         label_smoothing_kl_logits)
 from bmt_tpu_torch.train.optim import (Optimizer, ReduceLROnPlateau,

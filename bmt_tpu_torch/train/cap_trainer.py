@@ -14,6 +14,15 @@ best-METEOR tracking with early stop, ``last_cap_model`` and
 (optionally written by ``AsyncCheckpointWriter``), resume from
 ``last_cap_model`` down to the batch, and the ``PreemptionGuard``.
 
+The model options run as in the JAX trainer: Switch MoE FFNs
+(``--moe_experts``, their load-balance loss weighted by
+``--moe_aux_coeff``); LoRA finetuning (``--lora_rank``, ``--lora_alpha``,
+``--lora_targets``: adapters added after the full-model seed, everything
+else frozen, ``best_cap_model.lora.npz`` written beside the best model); a
+bf16 Adam first moment (``--optim_mu_dtype``). The 1-by-1 decode follows
+``--decode_strategy`` with ``--kv_cache_int8``; ``--weights_int8`` is for
+the evaluation, and train_cap leaves it aside, as the JAX trainer does.
+
 Weights start from a ``torch.Generator`` seeded with 0, not from the JAX
 package's PRNG, so the two packages train the same recipe from different
 random weights; from one checkpoint they train alike.
@@ -31,16 +40,18 @@ import torch
 from bmt_tpu_torch.config import Config
 from bmt_tpu_torch.data.captioning import CaptioningDataset
 from bmt_tpu_torch.data.vocab import load_glove
-from bmt_tpu_torch.decode.greedy import greedy_decode_bimodal
 from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
+from bmt_tpu_torch.ops.lora import add_lora, count_lora, lora_frozen_predicate
 from bmt_tpu_torch.params import load_jax_params, to_jax_tree
 from bmt_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter, _has_orbax, _orbax_only, checkpoint_exists,
     import_prop_model, load_checkpoint, load_model_params,
     load_pretrained_cap_params, load_pretrained_encoder_native,
-    load_torch_checkpoint, optimizer_state_tree, save_checkpoint)
-from bmt_tpu_torch.train.loops import (make_decode_fn, train_epoch_cap,
-                                       validate_next_word, validation_1by1)
+    load_torch_checkpoint, optimizer_state_tree, save_checkpoint,
+    save_lora_npz)
+from bmt_tpu_torch.train.loops import (make_decode_fn, make_strategy_fn,
+                                       train_epoch_cap, validate_next_word,
+                                       validation_1by1)
 from bmt_tpu_torch.train.optim import (ReduceLROnPlateau, build_optimizer,
                                        set_learning_rate)
 from bmt_tpu_torch.train.options import (attention_impl, check_ported,
@@ -173,12 +184,24 @@ def train_cap(cfg: Config, device=None):
         print(f'Pretrained cap path (full-model seed): \n {cap_seed}')
         load_pretrained_cap_params(cap_seed, model)
 
+    lora_rank = int(getattr(cfg, 'lora_rank', 0) or 0)
+    if lora_rank:
+        add_lora(model, lora_rank,
+                 torch.Generator(device=device).manual_seed(seed + 77),
+                 getattr(cfg, 'lora_alpha', None),
+                 getattr(cfg, 'lora_targets', 'attn'))
+        sites, n_adapter = count_lora(model)
+        print(f'LoRA: rank {lora_rank}, {sites} adapted linears, '
+              f'{n_adapter / 1e6:.3f} Mil. adapter params')
+
     # frozen: the GloVe table unless --unfreeze_word_emb; the imported
-    # encoder unless fine-tuned
+    # encoder unless fine-tuned; with LoRA, everything but the adapters
     freeze_emb = (glove is not None
                   and not getattr(cfg, 'unfreeze_word_emb', False))
 
     def is_frozen(path):
+        if lora_rank:
+            return lora_frozen_predicate(path)
         if freeze_emb and path[:2] == ('emb_C', 'table'):
             return True
         return frozen_module is not None and path[0] == frozen_module
@@ -189,13 +212,12 @@ def train_cap(cfg: Config, device=None):
     train_step = make_cap_train_step(
         dims, cfg.smoothing, train_ds.pad_idx, impl, dtype,
         accum_steps=getattr(cfg, 'grad_accum_steps', 1) or 1,
-        ema_decay=ema_decay)
+        ema_decay=ema_decay,
+        moe_aux_coeff=getattr(cfg, 'moe_aux_coeff', 0.01))
     val_step = make_cap_val_step(dims, cfg.smoothing, train_ds.pad_idx, impl,
                                  dtype)
     decode_fn = make_decode_fn(
-        lambda m, src: greedy_decode_bimodal(
-            m, src, cfg.max_len, train_ds.start_idx, train_ds.end_idx,
-            train_ds.pad_idx, impl), dtype)
+        make_strategy_fn(cfg, dims, cfg.max_len, train_ds, impl, seed), dtype)
     state = init_train_state(model, optimizer, seed, ema=ema_decay > 0)
 
     # trainable means not frozen, as the reference counts requires_grad
@@ -343,6 +365,11 @@ def train_cap(cfg: Config, device=None):
                     # when on), so eval and serving load it unchanged
                     save_ckpt(ckpt_dir, evaluated, meta, opt,
                               'best_cap_model')
+                    if lora_rank:
+                        # the finetune's shippable artifact: the adapter
+                        # leaves alone, which serving's --lora_adapter reads
+                        save_lora_npz(os.path.join(
+                            ckpt_dir, 'best_cap_model.lora.npz'), evaluated)
                 report_time(f'checkpoint save {epoch}', t0,
                             ' (last and best)' if is_best else ' (last)')
             del evaluated

@@ -34,10 +34,11 @@ LoRA adapters: a finetuned archive loads with its adapters (the linears
 carry them, ``ops.lora``), ``save_lora_npz`` writes the adapter leaves alone
 and ``load_lora_sites`` reads them for serving, under the JAX tree's paths,
 so an adapter saved by either package loads in the other; the exports fold
-adapters into the weights first. LoRA training is not ported (ROADMAP queue
-1 item 8: ``train_cap`` with ``--lora_rank`` and a LoRA archive as its
-``--pretrained_cap_model_path`` raise). Not ported either: the uni-modal
-models (item 10), the orbax backend.
+adapters into the weights first, and a LoRA finetune seeds a new run
+(``load_pretrained_cap_params``) with its adapters folded in. A MoE
+captioner saves and loads like any other (its router and experts keep their
+JAX layout) but has no ``.pt`` export: the reference's FFNs are dense. Not
+ported: the uni-modal models (ROADMAP queue 1 item 10), the orbax backend.
 '''
 from __future__ import annotations
 
@@ -63,15 +64,6 @@ from bmt_tpu_torch.params import (LORA_LEAVES, SEP, _flatten,
 from bmt_tpu_torch.train.optim import Optimizer
 
 OPT_SCALARS = ('count', 'lr', 'notfinite')
-
-
-def _reject_lora(tree, what: str) -> None:
-    lora = sorted(k for k in _flatten(tree)
-                  if k.rsplit(SEP, 1)[-1] in LORA_LEAVES)
-    if lora:
-        raise NotImplementedError(
-            f'{what} carries LoRA adapter leaves (first: {lora[0]!r}); LoRA '
-            f'training is not ported yet (ROADMAP queue 1 item 8)')
 
 
 def _unimodal(what: str):
@@ -333,7 +325,10 @@ def load_optimizer_state(model: nn.Module, optimizer: Optimizer,
                 raise ValueError(
                     f'optimizer state {key!r} of {paths[id(p)]!r} has shape '
                     f'{tuple(arr.shape)}, the parameter {tuple(p.shape)}')
-            state[key] = torch.from_numpy(np.array(arr)).to(p.device, p.dtype)
+            # a bf16 first moment (OptaxAdam) is saved as exact fp32
+            dtype = (getattr(optimizer.inner, 'mu_dtype', p.dtype)
+                     if key == 'exp_avg' else p.dtype)
+            state[key] = torch.from_numpy(np.array(arr)).to(p.device, dtype)
         optimizer.inner.state[p] = state
     if by_path:
         raise KeyError(f'optimizer state for {len(by_path)} paths that are '
@@ -728,7 +723,8 @@ def _sd_put_ffn(sd, base, p):
         raise ValueError(
             'cannot export a MoE model (--moe_experts > 1) to a '
             'reference-keyed state_dict: the reference architecture '
-            'has dense FFNs only')
+            'has dense FFNs only. Use the native npz checkpoint format for '
+            'MoE models.')
     _sd_put_lin(sd, f'{base}.fc1', p['fc1'])
     _sd_put_lin(sd, f'{base}.fc2', p['fc2'])
 
@@ -1000,9 +996,10 @@ def load_pretrained_cap_params(path: str, model: nn.Module) -> None:
     train_cap's ``--pretrained_cap_model_path`` (continued training; the
     JAX package's ``load_pretrained_cap_params``). ``path``: a native
     checkpoint directory (its ``best_cap_model``), a bare ``*.params.npz``
-    or a reference ``.pt``. Missing, extra and misshapen arrays raise; an
-    archive with LoRA adapters raises (LoRA training, ROADMAP queue 1
-    item 8).'''
+    or a reference ``.pt``. Missing, extra and misshapen arrays raise. A
+    LoRA finetune's archive seeds the model with its adapters folded into
+    the base weights (``_fold_lora``), as the JAX package's does: a new
+    run's own ``--lora_rank`` puts fresh adapters on top.'''
     if path.endswith('.pt'):
         cpt = load_torch_checkpoint(path)
         if any(k.startswith('trg_emb.')
@@ -1016,8 +1013,7 @@ def load_pretrained_cap_params(path: str, model: nn.Module) -> None:
                 _orbax_only(path, 'best_cap_model')
             path = os.path.join(path, 'best_cap_model.params.npz')
         tree = load_params_npz(path)
-    _reject_lora(tree, path)
-    load_jax_params(model, tree)
+    load_jax_params(model, _fold_lora(tree))
 
 
 def load_prop_checkpoint(path: str, max_prop_per_vid: int = None,

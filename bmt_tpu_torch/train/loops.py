@@ -30,12 +30,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from bmt_tpu_torch.decode.beam import make_bimodal_beam_fn
+from bmt_tpu_torch.decode.greedy import make_bimodal_greedy_fn
+from bmt_tpu_torch.decode.sample import make_bimodal_sample_fn
 from bmt_tpu_torch.evaluation.metrics import calculate_metrics
 from bmt_tpu_torch.serve import ints_to_sentence
 from bmt_tpu_torch.utils.misc import HiddenPrints
 from bmt_tpu_torch.utils.proposal_utils import add_dict_to_another_dict
 
-__all__ = ['ints_to_sentence', 'make_decode_fn', 'train_epoch_cap',
+__all__ = ['ints_to_sentence', 'make_decode_fn', 'make_strategy_fn',
+           'train_epoch_cap',
            'train_epoch_prop', 'validate_next_word', 'validate_prop',
            'validation_1by1']
 
@@ -186,6 +190,35 @@ def validate_next_word(val_step, model, dataset, epoch: int) -> float:
                                                     dataset.batch_size))
         n += 1
     return float(total) / max(n, 1)
+
+
+def make_strategy_fn(options, dims, max_len: int, dataset,
+                     attention_impl: str = 'torch', seed: int = 0):
+    '''The decoder of ``options.decode_strategy``, bound as the JAX trainer
+    and evaluation bind theirs (``bmt_tpu/train/cap_trainer.py:186-209``):
+    greedy, beam (``--beam_size``, ``--length_penalty``) or sampling
+    (``--temperature``, ``--sample_top_k``, ``--sample_top_p``, draws from
+    ``seed``), each with the int8 cross K/V of ``--kv_cache_int8``.
+    ``dataset`` gives the start, end and pad ids. Returns fn(model,
+    feature_stacks) -> (B, max_len + 1) tokens.'''
+    strategy = getattr(options, 'decode_strategy', 'greedy') or 'greedy'
+    ids = (dataset.start_idx, dataset.end_idx, dataset.pad_idx)
+    kv_int8 = bool(getattr(options, 'kv_cache_int8', False))
+    if strategy == 'beam':
+        return make_bimodal_beam_fn(
+            dims, max_len, *ids, options.beam_size, options.length_penalty,
+            attention_impl, kv_int8)
+    if strategy == 'sample':
+        return make_bimodal_sample_fn(
+            dims, max_len, *ids, options.temperature,
+            getattr(options, 'sample_top_k', 0),
+            getattr(options, 'sample_top_p', 1.0), attention_impl, kv_int8,
+            seed=seed)
+    if strategy != 'greedy':
+        raise ValueError(f'--decode_strategy {strategy!r}: greedy, beam or '
+                         f'sample')
+    return make_bimodal_greedy_fn(dims, max_len, *ids, attention_impl,
+                                  kv_int8)
 
 
 def make_decode_fn(greedy_fn, compute_dtype=None):

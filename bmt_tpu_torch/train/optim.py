@@ -14,13 +14,19 @@ order of the JAX package's optax chain:
    max_norm; unlike ``torch.nn.utils.clip_grad_norm_`` no 1e-6 is added);
 3. L2 weight decay into the gradient and Adam (``torch.optim.Adam``, not
    AdamW), or SGD with momentum (``torch.optim.SGD``, whose momentum buffer
-   starts at the first gradient, as ``optax.trace`` does from zeros);
+   starts at the first gradient, as ``optax.trace`` does from zeros). With
+   ``--optim_mu_dtype bfloat16`` Adam keeps its first moment in bf16 and its
+   second in fp32; ``torch.optim.Adam`` keeps one dtype, so that option runs
+   ``OptaxAdam``, which follows ``optax.scale_by_adam(mu_dtype=...)`` step
+   for step;
 4. the learning rate times the ``warmup_cosine`` multiplier of the update
    count, equal to ``optax.warmup_cosine_decay_schedule`` /
    ``linear_schedule`` at every count.
 
 Frozen parameters, chosen by a predicate on the JAX tree path of each
-parameter (as ``freeze_mask``), get ``requires_grad=False`` and no state.
+parameter (as ``freeze_mask``), get ``requires_grad=False`` and no state:
+with ``--lora_rank`` that leaves state for the adapters alone, as the JAX
+package's masked Adam does.
 '''
 from __future__ import annotations
 
@@ -64,6 +70,63 @@ def schedule_multiplier(cfg, total_steps: Optional[int] = None
     return warmup_cosine
 
 
+class OptaxAdam(torch.optim.Optimizer):
+    '''Adam with L2 weight decay into the gradient, in the order and
+    rounding of ``optax.add_decayed_weights`` then ``optax.scale_by_adam``
+    with ``mu_dtype``, the first moment ``exp_avg`` stored in ``mu_dtype``
+    and the second ``exp_avg_sq`` in fp32:
+
+      mu = (1 - b1) g + b1 mu_stored   (b1 mu_stored in mu_dtype, b1 rounded
+                                        to it, as JAX's weak-typed scalar)
+      nu = (1 - b2) g^2 + b2 nu
+      p += -lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+
+    with mu itself, not its stored rounding, in the update; then mu is
+    stored. State keys as ``torch.optim.Adam``'s (``step``, ``exp_avg``,
+    ``exp_avg_sq``), so a checkpoint names them alike.'''
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 mu_dtype=torch.bfloat16):
+        super().__init__(params, {'lr': lr, 'betas': betas, 'eps': eps,
+                                  'weight_decay': weight_decay})
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2 = group['betas']
+            wd, eps, lr = group['weight_decay'], group['eps'], group['lr']
+            b1_mu = torch.tensor(b1, dtype=self.mu_dtype).item()
+            corrections = {}
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                g = p.grad if not wd else p.grad + wd * p
+                state = self.state[p]
+                if not state:
+                    state['step'] = torch.zeros((), dtype=torch.float32)
+                    state['exp_avg'] = torch.zeros_like(
+                        p, dtype=self.mu_dtype)
+                    state['exp_avg_sq'] = torch.zeros_like(
+                        p, dtype=torch.float32)
+                state['step'] += 1
+                mu = (1 - b1) * g + state['exp_avg'] * b1_mu
+                nu = state['exp_avg_sq']
+                nu.mul_(b2).add_((1 - b2) * (g * g))
+                # 1 - b^t in fp32, as device tensors: a CPU scalar divisor
+                # would be applied on the card as its reciprocal
+                key = (int(state['step']), p.device)
+                if key not in corrections:
+                    corrections[key] = [
+                        (1 - torch.tensor(b, dtype=torch.float32) ** key[0])
+                        .to(p.device) for b in (b1, b2)]
+                bc1, bc2 = corrections[key]
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+                p.add_(u * -lr)
+                state['exp_avg'].copy_(mu)
+
+
 class Optimizer:
     '''Adam or SGD over the trainable parameters, with the clip, the
     non-finite guard and the schedule of ``build_optimizer``.
@@ -87,7 +150,12 @@ class Optimizer:
         if not params:
             raise ValueError('no trainable parameters')
         if cfg.optimizer == 'adam':
-            self.inner = torch.optim.Adam(
+            mu_dtype = getattr(cfg, 'optim_mu_dtype', 'float32') or 'float32'
+            if mu_dtype not in ('float32', 'bfloat16'):
+                raise ValueError(f'--optim_mu_dtype {mu_dtype!r}: float32 or '
+                                 f'bfloat16')
+            adam = torch.optim.Adam if mu_dtype == 'float32' else OptaxAdam
+            self.inner = adam(
                 params, lr=self.lr, betas=(getattr(cfg, 'beta1', 0.9),
                                            getattr(cfg, 'beta2', 0.999)),
                 eps=getattr(cfg, 'eps', 1e-8), weight_decay=wd)

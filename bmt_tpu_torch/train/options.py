@@ -51,28 +51,17 @@ def _not_ported(what: str, item):
 
 def check_model_ported(cfg) -> None:
     '''Raise NotImplementedError, naming its ROADMAP item, for a model the
-    port does not build.'''
+    port does not build (the uni-modal ones).'''
     if getattr(cfg, 'modality', 'audio_video') != 'audio_video':
         _not_ported(f'--modality {cfg.modality} (the uni-modal models)', 10)
-    if getattr(cfg, 'lora_rank', 0):
-        _not_ported('--lora_rank (LoRA training)', 8)
-    if (getattr(cfg, 'moe_experts', 0) or 0) > 1:
-        _not_ported('--moe_experts (MoE FFNs)', 8)
 
 
 def check_ported(cfg) -> None:
     '''Raise NotImplementedError, naming its ROADMAP item, for a model or an
-    option of the config that the port does not run; print once that
-    multi-step dispatch runs step by step.'''
+    option of the config that the port does not run (the uni-modal models,
+    parallelism, orbax); print once that multi-step dispatch runs step by
+    step.'''
     check_model_ported(cfg)
-    if getattr(cfg, 'kv_cache_int8', False) or getattr(cfg, 'weights_int8',
-                                                       False):
-        _not_ported('--kv_cache_int8 / --weights_int8 in the trainers\' '
-                    'decoding (the serving CLI has them)', 8)
-    strategy = getattr(cfg, 'decode_strategy', 'greedy')
-    if strategy != 'greedy':
-        _not_ported(f'--decode_strategy {strategy} in the trainers\' '
-                    f'decoding (the serving CLI has it)', 4)
     for flag in ('dp_devices', 'ep_devices', 'sp_devices'):
         if (getattr(cfg, flag, 1) or 1) > 1:
             _not_ported(f'--{flag} {getattr(cfg, flag)} (parallelism)', 11)
@@ -82,9 +71,6 @@ def check_ported(cfg) -> None:
         raise NotImplementedError(
             f'--ckpt_format {cfg.ckpt_format}: the port reads and writes the '
             f'npz format only; orbax is not ported (ROADMAP queue 1 item 12)')
-    if getattr(cfg, 'optim_mu_dtype', 'float32') != 'float32':
-        _not_ported(f'--optim_mu_dtype {cfg.optim_mu_dtype} (a bf16 Adam '
-                    f'first moment)', 7)
     if (getattr(cfg, 'steps_per_dispatch', 1) or 1) > 1:
         print(f'--steps_per_dispatch {cfg.steps_per_dispatch}: the port '
               f'dispatches step by step, which the JAX package documents as '

@@ -18,9 +18,9 @@ Dropout draws from the state's own ``torch.Generator``, reseeded from
 ``fold_in(state.rng, state.step)``. A step's masks depend only on
 (seed, step), not on what ran before in the process.
 
-Not ported: the MoE load-balance loss (MoE is not ported),
-``make_multistep`` (a TPU dispatch workaround) and the proposal steps'
-``seq_mesh`` (sequence parallelism waits for the parallelism slice).
+Not ported: ``make_multistep`` (a TPU dispatch workaround) and the
+proposal steps' ``seq_mesh`` (sequence parallelism waits for the
+parallelism slice).
 '''
 from __future__ import annotations
 
@@ -79,14 +79,16 @@ def cast_params(model: nn.Module, dtype) -> dict:
 
 
 def _forward_logits(model, src, cap_x, masks, attention_impl,
-                    compute_dtype):
-    '''Teacher-forced logits in ``compute_dtype`` from the fp32 masters.'''
+                    compute_dtype, aux_out=None):
+    '''Teacher-forced logits in ``compute_dtype`` from the fp32 masters;
+    ``aux_out`` gains the MoE load-balance losses.'''
     src = {k: x.to(compute_dtype) for k, x in src.items()}
     args = (src, cap_x, masks, attention_impl)
+    kwargs = {'return_logits': True, 'aux_out': aux_out}
     if compute_dtype == torch.float32:
-        return model(*args, return_logits=True)
+        return model(*args, **kwargs)
     return torch.func.functional_call(model, cast_params(model, compute_dtype),
-                                      args, {'return_logits': True})
+                                      args, kwargs)
 
 
 def _device_batch(batch: dict, device):
@@ -125,14 +127,22 @@ def _ema_update(ema, model, decay: float):
 def make_cap_train_step(dims, smoothing: float, pad_idx: int,
                         attention_impl: str = 'torch',
                         compute_dtype=torch.float32, accum_steps: int = 1,
-                        ema_decay: float = 0.0):
+                        ema_decay: float = 0.0, moe_aux_coeff: float = 0.01):
     '''Teacher-forced captioning train step
     (reference: captioning_epoch_loops.py:122-149).
 
     accum_steps > 1 splits the batch into that many microbatches and sums
     their gradients of KL / N, N the whole batch's token count: the
     full-batch gradient at 1/accum_steps of the activation memory (the
-    JAX step sums raw KL gradients and divides by N once).'''
+    JAX step sums raw KL gradients and divides by N once).
+
+    With MoE FFNs (dims.moe_experts > 1) and ``moe_aux_coeff`` > 0 each
+    microbatch's objective is KL + coeff mean(aux) n, aux its MoE
+    load-balance losses and n its token count, token-weighted as in the JAX
+    step, so accumulated microbatches still give the full-batch gradient
+    (routing and capacity are per row). The reported loss carries the aux
+    term too, as JAX's does.'''
+    collect_aux = dims.moe_experts > 1 and moe_aux_coeff > 0.0
 
     def step(state: TrainState, batch: dict):
         model = state.model
@@ -156,10 +166,14 @@ def make_cap_train_step(dims, smoothing: float, pad_idx: int,
                 src_mb = {k: x[rows] for k, x in src.items()}
                 masks = make_masks(src_mb, cap_x[rows], dims.modality,
                                    pad_idx)
+                aux = [] if collect_aux else None
                 logits = _forward_logits(model, src_mb, cap_x[rows], masks,
-                                         attention_impl, compute_dtype)
+                                         attention_impl, compute_dtype, aux)
                 kl = label_smoothing_kl_logits(logits, cap_y[rows],
                                                smoothing, pad_idx)
+                if aux:
+                    n = (cap_y[rows] != pad_idx).sum()
+                    kl = kl + moe_aux_coeff * (sum(aux) / len(aux)) * n
                 (kl / n_tokens).backward()
                 kl_sum = kl_sum + kl.detach()
 

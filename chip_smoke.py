@@ -164,14 +164,37 @@ when it fails:
     tokens and the first step's largest log-prob error against the
     unquantized decode (18c); the forward kernel against its plain version
     at every shape 18a-18b launched it (18d, as 17e); then
-    bmt_tpu_torch.scripts.serve_bench with 3 s windows, 2 of each scenario,
-    its JSON line printed (18e).
+    bmt_tpu_torch.scripts.serve_bench with one 3 s window of each scenario,
+    its JSON line printed (18e);
+19. main.py's model and decode options through the port's CLI on phase
+    17's tree and checkpoints (build_parser()'s widths, bf16,
+    --attention_impl pallas), each run's launches counted from 0 and its
+    shapes recorded: (19a) train_cap --lora_rank 8 --lora_targets attn_ffn
+    seeded from phase 17's best_cap_model: every base leaf of its last and
+    best weights bit for bit the seed's, every adapter's B moved off zero,
+    and its best_cap_model.lora.npz served through scripts.serve's
+    --lora_adapter (two /caption requests through it, one without); (19b)
+    train_cap --moe_experts 4 --optim_mu_dtype bfloat16 from a seed: a
+    finite loss, the first moment saved in bf16, and a step's loss with
+    the Switch aux above the same step's without it by at most coeff x E;
+    (19c) evaluate of 19b's best_cap_model greedy, with beam K=4 and the
+    int8 cross K/V, with sampling (top-k 50, top-p 0.9) and with int8
+    weights, scores finite; (19d) in fp32 the MoE captioner's cached greedy decode
+    against the uncached one (B=4, 30 steps, plain attention; where a row
+    parts, a near-tie within TOP2_GAP_TOL) and its evaluation through
+    pallas and xla under phase 17d's rule; (19e) the kernels against their
+    plain versions at every shape 19a-19d launched them, as 17e; (19f) the
+    int8 weights and scales of the generator, the activation levels and
+    scales of a batch and the int8 K/V levels and scales equal on the card
+    and the CPU bit for bit. It prints seconds, ms per step, launches and
+    scores per run.
 
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. The report's `launches` are the captioning
 trainer's (phase 9); `launches_by_path` gives those of each main path's run
 (phases 9, 12, 15 and 16, phase 17's train_cap, train_prop and
-evaluate, and phase 18's requests as `serve`), `serving` phase 18's numbers,
+evaluate, phase 18's requests as `serve`, and phase 19's runs), `serving`
+phase 18's numbers, `main_py_options` phase 19's,
 `main_py_procedures` phase 17's seconds, step and prefetch-wait
 times, scores, the checks at its launch shapes and busy share, `proposal_800x800` each kernel's times at the
 proposal cell's 800x800 call, `fp32_train_256x256` its fp32 times at the
@@ -225,7 +248,9 @@ from bmt_tpu_torch.data import (AUDIO_BUCKETS, VIDEO_BUCKETS, Vocab,
 from bmt_tpu_torch.ops.masks import make_masks
 from bmt_tpu_torch.scripts import single_video_prediction as app
 from bmt_tpu_torch.ops.lora import add_lora, apply_adapter, has_lora
-from bmt_tpu_torch.ops.quant import quantize_tree_int8
+from bmt_tpu_torch.ops.attention import _quantize_per_channel
+from bmt_tpu_torch.ops.quant import (quantize_linear_int8, quantize_rows_int8,
+                                     quantize_tree_int8)
 from bmt_tpu_torch.scripts import serve as serve_cli
 from bmt_tpu_torch.serve import (SHORTEST_SEGMENT, CaptionEngine,
                                  MicroBatcher, VideoPipeline,
@@ -2077,9 +2102,10 @@ def profiled_train_cap(tree_argv, log_dir):
 def phase_main_procedures(dev, smi, tmp):
     '''main.py's train_cap -> train_prop -> evaluate through the port's CLI
     on a synthetic ActivityNet tree under ``tmp`` (see the module
-    docstring); the checkpoints stay there for phase 18. Returns
+    docstring); the checkpoints stay there for phases 18 and 19. Returns
     ({procedure: launches}, {procedure: numbers for the report}, the
-    captioner's checkpoint directory, the proposal generator's).'''
+    captioner's checkpoint directory, the proposal generator's, the tree's
+    command-line flags).'''
     t0 = time.perf_counter()
     tree = write_anet_tree(os.path.join(tmp, 'data'))
     print(f'    tree: {ANET_TRAIN} train + {ANET_VAL} validation videos '
@@ -2211,7 +2237,7 @@ def phase_main_procedures(dev, smi, tmp):
           f'{100 * device_ms / plain["step_ms"]:.1f}% of its median step); '
           f'{100 * device_ms * n / float(m[3]):.1f}% of the traced run\'s '
           f'wall, which holds the profiler\'s own host work ({smi})')
-    return launches, report, cap_dir, prop_dir
+    return launches, report, cap_dir, prop_dir, tree
 
 
 # ---------------------------------------------------------------------------
@@ -2230,7 +2256,8 @@ SAMPLE = {'temperature': 1.0, 'top_k': 50, 'top_p': 0.9}
 # log-prob gap at the first word that differs must be a near-tie at bf16's
 # resolution: a logit of |z| <= 16 rounds to 2^-8 |z| = 0.0625
 BF16_GAP_TOL = 0.0625
-SERVE_BENCH_ENV = {'SERVE_BENCH_T_LOAD': '3', 'SERVE_BENCH_WINDOWS': '2'}
+# one 3 s window a scenario keeps the script inside its time with phase 19
+SERVE_BENCH_ENV = {'SERVE_BENCH_T_LOAD': '3', 'SERVE_BENCH_WINDOWS': '1'}
 
 
 def http(url, payload=None, timeout=300):
@@ -2585,15 +2612,320 @@ def phase_serving(dev, smi, cap_dir, prop_dir, tmp):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# main.py's model and decode options
+# ---------------------------------------------------------------------------
+
+LORA_FLAGS = ['--lora_rank', str(LORA_RANK), '--lora_targets', 'attn_ffn']
+MOE_EXPERTS, MOE_AUX_COEFF = 4, 0.01     # --moe_experts, --moe_aux_coeff
+MOE_FLAGS = ['--moe_experts', str(MOE_EXPERTS), '--optim_mu_dtype',
+             'bfloat16']
+# evaluate's decode options, each run alone from 19b's best_cap_model;
+# greedy first, the baseline of the others' seconds
+EVAL_OPTIONS = {
+    'evaluate_greedy': [],
+    'evaluate_beam_kv_int8': ['--decode_strategy', 'beam', '--beam_size',
+                              str(BEAM), '--kv_cache_int8'],
+    'evaluate_sample': ['--decode_strategy', 'sample', '--sample_top_k',
+                        str(SAMPLE['top_k']), '--sample_top_p',
+                        str(SAMPLE['top_p'])],
+    'evaluate_weights_int8': ['--weights_int8'],
+}
+OPTION_ROWS = (4, 70, 180)               # 19d's decode batch: B, Sv, Sa
+
+
+def params_npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def lora_run_checks(lora_dir, base_dir):
+    '''19a: every base leaf of the LoRA run's last and best weights is bit
+    for bit its seed's (phase 17's best_cap_model) and every adapter's B
+    has left zero. Returns the number of adapted linears.'''
+    base = params_npz(os.path.join(base_dir, 'best_cap_model.params.npz'))
+    sites = 0
+    for name in ('last_cap_model', 'best_cap_model'):
+        got = params_npz(os.path.join(lora_dir, f'{name}.params.npz'))
+        adapters = {k for k in got if k.rsplit('/', 1)[-1] in (
+            'lora_a', 'lora_b', 'lora_s')}
+        check(set(got) - adapters == set(base),
+              f'{name}: the LoRA run saved other base leaves')
+        changed = [k for k in base if not np.array_equal(got[k], base[k])]
+        check(not changed, f'{name}: LoRA training changed base leaves '
+              f'{changed[:3]}')
+        still = [k for k in adapters if k.endswith('lora_b')
+                 and not np.any(got[k])]
+        check(not still, f'{name}: adapters that never moved {still[:3]}')
+        sites = len(adapters) // 3
+    return sites
+
+
+def serve_lora_adapter(dev, base_dir, lora_npz, rng, dims):
+    '''19a: scripts.serve.main with --lora_adapter ft=<the run's
+    best_cap_model.lora.npz> on the base checkpoint answers two /caption
+    requests through the adapter and one without. Returns (adapted linears
+    it loaded, the three sentences).'''
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        server = serve_cli.main([
+            '--pretrained_cap_model_path', base_dir, '--attention_impl',
+            'pallas', '--port', '0', '--device', str(dev), '--lora_adapter',
+            f'ft={lora_npz}', '--warmup_batches', '1', '--max_batch', '8'],
+            block=False)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{server.server_address[1]}'
+    try:
+        replies = []
+        for adapter in ('ft', 'ft', None):
+            body = json.loads(request_crop(rng, dims)[0])
+            if adapter:
+                body['adapter'] = adapter
+            replies.append(http(f'{url}/caption', json.dumps(body).encode()))
+    finally:
+        server.shutdown()
+        server.server_close()
+    check(all(code == 200 for code, _ in replies),
+          f'/caption through the adapter: {replies}')
+    loaded = re.search(r"adapter 'ft': (\d+) adapted linears",
+                       printed.getvalue())
+    check(loaded is not None, 'scripts.serve did not load the adapter')
+    return int(loaded[1]), [next(iter(r.values())) for _, r in replies]
+
+
+def moe_aux_in_loss(moe_dir, dev):
+    '''19b: one bf16 train step (lr 0) of the trained MoE captioner with the
+    aux weighted by MOE_AUX_COEFF and one with it off, from the same seed
+    and step: the first loss exceeds the second by coeff x the mean aux
+    times the batch's share of tokens (0 < gap <= coeff E). Returns (the
+    two losses, the encoder-then-decoder aux list of a train-mode forward,
+    fp32).'''
+    _, dims, model, _ = load_cap_checkpoint(moe_dir, device=dev)
+    batch = train_batch(19, 8, SV, SA, TSC, dims)
+    losses = []
+    for coeff in (MOE_AUX_COEFF, 0.0):
+        state = init_train_state(model, build_optimizer(
+            types.SimpleNamespace(**{**vars(TRAIN_CFG), 'lr': 0.0}), model))
+        step = make_cap_train_step(dims, SMOOTHING, PAD, 'kernel',
+                                   compute_dtype=torch.bfloat16,
+                                   moe_aux_coeff=coeff)
+        losses.append(step(state, batch)[1]['loss'].item())
+    src = {k: torch.from_numpy(v).to(dev) for k, v in batch['src'].items()}
+    trg = torch.from_numpy(batch['caption'][:, :-1]).long().to(dev)
+    aux = []
+    with torch.no_grad():
+        model.train()
+        model(src, trg, make_masks(src, trg, 'audio_video', PAD), 'kernel',
+              aux_out=aux)
+    check(len(aux) == 2 * dims.N and all(torch.isfinite(a) for a in aux),
+          f'aux list {aux}')
+    del model
+    torch.cuda.empty_cache()
+    return losses, [a.item() for a in aux]
+
+
+def moe_cached_vs_uncached(model, x):
+    '''19d: fp32 greedy decode of a MoE captioner KV-cached (the MoE FFNs
+    one token at a time, lossless) and uncached (the teacher-forced forward
+    over the prefix at every step), both through plain attention with no
+    end token. Returns (rows equal, the largest top-2 log-prob gap at a
+    row's first differing step or None).'''
+    cached = greedy_decode_bimodal(model, x, STEPS, START, -1, PAD, 'torch')
+    uncached = greedy_decode_uncached(
+        lambda s, t, m: model(s, t, m, 'torch'), x, STEPS, START, -1, PAD)
+    same = (cached == uncached).all(dim=1)
+    gap = None
+    for r in (~same).nonzero().flatten().tolist():
+        step = int((cached[r] != uncached[r]).nonzero()[0])
+        row = {k: v[r:r + 1] for k, v in x.items()}
+        trg = uncached[r:r + 1, :step]
+        with torch.inference_mode():
+            masks = make_masks(row, trg, 'audio_video', PAD)
+            top = model(row, trg, masks, 'torch')[0, -1].topk(2).values
+        gap = max(gap or 0.0, float(top[0] - top[1]))
+    return int(same.sum()), gap
+
+
+def int8_levels_on_card(model, dev):
+    '''19f: the int8 weights and scales of the model's generator (the
+    10,172 x 300 head), the int8 levels and scales of a batch of its
+    inputs, and the int8 cross K/V of a (B, H, S, d_k) K, on the card and
+    the CPU from the same tensors: equal bit for bit. Returns the number of
+    values compared.'''
+    w = model.generator.weight.detach()
+    g = torch.Generator().manual_seed(19)
+    x = torch.randn(B, STEPS, w.shape[1], generator=g)
+    k = torch.randn(B, 4, SA, 256, generator=g) * 3
+    n = 0
+    for fn, t in ((quantize_linear_int8, w.cpu()), (quantize_rows_int8, x),
+                  (_quantize_per_channel, k)):
+        for a, b in zip(fn(t), fn(t.to(dev))):
+            check(torch.equal(a, b.cpu()),
+                  f'{fn.__name__}: int8 levels or scales of shape '
+                  f'{tuple(a.shape)} differ between the card and the CPU')
+            n += a.numel()
+    return n
+
+
+def phase_main_py_options(dev, smi, tmp, tree, cap_dir, prop_dir, full):
+    '''main.py's model and decode options through the port's CLI on phase
+    17's tree and checkpoints (see the module docstring). ``full``: phase
+    17's report, for its dense train_cap's ms per step. Returns
+    ({run: launches}, numbers for the report).'''
+    log = os.path.join(tmp, 'log')
+    common = tree + CLI_FLAGS + ['--log_dir', log]
+    launches, report, shapes = {}, {}, set()
+    cap_argv = ['--procedure', 'train_cap', *common, *CAP_FLAGS]
+
+    print(f'    [19a] train_cap {" ".join(LORA_FLAGS)} from phase 17\'s '
+          f'best_cap_model ({smi}):')
+    lora_dir = os.path.join(log, 'train_cap', 'lora')
+    best, secs, launches['train_cap_lora'], stages = run_procedure(
+        cap_argv + ['--exper_name', 'lora', '--pretrained_cap_model_path',
+                    cap_dir, *LORA_FLAGS], dev, shapes)
+    check(all(launches['train_cap_lora'].values()),
+          f'the LoRA run launched {launches["train_cap_lora"]}')
+    lora_npz = os.path.join(lora_dir, 'best_cap_model.lora.npz')
+    check(os.path.exists(lora_npz), 'train_cap --lora_rank wrote no '
+          'best_cap_model.lora.npz')
+    sites = lora_run_checks(lora_dir, cap_dir)
+    meta = read_checkpoint_meta(cap_dir, 'best_cap_model')
+    dims = CapModelDims.from_config(Config.from_dict(meta['config']),
+                                    len(meta['vocab_itos']))
+    served, sentences = serve_lora_adapter(dev, cap_dir, lora_npz,
+                                           np.random.default_rng(19), dims)
+    check(served == sites, f'scripts.serve loaded {served} adapted linears '
+          f'of {sites}')
+    numbers = epoch_numbers(stages)
+    print(f'      base leaves bit for bit phase 17\'s, {sites} adapters '
+          f'(B moved off zero); best METEOR {best}; {served} adapters '
+          f'served through scripts.serve: {sentences}; step '
+          f'{numbers["step_ms"]:.2f} ms against the full step\'s '
+          f'{full["train_cap"]["step_ms"]:.2f} ms (17a)')
+    report['train_cap_lora'] = {'s': secs, 'meteor': best,
+                                'adapted_linears': sites, **numbers,
+                                'full_step_ms_17a': full['train_cap'][
+                                    'step_ms'], 'stages': stages}
+    torch.cuda.empty_cache()
+
+    print(f'    [19b] train_cap {" ".join(MOE_FLAGS)} ({smi}):')
+    moe_dir = os.path.join(log, 'train_cap', 'moe')
+    best, secs, launches['train_cap_moe'], stages = run_procedure(
+        cap_argv + ['--exper_name', 'moe', *MOE_FLAGS], dev, shapes)
+    check(all(launches['train_cap_moe'].values()),
+          f'the MoE run launched {launches["train_cap_moe"]}')
+    check(checkpoint_exists(moe_dir, 'best_cap_model'),
+          'the MoE train_cap wrote no best_cap_model')
+    loss = logged(moe_dir, 'debug/train_loss_epoch')
+    opt = params_npz(os.path.join(moe_dir, 'last_cap_model.torch_opt.npz'))
+    mu = [v for k, v in opt.items() if k.startswith('state/exp_avg/')]
+    check(mu and all(np.array_equal(v, torch.from_numpy(v).bfloat16()
+                                    .float().numpy()) for v in mu),
+          'the saved first moment is not bf16')
+    (with_aux, without), aux = moe_aux_in_loss(moe_dir, dev)
+    gap = with_aux - without
+    check(0 < gap <= MOE_AUX_COEFF * MOE_EXPERTS,
+          f'the MoE loss does not carry the aux: {with_aux} with, '
+          f'{without} without')
+    numbers = epoch_numbers(stages)
+    print(f'      train loss {loss}, best METEOR {best}; a step\'s loss '
+          f'{with_aux:.6f} with the aux ({MOE_AUX_COEFF}) and {without:.6f} '
+          f'without; aux by layer {[round(a, 4) for a in aux]}; the first '
+          f'moment saved bf16 ({len(mu)} tensors); step '
+          f'{numbers["step_ms"]:.2f} ms against the dense step\'s '
+          f'{full["train_cap"]["step_ms"]:.2f} ms (17a)')
+    report['train_cap_moe'] = {'s': secs, 'meteor': best, 'loss': loss,
+                               'step_loss_with_aux': with_aux,
+                               'step_loss_without_aux': without,
+                               'aux': aux, **numbers, 'stages': stages}
+    torch.cuda.empty_cache()
+
+    props = os.path.join(prop_dir, 'submissions',
+                         'prop_results_val_1_e0_maxprop100.json')
+    ev_argv = ['--procedure', 'evaluate', *common, '--prop_pred_path',
+               props]
+    print(f'    [19c] evaluate 19b\'s best_cap_model (bf16, the kernel) with '
+          f'each decode option ({smi}):')
+    for name, flags in EVAL_OPTIONS.items():
+        metrics, secs, launches[name], stages = run_procedure(
+            ev_argv + ['--pretrained_cap_model_path', moe_dir, *flags], dev,
+            shapes)
+        check(launches[name][KERNEL] > 0, f'{name} launched {launches[name]}')
+        avg = metrics['Average across tIoUs']
+        check(all(np.isfinite(v) for v in avg.values()),
+              f'{name} scores {avg}')
+        scores = {k: avg[k] for k in ('METEOR', 'Bleu_4', 'Bleu_3',
+                                      'Precision', 'Recall')}
+        print(f'      {" ".join(flags) or "greedy"}: {secs:.2f} s; '
+              + ', '.join(f'{k} {v:.6f}' for k, v in scores.items()))
+        report[name] = {'s': secs, 'scores': scores, 'stages': stages}
+    torch.cuda.empty_cache()
+
+    print('    [19d] fp32: the MoE captioner\'s cached greedy decode against '
+          'the uncached one, and evaluate through pallas and xla:')
+    _, dims, model, _ = load_cap_checkpoint(moe_dir, device=dev)
+    b, sv, sa = OPTION_ROWS
+    x = features(torch.Generator(device=dev).manual_seed(19), b, sv, sa,
+                 dims, dev)
+    x['rgb'][1, sv // 2:] = PAD
+    x['flow'][1, sv // 2:] = 0.0
+    x['audio'][1, sa // 3:] = PAD
+    equal, gap = moe_cached_vs_uncached(model, x)
+    print(f'      cached == uncached greedy in {equal} of {b} rows '
+          f'({STEPS} steps); largest top-2 gap where they part: {gap}')
+    check(gap is None or gap <= TOP2_GAP_TOL,
+          f'cached and uncached MoE decodes part at a gap of {gap}')
+    n_int8 = int8_levels_on_card(model, dev)
+    del model
+    torch.cuda.empty_cache()
+    subs, ckpt = {}, None
+    for flag in ('pallas', 'xla'):
+        ckpt = fp32_copy(moe_dir, os.path.join(tmp, f'moe_fp32_{flag}'),
+                         flag)
+        _, _, counts, _ = run_procedure(
+            ev_argv + ['--pretrained_cap_model_path', ckpt], dev, shapes)
+        check((counts[KERNEL] > 0) == (flag == 'pallas'),
+              f'the fp32 {flag} MoE evaluation launched {counts}')
+        subs[flag] = read_json(os.path.join(
+            ckpt, 'captioning_results_learned_props_e0.json'))
+    segs, differ, top2 = compare_captions(subs, ckpt, tree, dev)
+    print(f'      fp32 MoE captions, kernel vs plain: {segs - differ} of '
+          f'{segs} segments equal')
+    report['fp32_moe'] = {'cached_equals_uncached_rows': [equal, b],
+                          'cached_uncached_gap': gap, 'segments': segs,
+                          'differ': differ, 'top2_gap': top2}
+    torch.cuda.empty_cache()
+
+    print(f'    [19e] the kernels against their plain versions at every '
+          f'shape 19a-19d launched them ({len(shapes)} launch shapes):')
+    check({s[0] for s in shapes} == {KERNEL, KERNEL_DQ, KERNEL_DKV},
+          f'launch shapes recorded for {sorted({s[0] for s in shapes})}')
+    err, worst, checks = check_path_shapes(shapes, dev)
+    print(f'      checks by dtype {checks} all within TOL, LSE_TOL and '
+          f'BWD_TOL; max_abs_err by kernel ' + ', '.join(
+              f'{n} {err[n]:.3e} ({worst[n]})' for n in err))
+    report['path_shapes'] = {'launch_shapes': len(shapes), 'checks': checks,
+                             'max_abs_err': err, 'at': worst}
+
+    print(f'    [19f] int8 levels on the card and the CPU: {n_int8} weights, '
+          f'activation levels, K/V levels and their scales equal bit for '
+          f'bit')
+    report['int8_values_equal'] = n_int8
+    return launches, report
+
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this smoke test runs only on '
                  'the GPU')
     dev = torch.device(DEVICE)
+    t_main, started = time.perf_counter(), {}        # s from here, by phase
     torch.backends.cuda.matmul.allow_tf32 = False    # fp32 parity is fp32
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     smi = device_line()
+    started[1] = round(time.perf_counter() - t_main, 1)
     print(f'[1] device: {name} | nvidia-smi: {smi} | torch '
           f'{torch.__version__} CUDA {torch.version.cuda}')
     print(smi)                                       # name, power limit
@@ -2601,6 +2933,7 @@ def main():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         list(pool.map(load_library, (KERNEL, BWD_LIBRARY)))
+    started[2] = round(time.perf_counter() - t_main, 1)
     print(f'[2] kernels {sorted(set(SOURCES.values()))} built and loaded in '
           f'{time.perf_counter() - t0:.2f} s; ptxas:')
     for lib, want in ENTRIES.items():
@@ -2618,14 +2951,17 @@ def main():
         check(set(want) <= built, f'{lib}: ptxas compiled {sorted(built)}, '
               f'not all of {want}')
 
+    started[3] = round(time.perf_counter() - t_main, 1)
     print('[3] forward kernel vs plain PyTorch on the card:')
     max_err, worst = phase_kernel(dev)
     print(f'    max_abs_err by dtype: {worst}')
 
+    started[4] = round(time.perf_counter() - t_main, 1)
     print('[4] training kernels vs plain PyTorch on the card:')
     train_err = phase_train_kernels(dev)
     print(f'    max_abs_err by kernel: {train_err}')
 
+    started[5] = round(time.perf_counter() - t_main, 1)
     print('[5] serving:')
     dims = CapModelDims(voc_size=VOC)
     model = BiModalTransformer(
@@ -2673,6 +3009,7 @@ def main():
     check(all(isinstance(s, str) for b in sentences for s in b),
           'captions are not strings')
 
+    started[6] = round(time.perf_counter() - t_main, 1)
     print('[6] serving parity on the card (fp32):')
     toks = {}
     for impl in ('kernel', 'torch'):
@@ -2689,19 +3026,23 @@ def main():
           f'{lp_err:.3e} (tol {LOGPROB_TOL:.0e})')
     check(lp_err <= LOGPROB_TOL, f'log-prob error {lp_err}')
 
+    started[7] = round(time.perf_counter() - t_main, 1)
     print(f'[7] train-step parity on the card (fp32, B=4, Sa={SA}, Sv={SV}, '
           f'Sc={TSC}, dropout off, 2 Adam steps, eps {PARITY_CFG.eps}):')
     phase_train_parity(dev)
 
+    started[8] = round(time.perf_counter() - t_main, 1)
     print(f'[8] train step (bf16, then fp32; B={TB}, Sa={SA}, Sv={SV}, '
           f'Sc={TSC}, dropout 0.1, Adam lr {TRAIN_CFG.lr}, clip 1.0) on '
           f'{smi}:')
     train_ms, train_ms32, train_kernel_ms, train_kernel_ms32 = \
         phase_train_timing(dev, smi)
 
+    started[9] = round(time.perf_counter() - t_main, 1)
     print('[9] trainer: train_epoch_cap (bf16, kernels):')
     trainer_launches = phase_trainer(dev)
 
+    started[10] = round(time.perf_counter() - t_main, 1)
     print(f'[10] serving timings (bf16, B={B}, Sa={SA}, Sv={SV}, {STEPS} '
           f'steps, end_idx=-1) on {smi}:')
     for i, case in enumerate(CASES[:5]):
@@ -2743,51 +3084,68 @@ def main():
     del model16, x16
     torch.cuda.empty_cache()
 
+    started[11] = round(time.perf_counter() - t_main, 1)
     print(f'[11] the kernels at the proposal shapes (B=1 and B={PB}, H=4, '
           f'd=256, Sa={PSA}, Sv={PSV}, padded keys) vs plain PyTorch on the '
           f'card:')
     prop_err, prop_kernel_ms = phase_prop_kernels(dev, smi)
     print(f'    max_abs_err by kernel: {prop_err}')
 
+    started[12] = round(time.perf_counter() - t_main, 1)
     print(f'[12] dense captioning (bf16, flagship PropModelDims(), pad '
           f'{PROP_PAD}, max_prop_per_vid {MAX_PROPS}) through VideoPipeline '
           f'and the phase-5 engine:')
     prop, videos, pipeline_launches = phase_dense_captioning(dev, engine, smi)
 
+    started[13] = round(time.perf_counter() - t_main, 1)
     print('[13] proposal parity on the card (fp32, kernel vs torch):')
     phase_prop_parity(engine, prop, videos)
     del prop, videos
     torch.cuda.empty_cache()
 
+    started[14] = round(time.perf_counter() - t_main, 1)
     print(f'[14] proposal train-step parity on the card (fp32, B=2, '
           f'Sa={PSA}, Sv={PSV}, E={PE}, dropout off, 2 Adam steps, eps '
           f'{PARITY_CFG.eps}):')
     phase_prop_train_parity(dev)
     torch.cuda.empty_cache()
 
+    started[15] = round(time.perf_counter() - t_main, 1)
     print(f'[15] proposal train step (bf16, B={PB}, Sa={PSA}, Sv={PSV}, '
           f'E={PE}, remat, dropout 0.1, Adam lr {TRAIN_CFG.lr}, clip 1.0) on '
           f'{smi}:')
     prop_launches = phase_prop_train(dev, smi, prop_kernel_ms)
     torch.cuda.empty_cache()
 
+    started[16] = round(time.perf_counter() - t_main, 1)
     print(f'[16] the single-video app from checkpoints (fp32, train_cap and '
           f'train_prop defaults, max_prop_per_vid {MAX_PROPS}) on {smi}:')
     app_launches, app_ms = phase_single_video_app(dev, smi)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
+        started[17] = round(time.perf_counter() - t_main, 1)
         print(f'[17] main.py\'s procedures through the port (python -m '
               f'bmt_tpu_torch: train_cap -> train_prop -> evaluate; '
               f'build_parser widths, bf16, --attention_impl pallas) from '
               f'.npy files:')
-        proc_launches, procedures, cap_dir, prop_dir = \
+        proc_launches, procedures, cap_dir, prop_dir, tree = \
             phase_main_procedures(dev, smi, tmp)
         torch.cuda.empty_cache()
+        started[18] = round(time.perf_counter() - t_main, 1)
         print(f'[18] the serving API from phase 17\'s checkpoints (python -m '
               f'bmt_tpu_torch.scripts.serve, bf16, --attention_impl pallas):')
         serve_launches, serving = phase_serving(dev, smi, cap_dir, prop_dir,
                                                 tmp)
+        torch.cuda.empty_cache()
+        started[19] = round(time.perf_counter() - t_main, 1)
+        print(f'[19] main.py\'s model and decode options through the port '
+              f'(python -m bmt_tpu_torch: LoRA and MoE train_cap, evaluate '
+              f'with beam, sampling and int8; build_parser widths, bf16, '
+              f'--attention_impl pallas) on phase 17\'s tree and '
+              f'checkpoints:')
+        option_launches, options = phase_main_py_options(
+            dev, smi, tmp, tree, cap_dir, prop_dir, procedures)
 
     # times at the train cell's encoder 256x256 call (forward with lse), and
     # at the proposal cell's 800x800 call; launches of each main path's run
@@ -2798,8 +3156,10 @@ def main():
              'video_pipeline': pipeline_launches,
              'train_epoch_prop': prop_launches,
              'single_video_app': app_launches, **proc_launches,
-             'serve': serve_launches}
-    path_err = procedures['path_shapes']['max_abs_err']
+             'serve': serve_launches, **option_launches}
+    path_err = {k: max(procedures['path_shapes']['max_abs_err'][k],
+                       options['path_shapes']['max_abs_err'][k])
+                for k in (KERNEL, KERNEL_DQ, KERNEL_DKV)}
     report = [
         (KERNEL, max(max_err, train_err[KERNEL], prop_err[KERNEL],
                      path_err[KERNEL], serving['path_shapes']['max_abs_err']),
@@ -2832,7 +3192,9 @@ def main():
            if kname == KERNEL else {})}
         for kname, err, t in report],
         'fp32_train_step_ms': train_ms32,
-        'main_py_procedures': procedures, 'serving': serving}))
+        'main_py_procedures': procedures, 'serving': serving,
+        'main_py_options': options, 'phase_started_s': started,
+        'script_s': round(time.perf_counter() - t_main, 1)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -596,9 +596,10 @@ def test_prop_pt_saved_by_one_package_loads_in_the_other(tmp_path, writer):
 def test_lora_trees_and_configs_raise(tmp_path, vocab_csv):
     '''LoRA archives: an export of a tree with adapters folds them into the
     weights, as the JAX export does; a native checkpoint of a LoRA finetune
-    (config lora_rank) loads with its adapters; LoRA training raises,
-    naming the item: a trainer config with lora_rank, and a LoRA archive as
-    the captioner to continue training from.'''
+    (config lora_rank) loads with its adapters; as the seed of a new run
+    (``load_pretrained_cap_params``) it gives the JAX package's seed, its
+    adapters folded into the weights; and a trainer config with lora_rank
+    passes the port's model check.'''
     jdims = JaxCapDims(voc_size=11, d_model_A=8, d_model_V=12, d_model_C=10,
                        d_model=16, H=2, N=1, d_ff_A=16, d_ff_V=24, d_ff_C=20)
     lora = add_lora(init_bimodal_transformer(jax.random.PRNGKey(0), jdims), 2,
@@ -621,11 +622,16 @@ def test_lora_trees_and_configs_raise(tmp_path, vocab_csv):
     assert port_lora.count_lora(loaded) == port_lora.count_lora(model)
     jax.tree.map(np.testing.assert_array_equal, to_jax_tree(loaded),
                  to_jax_tree(model))
-    with pytest.raises(NotImplementedError, match='item 8'):
-        tckpt.load_pretrained_cap_params(str(tmp_path),
-                                         port_captioner(len(vocab_csv[1]))[2])
-    with pytest.raises(NotImplementedError, match='item 8'):
-        check_model_ported(port_config.Config.from_dict(d))
+    seeded = port_captioner(len(vocab_csv[1]))[2]
+    tckpt.load_pretrained_cap_params(str(tmp_path), seeded)
+    assert port_lora.count_lora(seeded) == (0, 0)
+    want = jckpt.load_pretrained_cap_params(str(tmp_path),
+                                            to_jax_tree(seeded))
+    jax.tree.map(np.testing.assert_array_equal, to_jax_tree(seeded),
+                 jax.tree.map(np.asarray, want))
+    merged = to_jax_tree(port_lora.merge_lora(loaded))
+    jax.tree.map(np.testing.assert_array_equal, to_jax_tree(seeded), merged)
+    check_model_ported(port_config.Config.from_dict(d))
 
 
 def test_unimodal_checkpoints_raise(tmp_path, vocab_csv):

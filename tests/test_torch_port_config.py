@@ -106,9 +106,14 @@ def test_cap_dims_from_config_match_jax(argv):
 
 
 def test_cap_dims_from_config_rejects_moe():
-    _, pcfg = _configs(ARGVS[0] + ['--moe_experts', '4'])
-    with pytest.raises(ValueError, match='MoE'):
-        CapModelDims.from_config(pcfg, 10)
+    '''A MoE config (``--moe_experts 4 --moe_capacity_factor 2``) gives the
+    JAX package's MoE dims, which the port now builds rather than
+    rejects.'''
+    argv = ARGVS[0] + ['--moe_experts', '4', '--moe_capacity_factor', '2']
+    jcfg, pcfg = _configs(argv)
+    got = dataclasses.asdict(CapModelDims.from_config(pcfg, 10))
+    assert got == dataclasses.asdict(JaxCapDims.from_config(jcfg, 10))
+    assert got['moe_experts'] == 4 and got['moe_cf'] == 2.0
 
 
 @pytest.mark.parametrize('argv', [ARGVS[1], ARGVS[4]],

@@ -1,6 +1,7 @@
 '''The CUDA attention kernels (forward with lse, dQ, dK/dV) against their
-plain PyTorch versions, the checkpoint loaders and the single-video app
-through them, and the int8 linear's ``torch._int_mm`` product, on the card.
+plain PyTorch versions, the checkpoint loaders, the single-video app and a
+MoE train step through them, and the int8 linear's ``torch._int_mm`` product
+and int8 levels, on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither JAX nor the test helpers that do, so on a machine with a card and no
@@ -21,7 +22,8 @@ from bmt_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq_reference, flash_attention_forward,
     flash_attention_lse_reference, flash_attention_reference,
     fp32_key_splits, key_mask_and_causal, launch_counts, row_dot)
-from bmt_tpu_torch.ops.quant import Int8Linear, int8_matmul
+from bmt_tpu_torch.ops.quant import (Int8Linear, int8_matmul,
+                                     quantize_rows_int8)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -441,20 +443,101 @@ def test_int8_linear_on_card_equals_the_exact_product(cuda, rows, d_in,
                                                       d_out):
     '''torch._int_mm behind Int8Linear at 16 rows or fewer (padded to 17)
     and at sizes that are not multiples of 8 (the weights padded): the
-    card's int32 product of the same operands equals the CPU's exact one,
-    and the layer stays within int8 quantization error of the fp32 linear
-    (the card rounds x / x_scale through a reciprocal, so an activation
-    level may differ from the CPU's).'''
+    card's int32 product of the same operands equals the CPU's exact one;
+    the card's int8 weights, their scales, the activations' levels and
+    scales and the layer's output equal the CPU path's bit for bit (the
+    scales divide by 127 exactly on both, ``ops.quant.per_127``), and the
+    layer stays within int8 quantization error of the fp32 linear.'''
     g = torch.Generator().manual_seed(rows)
     linear = nn.Linear(d_in, d_out)
     x = torch.randn(3, rows, d_in, generator=g)
     on_cpu = Int8Linear(linear)
-    on_card = copy.deepcopy(on_cpu).to(cuda)
+    on_card = Int8Linear(copy.deepcopy(linear).to(cuda))
+    assert torch.equal(on_card.w_q.cpu(), on_cpu.w_q)
+    assert torch.equal(on_card.w_scale.cpu(), on_cpu.w_scale)
     x_q = torch.randint(-127, 128, (rows, on_cpu.w_q.shape[1]), generator=g,
                         dtype=torch.int8)
     torch.testing.assert_close(int8_matmul(x_q.to(cuda), on_card.w_q).cpu(),
                                int8_matmul(x_q, on_cpu.w_q), atol=0, rtol=0)
+    want_q, want_scale = quantize_rows_int8(x)
+    got_q, got_scale = quantize_rows_int8(x.to(cuda))
+    assert torch.equal(got_q.cpu(), want_q)
+    assert torch.equal(got_scale.cpu(), want_scale)
     want = linear(x).detach()
     got = on_card(x.to(cuda)).cpu()
+    assert torch.equal(got, on_cpu(x))
     assert (got - want).abs().max() < 0.02 * want.abs().max()
     assert on_card(x.to(cuda, torch.bfloat16)).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_int8_kv_levels_on_card_equal_the_cpu(cuda, dtype):
+    '''The int8 cross K/V of ``--kv_cache_int8`` from the same K on the
+    card and the CPU: the same levels and per-channel scales, bit for
+    bit.'''
+    from bmt_tpu_torch.ops.attention import _quantize_per_channel
+    g = torch.Generator().manual_seed(3)
+    k = (torch.randn(4, 4, 256, 256, generator=g) * 3).to(dtype)
+    q8, scale = _quantize_per_channel(k)
+    q8_card, scale_card = _quantize_per_channel(k.to(cuda))
+    assert torch.equal(q8_card.cpu(), q8)
+    assert torch.equal(scale_card.cpu(), scale)
+
+
+def test_moe_train_step_kernel_equals_torch_on_card(cuda):
+    '''Two fp32 Adam steps of a small MoE captioner (E=4, LoRA adapters
+    on the attention projections, dropout 0) through the CUDA kernels and
+    through plain attention: the same losses, gradient norms and
+    parameters within fp32 summation error; every kernel launched.'''
+    import types
+
+    from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
+    from bmt_tpu_torch.ops.lora import add_lora, lora_frozen_predicate
+    from bmt_tpu_torch.train.optim import build_optimizer
+    from bmt_tpu_torch.train.steps import (init_train_state,
+                                           make_cap_train_step)
+    cfg = types.SimpleNamespace(optimizer='adam', lr=1e-3, grad_clip=1.0,
+                                eps=1e-3)
+    dims = CapModelDims(voc_size=50, d_model_A=16, d_model_V=32,
+                        d_model_C=32, d_model=64, H=2, N=2, d_ff_A=32,
+                        d_ff_V=64, d_ff_C=64, dout_p=0.0, d_vid=32,
+                        d_aud=16, use_linear_embedder=True, moe_experts=4)
+    g = torch.Generator().manual_seed(0)
+    batches = []
+    for _ in range(2):
+        src = {'rgb': torch.randn(4, 24, 32, generator=g),
+               'flow': torch.randn(4, 24, 32, generator=g),
+               'audio': torch.randn(4, 40, 16, generator=g)}
+        src['audio'][1, 30:] = 1.0
+        caption = torch.randint(4, 50, (4, 9), generator=g)
+        caption[:, 0] = 2
+        caption[2, 6:] = 1
+        batches.append({'src': src, 'caption': caption})
+    out = {}
+    for impl in ('kernel', 'torch'):
+        for lora in (False, True):
+            model = BiModalTransformer(
+                dims, device=cuda,
+                generator=torch.Generator(device=cuda).manual_seed(1))
+            if lora:
+                add_lora(model, 4, torch.Generator(device=cuda).manual_seed(2))
+            opt = build_optimizer(cfg, model, frozen=(
+                lora_frozen_predicate if lora else None))
+            state = init_train_state(model, opt)
+            step = make_cap_train_step(dims, 0.7, 1, impl,
+                                       moe_aux_coeff=0.01)
+            before = launch_counts()
+            metrics = [step(state, b)[1] for b in batches]
+            launched = {k: v - before[k] for k, v in launch_counts().items()}
+            assert all(launched.values()) == (impl == 'kernel'), launched
+            out[impl, lora] = ([m['loss'].item() for m in metrics],
+                               [m['grad_norm'].item() for m in metrics],
+                               {n: p.detach().clone()
+                                for n, p in model.named_parameters()})
+    for lora in (False, True):
+        (lk, gk, pk), (lt, gt, pt) = out['kernel', lora], out['torch', lora]
+        torch.testing.assert_close(lk, lt, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(gk, gt, atol=1e-4, rtol=1e-4)
+        for n in pk:
+            torch.testing.assert_close(pk[n], pt[n], atol=1e-6, rtol=0,
+                                       msg=n)

@@ -84,6 +84,6 @@ def assert_tree_close(model_or_named, tree, atol):
     for path, p in named:
         want = tree_leaf(tree, path)
         got = p.detach().numpy()
-        if path[-1] == 'w':
+        if path[-1] == 'w' and path[-2] != 'router':
             got = got.T       # a Linear's or Conv1d's weight: axes reversed
         np.testing.assert_allclose(got, want, atol=atol, err_msg=str(path))
