@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from bmt_tpu_torch.decode.greedy import bimodal_step_setup, check_bimodal
+from bmt_tpu_torch.decode.greedy import (bimodal_step_setup, stacks_device,
+                                         unimodal_step_setup)
 
 _NEG_INF = -1e9
 
@@ -104,18 +105,35 @@ def beam_search_bimodal(model, feature_stacks: dict, max_len: int,
                       feature_stacks['audio'].device)
 
 
+@torch.inference_mode()
+def beam_search_unimodal(model, feature_stacks: dict, max_len: int,
+                         start_idx: int, end_idx: int, pad_idx: int,
+                         beam_size: int = 4, length_penalty: float = 0.0,
+                         attention_impl: str = 'torch',
+                         kv_int8: bool = False):
+    '''``beam_search_bimodal`` for a uni-modal captioner.'''
+    K = beam_size
+    state, step_fn, B = unimodal_step_setup(
+        model, feature_stacks, pad_idx, max_len, attention_impl, kv_int8,
+        cache_batch_mult=K)
+    return _beam_core(step_fn, state, B, K, model.dims.voc_size, max_len,
+                      start_idx, end_idx, length_penalty,
+                      stacks_device(feature_stacks))
+
+
 def make_bimodal_beam_fn(dims, max_len: int, start_idx: int, end_idx: int,
                          pad_idx: int, beam_size: int = 4,
                          length_penalty: float = 0.0,
                          attention_impl: str = 'torch',
                          kv_int8: bool = False):
     '''Bind the static arguments; returns fn(model, feature_stacks) ->
-    tokens, the greedy decoder's interface.'''
-    check_bimodal(dims)
+    tokens, the greedy decoder's interface. Dispatches on
+    ``dims.modality``, as the JAX binder does.'''
+    search = (beam_search_bimodal if dims.modality == 'audio_video'
+              else beam_search_unimodal)
 
     def fn(model, feature_stacks):
-        return beam_search_bimodal(model, feature_stacks, max_len, start_idx,
-                                   end_idx, pad_idx, beam_size,
-                                   length_penalty, attention_impl,
-                                   kv_int8)[0]
+        return search(model, feature_stacks, max_len, start_idx, end_idx,
+                      pad_idx, beam_size, length_penalty, attention_impl,
+                      kv_int8)[0]
     return fn

@@ -7,6 +7,10 @@ every row has emitted ``end_idx``; here the loop is Python over eager
 kernels, and the batch-wide stop test is a device-to-host sync per step.
 ``greedy_decode_uncached`` re-runs the full forward on the growing prefix, as
 the reference does, and serves as the parity check and the baseline.
+
+The uni-modal captioners (``UniModalTransformer``) decode through the same
+loop over their one memory (``unimodal_step_setup``); the ``make_*_fn``
+binders pick the decoder of ``dims.modality``.
 '''
 from __future__ import annotations
 
@@ -78,25 +82,57 @@ def greedy_decode_bimodal(model, feature_stacks: dict, max_len: int,
                         feature_stacks['audio'].device)
 
 
-def check_bimodal(dims) -> None:
-    '''The decoders of the port serve the bi-modal captioner only.'''
-    if dims.modality != 'audio_video':
-        raise NotImplementedError(
-            f'modality {dims.modality!r}: the uni-modal decoders are not '
-            f'ported yet (ROADMAP queue 1 item 10)')
+def unimodal_step_setup(model, feature_stacks: dict, pad_idx: int,
+                        max_len: int, attention_impl: str = 'torch',
+                        kv_int8: bool = False, cache_batch_mult: int = 1):
+    '''``bimodal_step_setup`` for a uni-modal captioner: the mask of its
+    modality, its encoder's one memory and the decode state over it.'''
+    modality = model.dims.modality
+    src_mask = model.src_mask(make_masks(feature_stacks, None, modality,
+                                         pad_idx))
+    memory = model.encode(feature_stacks, src_mask, attention_impl)
+    B = memory.shape[0]
+    state = model.decode_init(memory, max_len, kv_int8=kv_int8,
+                              cache_batch=B * cache_batch_mult,
+                              src_mask=src_mask)
+
+    def step_fn(state, cur, step):
+        return model.decode_step(state, cur, step, src_mask)
+
+    return state, step_fn, B
+
+
+def stacks_device(feature_stacks: dict) -> torch.device:
+    '''The device of the feature stacks (any of them).'''
+    return next(iter(feature_stacks.values())).device
+
+
+@torch.inference_mode()
+def greedy_decode_unimodal(model, feature_stacks: dict, max_len: int,
+                           start_idx: int, end_idx: int, pad_idx: int,
+                           attention_impl: str = 'torch',
+                           kv_int8: bool = False) -> torch.Tensor:
+    '''``greedy_decode_bimodal`` for a uni-modal captioner: the stacks of
+    its modality ('audio', or 'rgb' and 'flow').'''
+    state, step_fn, B = unimodal_step_setup(model, feature_stacks, pad_idx,
+                                            max_len, attention_impl, kv_int8)
+    return _greedy_core(step_fn, state, B, max_len, start_idx, end_idx,
+                        stacks_device(feature_stacks))
 
 
 def make_bimodal_greedy_fn(dims, max_len: int, start_idx: int, end_idx: int,
                            pad_idx: int, attention_impl: str = 'torch',
                            kv_int8: bool = False):
     '''Bind the static arguments once; returns fn(model, feature_stacks)
-    -> tokens, the interface of ``CaptionEngine(decode_fn=...)``.'''
-    check_bimodal(dims)
+    -> tokens, the interface of ``CaptionEngine(decode_fn=...)``. A
+    uni-modal ``dims`` binds ``greedy_decode_unimodal``, as the beam and
+    sampling binders dispatch.'''
+    decode = (greedy_decode_bimodal if dims.modality == 'audio_video'
+              else greedy_decode_unimodal)
 
     def fn(model, feature_stacks):
-        return greedy_decode_bimodal(model, feature_stacks, max_len,
-                                     start_idx, end_idx, pad_idx,
-                                     attention_impl, kv_int8)
+        return decode(model, feature_stacks, max_len, start_idx, end_idx,
+                      pad_idx, attention_impl, kv_int8)
     return fn
 
 

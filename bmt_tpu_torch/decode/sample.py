@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from bmt_tpu_torch.decode.greedy import (_greedy_core, bimodal_step_setup,
-                                         check_bimodal)
+                                         stacks_device, unimodal_step_setup)
 
 # the nucleus is cut inside the top _TOP_P_SUPPORT tokens (see filter_logits)
 _TOP_P_SUPPORT = 512
@@ -99,6 +99,20 @@ def sample_decode_bimodal(model, feature_stacks: dict, seed, max_len: int,
                         feature_stacks['audio'].device, select_fn=select)
 
 
+@torch.inference_mode()
+def sample_decode_unimodal(model, feature_stacks: dict, seed, max_len: int,
+                           start_idx: int, end_idx: int, pad_idx: int,
+                           temperature: float = 1.0, top_k: int = 0,
+                           top_p: float = 1.0, attention_impl: str = 'torch',
+                           kv_int8: bool = False) -> torch.Tensor:
+    '''``sample_decode_bimodal`` for a uni-modal captioner.'''
+    select = make_sample_select_fn(seed, temperature, top_k, top_p)
+    state, step_fn, B = unimodal_step_setup(model, feature_stacks, pad_idx,
+                                            max_len, attention_impl, kv_int8)
+    return _greedy_core(step_fn, state, B, max_len, start_idx, end_idx,
+                        stacks_device(feature_stacks), select_fn=select)
+
+
 def make_bimodal_sample_fn(dims, max_len: int, start_idx: int, end_idx: int,
                            pad_idx: int, temperature: float = 1.0,
                            top_k: int = 0, top_p: float = 1.0,
@@ -106,16 +120,17 @@ def make_bimodal_sample_fn(dims, max_len: int, start_idx: int, end_idx: int,
                            kv_int8: bool = False, seed: int = 0):
     '''Bind the static arguments; returns fn(model, feature_stacks) ->
     tokens. Each call advances a counter that joins the seed, so successive
-    batches draw fresh samples, reproducibly for a run.'''
-    check_bimodal(dims)
+    batches draw fresh samples, reproducibly for a run. Dispatches on
+    ``dims.modality``, as the JAX binder does.'''
     make_sample_select_fn(seed, temperature)       # a bad temperature raises
+    decode = (sample_decode_bimodal if dims.modality == 'audio_video'
+              else sample_decode_unimodal)
     counter = [0]
 
     def fn(model, feature_stacks):
         call = counter[0]
         counter[0] += 1
-        return sample_decode_bimodal(model, feature_stacks, (seed, call),
-                                     max_len, start_idx, end_idx, pad_idx,
-                                     temperature, top_k, top_p,
-                                     attention_impl, kv_int8)
+        return decode(model, feature_stacks, (seed, call), max_len,
+                      start_idx, end_idx, pad_idx, temperature, top_k, top_p,
+                      attention_impl, kv_int8)
     return fn

@@ -1,10 +1,13 @@
-'''The bi-modal captioning transformer (counterpart of the bi-modal part of
+'''The captioning transformers (counterpart of
 ``bmt_tpu.models.captioning``).
 
 ``BiModalTransformer`` holds the JAX parameter tree's structure as modules:
 ``emb_C``, ``encoder``, ``decoder``, ``generator`` and, with a linear feature
-embedder, ``emb_A``/``emb_V``. The generator head (Linear -> log_softmax) is
-folded in, as in the JAX package.
+embedder, ``emb_A``/``emb_V``. ``UniModalTransformer`` (``--modality audio``
+or ``video``, the reference's ablations) holds ``trg_emb``, ``encoder``,
+``decoder``, ``generator`` and, with a linear feature embedder, ``src_emb``;
+its captions live in the modality's width, not ``d_model_C``. The generator
+head (Linear -> log_softmax) is folded in, as in the JAX package.
 '''
 from __future__ import annotations
 
@@ -13,8 +16,8 @@ import dataclasses
 import torch
 from torch import nn
 
-from bmt_tpu_torch.models.decoders import BiModalDecoder
-from bmt_tpu_torch.models.encoders import BiModalEncoder
+from bmt_tpu_torch.models.decoders import BiModalDecoder, Decoder
+from bmt_tpu_torch.models.encoders import BiModalEncoder, Encoder
 from bmt_tpu_torch.ops.layers import (Dropout, FeatureEmbedder,
                                       VocabularyEmbedder, positional_encode,
                                       positional_encoding_table)
@@ -73,6 +76,17 @@ class CapModelDims:
         )
 
 
+def build_device(device, what: str) -> torch.device:
+    '''``device`` as a torch.device; a CUDA device without a card raises
+    (nothing is built on the CPU unless asked).'''
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'{what}: device {device} asked for, but no CUDA device is '
+            f'available; pass device="cpu" to build on the CPU')
+    return device
+
+
 class BiModalTransformer(nn.Module):
     '''Bi-modal captioner.
 
@@ -90,14 +104,11 @@ class BiModalTransformer(nn.Module):
                  generator: torch.Generator | None = None,
                  table_dim: int | None = None):
         super().__init__()
-        device = torch.device(device)
-        if device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError(
-                f'BiModalTransformer: device {device} asked for, but no CUDA '
-                f'device is available; pass device="cpu" to build on the CPU')
+        device = build_device(device, 'BiModalTransformer')
         if dims.modality != 'audio_video':
-            raise ValueError(f'modality {dims.modality!r}: only the bi-modal '
-                             f'(audio_video) model is ported')
+            raise ValueError(f'modality {dims.modality!r}: the bi-modal '
+                             f'captioner is audio_video; UniModalTransformer '
+                             f'builds the audio and video ones')
         self.dims = dims
         self.emb_C = VocabularyEmbedder(dims.voc_size, dims.d_model_C,
                                         table_dim, device)
@@ -176,3 +187,93 @@ class BiModalTransformer(nn.Module):
         c_t = self.decoder.step(state, c_t, A_mask, V_mask, step)
         logits = self.generator(c_t[:, 0, :])
         return torch.log_softmax(logits.float(), dim=-1), state
+
+
+class UniModalTransformer(nn.Module):
+    '''Uni-modal captioner (``dims.modality`` 'audio' or 'video'); the
+    arguments as ``BiModalTransformer``'s. The encoder, the decoder, the
+    caption embedding and the positional table all use the modality's width
+    (``d_model_A`` or ``d_model_V``), and its feed-forward width.'''
+
+    def __init__(self, dims: CapModelDims, *, device='cuda',
+                 generator: torch.Generator | None = None,
+                 table_dim: int | None = None):
+        super().__init__()
+        device = build_device(device, 'UniModalTransformer')
+        if dims.modality not in ('audio', 'video'):
+            raise ValueError(f'modality {dims.modality!r}: the uni-modal '
+                             f'captioner is audio or video')
+        self.dims = dims
+        video = dims.modality == 'video'
+        d_model = dims.d_model_V if video else dims.d_model_A
+        d_ff = dims.d_ff_V if video else dims.d_ff_A
+        self.trg_emb = VocabularyEmbedder(dims.voc_size, d_model, table_dim,
+                                          device)
+        self.encoder = Encoder(d_model, d_ff, dims.N, dims.H, dims.dout_p,
+                               device, dims.moe_experts, dims.moe_cf)
+        self.decoder = Decoder(d_model, d_ff, dims.N, dims.H, dims.dout_p,
+                               device, dims.moe_experts, dims.moe_cf)
+        self.generator = nn.Linear(d_model, dims.voc_size, device=device)
+        if dims.use_linear_embedder:
+            self.src_emb = FeatureEmbedder(dims.d_vid if video else dims.d_aud,
+                                           d_model, device)
+        self.dropout = Dropout(dims.dout_p)
+        self.register_buffer('pe', torch.tensor(
+            positional_encoding_table(POS_ENC_LEN, d_model), device=device),
+            persistent=False)
+        if generator is not None:
+            init_params(self, generator)
+
+    def src_mask(self, masks: dict):
+        return masks['V_mask' if self.dims.modality == 'video' else 'A_mask']
+
+    def _source(self, src: dict) -> torch.Tensor:
+        '''The modality's features (video: rgb + flow), embedded when the
+        model has a feature embedder.'''
+        x = (src['rgb'] + src['flow'] if self.dims.modality == 'video'
+             else src['audio'])
+        return self.src_emb(x) if self.dims.use_linear_embedder else x
+
+    def encode(self, src: dict, src_mask, attention_impl: str = 'torch',
+               aux_out: list | None = None) -> torch.Tensor:
+        '''Embeddings and the encoder: the memory (B, S, d_model).'''
+        x = self.dropout(positional_encode(self.pe, self._source(src)))
+        return self.encoder(x, src_mask, attention_impl, aux_out)
+
+    def forward(self, src: dict, trg: torch.Tensor, masks: dict,
+                attention_impl: str = 'torch', return_logits: bool = False,
+                aux_out: list | None = None) -> torch.Tensor:
+        '''Teacher-forced forward, as ``BiModalTransformer.forward``;
+        ``aux_out`` gains the encoder's MoE losses, then the decoder's.'''
+        src_mask = self.src_mask(masks)
+        memory = self.encode(src, src_mask, attention_impl, aux_out)
+        t = self.dropout(positional_encode(self.pe, self.trg_emb(trg)))
+        out = self.decoder(t, memory, src_mask, masks['C_mask'],
+                           attention_impl, aux_out)
+        logits = self.generator(out)
+        if return_logits:
+            return logits
+        return torch.log_softmax(logits.float(), dim=-1)
+
+    def decode_init(self, memory: torch.Tensor, max_len: int,
+                    kv_int8: bool = False, cache_batch: int | None = None,
+                    src_mask=None) -> list:
+        '''The KV-cache decode state for ``memory``
+        (``Decoder.init_decode_state``).'''
+        return self.decoder.init_decode_state(memory, max_len, kv_int8,
+                                              cache_batch, src_mask)
+
+    def decode_step(self, state: list, token: torch.Tensor, step: int,
+                    src_mask):
+        '''As ``BiModalTransformer.decode_step``, over one memory.'''
+        c_t = positional_encode(self.pe, self.trg_emb(token), offset=step)
+        c_t = self.decoder.step(state, c_t, src_mask, step)
+        logits = self.generator(c_t[:, 0, :])
+        return torch.log_softmax(logits.float(), dim=-1), state
+
+
+def captioner_class(dims: CapModelDims):
+    '''``BiModalTransformer`` for audio_video, else
+    ``UniModalTransformer``.'''
+    return (BiModalTransformer if dims.modality == 'audio_video'
+            else UniModalTransformer)

@@ -1,9 +1,16 @@
-'''Bi-modal transformer encoder (counterpart of
-``bmt_tpu.models.encoders.bimodal_encoder_forward``).
+'''Uni-modal and bi-modal transformer encoders (counterpart of
+``bmt_tpu.models.encoders``).
 
-Each layer runs self-attention per modality, then cross-attention in both
-directions (M1 queries M2 and M2 queries M1), then a feed-forward per
-modality, all with pre-norm residuals. M1 is audio and M2 video; the encoder
+The uni-modal ``Encoder`` (the audio-only and video-only models) stacks
+self-attention and a feed-forward, pre-norm residuals. As in the reference,
+its attention and feed-forward carry no dropout of their own: only the two
+residual dropouts are live (``encoders.py:53-69``). A MoE feed-forward there
+runs its lossless form in training too, as the JAX layer calls it with
+``deterministic`` at its default.
+
+Each bi-modal layer runs self-attention per modality, then cross-attention
+in both directions (M1 queries M2 and M2 queries M1), then a feed-forward
+per modality, all with pre-norm residuals. M1 is audio and M2 video; the encoder
 returns (Av, Va): audio attended by video and video attended by audio.
 With ``remat`` each layer runs under ``checkpoint`` while autograd records
 what reaches the encoder:
@@ -24,6 +31,47 @@ from bmt_tpu_torch.ops.attention import MultiheadAttention
 from bmt_tpu_torch.ops.layers import (Dropout, LayerNorm, checkpoint,
                                       residual)
 from bmt_tpu_torch.ops.moe import ffn_apply, ffn_or_moe
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, H: int, dout_p: float = 0.0,
+                 device=None, moe_experts: int = 0, moe_cf: float = 1.25):
+        super().__init__()
+        self.self_att = MultiheadAttention(d_model, d_model, d_model,
+                                           d_model, H, 0.0, device)
+        self.ff = ffn_or_moe(d_model, d_ff, moe_experts, 0.0, moe_cf, device)
+        self.res = nn.ModuleList(LayerNorm(d_model, device=device)
+                                 for _ in range(2))
+        self.dropout = Dropout(dout_p)
+
+    def forward(self, x, src_mask, attention_impl='torch', aux_out=None):
+        x = residual(self.res[0], x, lambda y: self.self_att(
+            y, y, y, src_mask, attention_impl), self.dropout)
+        return residual(self.res[1], x,
+                        lambda y: ffn_apply(self.ff, y, aux_out, True),
+                        self.dropout)
+
+
+class Encoder(nn.Module):
+    '''Uni-modal encoder: N ``EncoderLayer``s over one modality.'''
+
+    def __init__(self, d_model: int, d_ff: int, N: int, H: int,
+                 dout_p: float = 0.0, device=None, moe_experts: int = 0,
+                 moe_cf: float = 1.25):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(d_model, d_ff, H, dout_p, device, moe_experts,
+                         moe_cf)
+            for _ in range(N))
+
+    def forward(self, x: torch.Tensor, src_mask,
+                attention_impl: str = 'torch',
+                aux_out: list | None = None) -> torch.Tensor:
+        '''x (B, S, d_model), src_mask (B, 1, S) -> (B, S, d_model);
+        ``aux_out`` gains each MoE FFN's load-balance loss.'''
+        for layer in self.layers:
+            x = layer(x, src_mask, attention_impl, aux_out)
+        return x
 
 
 class BiModalEncoderLayer(nn.Module):

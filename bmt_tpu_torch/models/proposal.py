@@ -1,4 +1,4 @@
-'''The bi-modal event proposal generator (counterpart of the bi-modal part of
+'''The event proposal generators (counterpart of
 ``bmt_tpu.models.proposal``), YOLO-style over the encoder's outputs.
 
 ``MultimodalProposalGenerator`` runs the bi-modal encoder, then one
@@ -17,7 +17,10 @@ k-means priors) as top-level parameters. The anchors are never trained: they
 are built with ``requires_grad=False``, and ``train.steps.prop_frozen``
 names them for the optimizer as ``prop_trainer`` does.
 
-Not ported yet: the uni-modal generator (it needs the uni-modal encoder).
+``UnimodalProposalGenerator`` (``--modality audio`` or ``video``) runs the
+uni-modal encoder and one set of heads with the modality's stride, conv
+layers and kernel sizes; its keys are ``encoder``, ``heads``, optionally
+``emb``, and one ``anchors``.
 '''
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bmt_tpu_torch.models.encoders import BiModalEncoder
+from bmt_tpu_torch.models.captioning import build_device
+from bmt_tpu_torch.models.encoders import BiModalEncoder, Encoder
 from bmt_tpu_torch.ops.layers import (Dropout, FeatureEmbedder, LayerNorm,
                                       positional_encode,
                                       positional_encoding_table)
@@ -268,6 +272,34 @@ def yolo_losses(decoded: dict, targets: tuple, obj_coeff: float,
                   'loss_conf_obj': loss_obj, 'loss_conf_noobj': loss_noobj}
 
 
+def _heads(dims, d_in, conv_layers, anchors_num, kernel_sizes, device):
+    '''One modality's heads: a ``ProposalHead`` per kernel size, from the
+    modality's width through its conv layers to 3 values an anchor.'''
+    d_list = [d_in, *conv_layers, 3 * anchors_num]
+    return nn.ModuleList(
+        ProposalHead(d_list, k, dims.layer_norm, dims.dout_p, device)
+        for k in kernel_sizes)
+
+
+def _modality_heads(dims, heads, x, anchors, stride, dense_targets, denoms):
+    '''Every head of one modality; the targets are made once, since they
+    depend only on (grid size, stride, anchors).'''
+    targets = None
+    if dense_targets is not None:
+        targets = make_targets_dense(*dense_targets, anchors, stride,
+                                     x.shape[1])
+    preds, total, terms = [], 0.0, {}
+    for head in heads:
+        decoded = yolo_decode(head(x), anchors, stride)
+        preds.append(decoded['predictions'])
+        if targets is not None:
+            loss, ldict = yolo_losses(decoded, targets, dims.obj_coeff,
+                                      dims.noobj_coeff, denoms)
+            total = total + loss
+            terms = {k: terms.get(k, 0.0) + v for k, v in ldict.items()}
+    return torch.cat(preds, dim=1), total, terms
+
+
 class MultimodalProposalGenerator(nn.Module):
     '''Bi-modal proposal generator.
 
@@ -282,30 +314,21 @@ class MultimodalProposalGenerator(nn.Module):
     def __init__(self, dims: PropModelDims, *, device='cuda',
                  generator: torch.Generator | None = None):
         super().__init__()
-        device = torch.device(device)
-        if device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError(
-                f'MultimodalProposalGenerator: device {device} asked for, but '
-                f'no CUDA device is available; pass device="cpu" to build on '
-                f'the CPU')
+        device = build_device(device, 'MultimodalProposalGenerator')
         if dims.modality != 'audio_video':
-            raise ValueError(f'modality {dims.modality!r}: only the bi-modal '
-                             f'(audio_video) generator is ported')
+            raise ValueError(f'modality {dims.modality!r}: the bi-modal '
+                             f'generator is audio_video; '
+                             f'UnimodalProposalGenerator builds the audio '
+                             f'and video ones')
         self.dims = dims
         self.encoder = BiModalEncoder(dims.d_model_A, dims.d_model_V,
                                       dims.d_model, dims.d_ff_A, dims.d_ff_V,
                                       dims.N, dims.H, dims.dout_p, device,
                                       remat=dims.remat)
-
-        def heads(d_in, conv_layers, anchors_num, kernel_sizes):
-            d_list = [d_in, *conv_layers, 3 * anchors_num]
-            return nn.ModuleList(
-                ProposalHead(d_list, k, dims.layer_norm, dims.dout_p, device)
-                for k in kernel_sizes)
-        self.heads_A = heads(dims.d_model_A, dims.conv_layers_A,
-                             dims.anchors_num_A, dims.kernel_sizes_A)
-        self.heads_V = heads(dims.d_model_V, dims.conv_layers_V,
-                             dims.anchors_num_V, dims.kernel_sizes_V)
+        self.heads_A = _heads(dims, dims.d_model_A, dims.conv_layers_A,
+                              dims.anchors_num_A, dims.kernel_sizes_A, device)
+        self.heads_V = _heads(dims, dims.d_model_V, dims.conv_layers_V,
+                              dims.anchors_num_V, dims.kernel_sizes_V, device)
         if dims.use_linear_embedder:
             self.emb_A = FeatureEmbedder(dims.d_aud, dims.d_model_A, device)
             self.emb_V = FeatureEmbedder(dims.d_vid, dims.d_model_V, device)
@@ -332,26 +355,6 @@ class MultimodalProposalGenerator(nn.Module):
                          (self.anchors_V, anchors_V)):
             p.copy_(torch.as_tensor(value, dtype=p.dtype))
 
-    def _modality_heads(self, heads, x, anchors, stride, dense_targets,
-                        denoms):
-        '''Every head of one modality; the targets are made once, since they
-        depend only on (grid size, stride, anchors).'''
-        dims = self.dims
-        targets = None
-        if dense_targets is not None:
-            targets = make_targets_dense(*dense_targets, anchors, stride,
-                                         x.shape[1])
-        preds, total, terms = [], 0.0, {}
-        for head in heads:
-            decoded = yolo_decode(head(x), anchors, stride)
-            preds.append(decoded['predictions'])
-            if targets is not None:
-                loss, ldict = yolo_losses(decoded, targets, dims.obj_coeff,
-                                          dims.noobj_coeff, denoms)
-                total = total + loss
-                terms = {k: terms.get(k, 0.0) + v for k, v in ldict.items()}
-        return torch.cat(preds, dim=1), total, terms
-
     def forward(self, src: dict, dense_targets, masks: dict,
                 attention_impl: str = 'torch', loss_denoms=None):
         '''src {'rgb', 'flow': (B, Sv, d_vid), 'audio': (B, Sa, d_aud)};
@@ -372,11 +375,80 @@ class MultimodalProposalGenerator(nn.Module):
                               attention_impl)
         denoms_A, denoms_V = (loss_denoms if loss_denoms is not None
                               else (None, None))
-        preds_A, loss_A, losses_A = self._modality_heads(
-            self.heads_A, Av, self.anchors_A, dims.stride_A, dense_targets,
-            denoms_A)
-        preds_V, loss_V, losses_V = self._modality_heads(
-            self.heads_V, Va, self.anchors_V, dims.stride_V, dense_targets,
-            denoms_V)
+        preds_A, loss_A, losses_A = _modality_heads(
+            dims, self.heads_A, Av, self.anchors_A, dims.stride_A,
+            dense_targets, denoms_A)
+        preds_V, loss_V, losses_V = _modality_heads(
+            dims, self.heads_V, Va, self.anchors_V, dims.stride_V,
+            dense_targets, denoms_V)
         return (torch.cat([preds_A, preds_V], dim=1), loss_A + loss_V,
                 losses_A, losses_V)
+
+
+class UnimodalProposalGenerator(nn.Module):
+    '''Uni-modal proposal generator (``dims.modality`` 'audio' or
+    'video'); the arguments as ``MultimodalProposalGenerator``'s. The
+    uni-modal encoder (dense feed-forwards) and one set of heads, with the
+    modality's width, stride, conv layers, kernel sizes and anchor
+    count.'''
+
+    def __init__(self, dims: PropModelDims, *, device='cuda',
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        device = build_device(device, 'UnimodalProposalGenerator')
+        if dims.modality not in ('audio', 'video'):
+            raise ValueError(f'modality {dims.modality!r}: the uni-modal '
+                             f'generator is audio or video')
+        self.dims = dims
+        video = dims.modality == 'video'
+        d_model = dims.d_model_V if video else dims.d_model_A
+        self.stride = dims.stride_V if video else dims.stride_A
+        self.encoder = Encoder(d_model, dims.d_ff_V if video else dims.d_ff_A,
+                               dims.N, dims.H, dims.dout_p, device)
+        anchors_num = dims.anchors_num_V if video else dims.anchors_num_A
+        self.heads = _heads(
+            dims, d_model, dims.conv_layers_V if video else dims.conv_layers_A,
+            anchors_num, dims.kernel_sizes_V if video else dims.kernel_sizes_A,
+            device)
+        if dims.use_linear_embedder:
+            self.emb = FeatureEmbedder(dims.d_vid if video else dims.d_aud,
+                                       d_model, device)
+        self.anchors = nn.Parameter(torch.zeros(anchors_num, device=device),
+                                    requires_grad=False)
+        self.dropout = Dropout(dims.dout_p)
+        self.register_buffer('pe', torch.tensor(
+            positional_encoding_table(POS_ENC_LEN, d_model), device=device),
+            persistent=False)
+        if generator is not None:
+            init_params(self, generator)
+
+    @torch.no_grad()
+    def set_anchors(self, anchors) -> None:
+        '''The anchors in seconds.'''
+        self.anchors.copy_(torch.as_tensor(anchors, dtype=self.anchors.dtype))
+
+    def forward(self, src: dict, dense_targets, masks: dict,
+                attention_impl: str = 'torch', loss_denoms=None):
+        '''src and dense_targets as ``MultimodalProposalGenerator``'s;
+        loss_denoms None or one (obj, noobj) count pair.
+
+        Returns (predictions (B, A S, 3) fp32, each head anchor-major; loss;
+        the loss terms), as JAX ``unimodal_proposal_forward``.'''
+        dims = self.dims
+        if dims.modality == 'video':
+            x, src_mask = src['rgb'] + src['flow'], masks['V_mask']
+        else:
+            x, src_mask = src['audio'], masks['A_mask']
+        if dims.use_linear_embedder:
+            x = self.emb(x)
+        x = self.dropout(positional_encode(self.pe, x))
+        x = self.encoder(x, src_mask, attention_impl)
+        return _modality_heads(dims, self.heads, x, self.anchors, self.stride,
+                               dense_targets, loss_denoms)
+
+
+def proposal_class(dims: PropModelDims):
+    '''``MultimodalProposalGenerator`` for audio_video, else
+    ``UnimodalProposalGenerator``.'''
+    return (MultimodalProposalGenerator if dims.modality == 'audio_video'
+            else UnimodalProposalGenerator)

@@ -32,16 +32,30 @@ def mask(src: torch.Tensor, trg: torch.Tensor | None, pad_idx):
 
 def make_masks(feature_stacks: dict, captions: torch.Tensor | None,
                modality: str, pad_idx) -> dict:
-    '''The mask dict the bi-modal model reads: ``A_mask`` and ``V_mask``
-    from channel 0 of the audio and rgb stacks, plus ``C_mask`` when
-    captions are given. Only ``audio_video`` is ported so far.'''
-    if modality != 'audio_video':
-        raise ValueError(f'modality {modality!r} is not ported yet '
-                         f'(audio_video only)')
-    masks = {'A_mask': mask(feature_stacks['audio'][:, :, 0], None, pad_idx)}
-    if captions is None:
-        masks['V_mask'] = mask(feature_stacks['rgb'][:, :, 0], None, pad_idx)
+    '''The mask dict the models read, from channel 0 of the ``rgb`` and
+    ``audio`` stacks: ``V_mask`` for ``video``, ``A_mask`` for ``audio``,
+    both for ``audio_video``, plus ``S_mask`` from the ``subs`` token ids for
+    ``subs_audio_video``; with captions also ``C_mask``.'''
+    def src(key):
+        return feature_stacks[key][:, :, 0]
+
+    def with_captions(key):
+        if captions is None:
+            return mask(src(key), None, pad_idx), None
+        return mask(src(key), captions, pad_idx)
+
+    masks = {}
+    if modality == 'video':
+        masks['V_mask'], c_mask = with_captions('rgb')
+    elif modality == 'audio':
+        masks['A_mask'], c_mask = with_captions('audio')
+    elif modality in ('audio_video', 'subs_audio_video'):
+        masks['A_mask'] = mask(src('audio'), None, pad_idx)
+        masks['V_mask'], c_mask = with_captions('rgb')
+        if modality == 'subs_audio_video':
+            masks['S_mask'] = mask(feature_stacks['subs'], None, pad_idx)
     else:
-        masks['V_mask'], masks['C_mask'] = mask(
-            feature_stacks['rgb'][:, :, 0], captions, pad_idx)
+        raise ValueError(f'Unknown modality: {modality}')
+    if c_mask is not None:
+        masks['C_mask'] = c_mask
     return masks

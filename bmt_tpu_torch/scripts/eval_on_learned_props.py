@@ -7,9 +7,10 @@ Flow: proposals JSON -> tsv meta (filtering unavailable videos) ->
 batched KV-cached decode -> submission JSON -> densevid scoring against both
 validation references at tIoUs [0.3, 0.5, 0.7, 0.9].
 
-The model config, its decode dtype (``compute_dtype``) and its attention
-(``--attention_impl``, ``pallas`` as the port's kernels and ``xla`` as
-plain attention) come from the checkpoint, as in the JAX script; a
+The captioner is bi-modal or uni-modal (``--modality audio|video``), from a
+native directory or a reference ``.pt``. The model config, its decode dtype
+(``compute_dtype``) and its attention (``--attention_impl``, ``pallas`` as
+the port's kernels and ``xla`` as plain attention) come from the checkpoint, as in the JAX script; a
 reference ``.pt`` config has neither and decodes in fp32 through plain
 attention. The decode options come from the command line:
 ``--decode_strategy`` (greedy, beam or sample) with ``--kv_cache_int8``,
@@ -26,11 +27,11 @@ import os
 from bmt_tpu_torch.config import Config
 from bmt_tpu_torch.data.captioning import CaptioningDataset
 from bmt_tpu_torch.data.vocab import Vocab, build_vocab_from_meta
-from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
+from bmt_tpu_torch.models import CapModelDims, captioner_class
 from bmt_tpu_torch.ops.quant import quantize_tree_int8
 from bmt_tpu_torch.params import load_jax_params
 from bmt_tpu_torch.train.checkpoint import (
-    _strip_module, _unimodal, import_cap_model, load_model_params,
+    cap_embedding_key, import_any_cap_model, load_model_params,
     load_torch_checkpoint, native_table_dim, read_checkpoint_meta)
 from bmt_tpu_torch.train.loops import (make_decode_fn, make_strategy_fn,
                                        validation_1by1)
@@ -86,10 +87,7 @@ def eval_on_learned_props(args_cfg: Config, device=None):
     params, ckpt_vocab = None, None
     if path.endswith('.pt'):
         cpt = load_torch_checkpoint(path)
-        if any(k.startswith('trg_emb.')
-               for k in _strip_module(cpt['model_state_dict'])):
-            _unimodal(f'{path} (a uni-modal captioner)')
-        params, cfg_dict = import_cap_model(cpt)
+        params, cfg_dict = import_any_cap_model(cpt)
         epoch = cpt.get('epoch', 0)
     else:
         meta = read_checkpoint_meta(path, 'best_cap_model')
@@ -110,11 +108,12 @@ def eval_on_learned_props(args_cfg: Config, device=None):
     cfg.reference_paths = args_cfg.reference_paths
     cfg.tIoUs = args_cfg.tIoUs
     cfg.avail_mp4_path = args_cfg.avail_mp4_path
-    cfg.audio_features_path = args_cfg.audio_features_path
-    cfg.video_features_path = args_cfg.video_features_path
-    for features in (cfg.audio_features_path, cfg.video_features_path):
-        if not os.path.exists(features):
-            raise FileNotFoundError(f'no feature directory {features}')
+    for modality in ('audio', 'video'):
+        if modality in cfg.modality:
+            features = getattr(args_cfg, f'{modality}_features_path')
+            if not os.path.exists(features):
+                raise FileNotFoundError(f'no feature directory {features}')
+            setattr(cfg, f'{modality}_features_path', features)
 
     # the reference passes reference_paths[0] (val_1_no_missings.json) as
     # the duration source verbatim (eval_on_learned_props.py:102-104)
@@ -132,15 +131,17 @@ def eval_on_learned_props(args_cfg: Config, device=None):
     print(f'Loader will use: {ds.meta_path}')
 
     dims = CapModelDims.from_config(cfg, ds.trg_voc_size)
+    emb_key = cap_embedding_key(cfg.modality)
     if params is not None:
-        emb = params['emb_C']
-        model = BiModalTransformer(
+        emb = params[emb_key]
+        model = captioner_class(dims)(
             dims, device=device,
             table_dim=emb['table'].shape[1] if 'adapter' in emb else None)
         load_jax_params(model, params)
     else:
-        model = BiModalTransformer(dims, device=device,
-                                   table_dim=native_table_dim(path))
+        model = captioner_class(dims)(
+            dims, device=device,
+            table_dim=native_table_dim(path, emb_key=emb_key))
         load_model_params(path, 'best_cap_model', model)
 
     # the decode dtype and attention follow the CHECKPOINT's training

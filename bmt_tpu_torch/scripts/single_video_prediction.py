@@ -293,6 +293,12 @@ def main(argv=None) -> list:
         args.allow_vocab_drift, device)
     prop_cfg, _, prop_model = load_prop_model(
         args.prop_generator_model_path, args.max_prop_per_vid, device)
+    if cap_cfg.modality != 'audio_video' or \
+            prop_cfg.modality != 'audio_video':
+        raise SystemExit(
+            f'this app drives the bi-modal models only (like the '
+            f'reference); got cap modality {cap_cfg.modality!r}, prop '
+            f'modality {prop_cfg.modality!r}')
 
     pad_idx = vocab[cap_cfg.pad_token]
     proposals = generate_proposals(prop_model, feature_paths, pad_idx,

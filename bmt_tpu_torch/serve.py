@@ -83,6 +83,13 @@ def ints_to_sentence(ints, vocab, end_token: str = '</s>') -> str:
     return ' '.join(strings).capitalize()
 
 
+def _check_bimodal(what: str, model) -> None:
+    '''Serving runs the bi-modal models only, as in the JAX package.'''
+    if model.dims.modality != 'audio_video':
+        raise ValueError(f'{what} serves the bi-modal (audio_video) models '
+                         f'only; got a {model.dims.modality} model')
+
+
 def _check_impl(attention_impl: str) -> None:
     if attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f'attention_impl {attention_impl!r} is not one '
@@ -134,6 +141,7 @@ class CaptionEngine:
                  kv_int8: bool = False, weights_int8: bool = False,
                  decode_fn=None):
         _check_impl(attention_impl)
+        _check_bimodal('CaptionEngine', model)
         model = _serving_copy(model, compute_dtype, weights_int8)
         self.model = model
         self.device = next(model.parameters()).device
@@ -501,6 +509,7 @@ class VideoPipeline:
                  attention_impl: str = 'kernel',
                  compute_dtype: torch.dtype | None = None):
         _check_impl(attention_impl)
+        _check_bimodal('VideoPipeline', prop_model)
         self.engine = engine
         self.prop_model = _serving_copy(prop_model, compute_dtype)
         self.device = next(self.prop_model.parameters()).device

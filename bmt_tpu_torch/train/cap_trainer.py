@@ -23,6 +23,10 @@ bf16 Adam first moment (``--optim_mu_dtype``). The 1-by-1 decode follows
 ``--decode_strategy`` with ``--kv_cache_int8``; ``--weights_int8`` is for
 the evaluation, and train_cap leaves it aside, as the JAX trainer does.
 
+``--modality audio`` or ``video`` trains the uni-modal captioner
+(``UniModalTransformer``), its encoder optionally seeded from a uni-modal
+proposal checkpoint, as the JAX trainer does.
+
 Weights start from a ``torch.Generator`` seeded with 0, not from the JAX
 package's PRNG, so the two packages train the same recipe from different
 random weights; from one checkpoint they train alike.
@@ -40,12 +44,13 @@ import torch
 from bmt_tpu_torch.config import Config
 from bmt_tpu_torch.data.captioning import CaptioningDataset
 from bmt_tpu_torch.data.vocab import load_glove
-from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
+from bmt_tpu_torch.models import CapModelDims, captioner_class
 from bmt_tpu_torch.ops.lora import add_lora, count_lora, lora_frozen_predicate
 from bmt_tpu_torch.params import load_jax_params, to_jax_tree
 from bmt_tpu_torch.train.checkpoint import (
-    AsyncCheckpointWriter, _has_orbax, _orbax_only, checkpoint_exists,
-    import_prop_model, load_checkpoint, load_model_params,
+    AsyncCheckpointWriter, _has_orbax, _orbax_only, cap_embedding_key,
+    checkpoint_exists, import_prop_model, import_unimodal_prop_model,
+    load_checkpoint, load_model_params,
     load_pretrained_cap_params, load_pretrained_encoder_native,
     load_torch_checkpoint, optimizer_state_tree, save_checkpoint,
     save_lora_npz)
@@ -78,13 +83,17 @@ def _glove_dim(cfg) -> int:
 def _load_pretrained_encoder(model, cfg):
     '''Optionally seed the encoder from a proposal checkpoint (ablation;
     reference: captioning_module.py:147-162), a native npz directory or
-    file or a reference .pt. Returns the frozen module's name or None.'''
+    file or a reference .pt; a uni-modal captioner takes a uni-modal
+    generator's encoder. Returns the frozen module's name or None.'''
     path = getattr(cfg, 'pretrained_prop_model_path', None)
     if not path:
         return None
     print(f'Pretrained prop path: \n {path}')
     if path.endswith('.pt'):
-        tree = import_prop_model(load_torch_checkpoint(path))[0]['encoder']
+        cpt = load_torch_checkpoint(path)
+        tree = (import_prop_model(cpt) if cfg.modality == 'audio_video'
+                else import_unimodal_prop_model(cpt, cfg.modality))[0][
+                    'encoder']
     else:
         # only the encoder subtree transfers (reference filter:
         # captioning_module.py:157-159 keeps 'encoder' keys)
@@ -168,14 +177,17 @@ def train_cap(cfg: Config, device=None):
         # embedder carries the reference's trained Linear+ReLU adapter
         glove = load_glove(cfg.glove_path, train_ds.train_vocab,
                            dim=_glove_dim(cfg), cache_dir='./tmp')
+    emb_key = cap_embedding_key(dims.modality)
+    caption_width = {'audio_video': dims.d_model_C, 'audio': dims.d_model_A,
+                     'video': dims.d_model_V}[dims.modality]
     table_dim = (glove.shape[1] if glove is not None
-                 and glove.shape[1] != dims.d_model_C else None)
-    model = BiModalTransformer(
+                 and glove.shape[1] != caption_width else None)
+    model = captioner_class(dims)(
         dims, device=device, table_dim=table_dim,
         generator=torch.Generator(device=device).manual_seed(seed))
     if glove is not None:
         with torch.no_grad():
-            model.emb_C.table.copy_(torch.from_numpy(glove))
+            getattr(model, emb_key).table.copy_(torch.from_numpy(glove))
 
     frozen_module = _load_pretrained_encoder(model, cfg)
     # full-captioner seed (continued training), beyond the reference
@@ -202,7 +214,7 @@ def train_cap(cfg: Config, device=None):
     def is_frozen(path):
         if lora_rank:
             return lora_frozen_predicate(path)
-        if freeze_emb and path[:2] == ('emb_C', 'table'):
+        if freeze_emb and path[:2] == (emb_key, 'table'):
             return True
         return frozen_module is not None and path[0] == frozen_module
 

@@ -37,8 +37,14 @@ so an adapter saved by either package loads in the other; the exports fold
 adapters into the weights first, and a LoRA finetune seeds a new run
 (``load_pretrained_cap_params``) with its adapters folded in. A MoE
 captioner saves and loads like any other (its router and experts keep their
-JAX layout) but has no ``.pt`` export: the reference's FFNs are dense. Not
-ported: the uni-modal models (ROADMAP queue 1 item 10), the orbax backend.
+JAX layout) but has no ``.pt`` export: the reference's FFNs are dense.
+
+The uni-modal models (``--modality audio|video``) load from both formats:
+their reference ``.pt`` files import through ``import_unimodal_cap_model``
+(told apart by the ``trg_emb`` caption embedding) and
+``import_unimodal_prop_model`` (by the pickled config's modality), and a
+native directory builds the model of its config's modality. As in the JAX
+package, they have no ``.pt`` export. Not ported: the orbax backend.
 '''
 from __future__ import annotations
 
@@ -55,8 +61,8 @@ from torch import nn
 
 from bmt_tpu_torch.config import Config
 from bmt_tpu_torch.data.vocab import Vocab, build_vocab_from_meta
-from bmt_tpu_torch.models import (BiModalTransformer, CapModelDims,
-                                  MultimodalProposalGenerator, PropModelDims)
+from bmt_tpu_torch.models import (CapModelDims, PropModelDims,
+                                  captioner_class, proposal_class)
 from bmt_tpu_torch.params import (LORA_LEAVES, SEP, _flatten,
                                   load_jax_params, load_params_npz,
                                   named_jax_parameters, save_params_npz,
@@ -64,12 +70,6 @@ from bmt_tpu_torch.params import (LORA_LEAVES, SEP, _flatten,
 from bmt_tpu_torch.train.optim import Optimizer
 
 OPT_SCALARS = ('count', 'lr', 'notfinite')
-
-
-def _unimodal(what: str):
-    raise NotImplementedError(
-        f'{what}: the uni-modal models are not ported yet (ROADMAP queue 1 '
-        f'item 10); the port loads the bi-modal (audio_video) models only')
 
 
 def _orbax_only(ckpt_dir: str, name: str):
@@ -600,6 +600,17 @@ def _bimodal_encoder_from_sd(sd, prefix='encoder.encoder_AV.layers') -> dict:
     return {'layers': layers}
 
 
+def _encoder_from_sd(sd, prefix='encoder.enc_layers') -> dict:
+    '''The reference's uni-modal Encoder (self-attention, feed-forward, two
+    residual norms a layer).'''
+    N = _count_layers(sd, rf'{re.escape(prefix)}\.(\d+)\.')
+    return {'layers': [{
+        'self_att': _mha(sd, f'{prefix}.{i}.self_att'),
+        'ff': _ffn(sd, f'{prefix}.{i}.feed_forward'),
+        'res': [_ln(sd, f'{prefix}.{i}.res_layers.{j}.norm')
+                for j in range(2)]} for i in range(N)]}
+
+
 def import_cap_model(cpt: dict) -> Tuple[dict, dict]:
     '''Reference BiModalTransformer checkpoint -> (JAX-layout params tree,
     config dict). Key layout per model/captioning_module.py:101-187.'''
@@ -687,14 +698,60 @@ def import_prop_model(cpt: dict) -> Tuple[dict, dict]:
     return params, cfg
 
 
-def import_unimodal_prop_model(cpt: dict, modality: str):
-    '''Reference uni-modal ProposalGenerator checkpoint: not ported.'''
-    _unimodal(f'a uni-modal ({modality}) proposal generator checkpoint')
+def import_unimodal_prop_model(cpt: dict, modality: str) -> Tuple[dict, dict]:
+    '''Reference uni-modal ProposalGenerator checkpoint -> (params,
+    config); the anchors of ``modality`` ride along as 'anchors'
+    (reference: model/proposal_generator.py:50-120).'''
+    sd = _strip_module(cpt['model_state_dict'])
+    cfg = cpt.get('config', {})
+    params = {'encoder': _encoder_from_sd(sd)}
+    if 'emb.embedder.weight' in sd:
+        params['emb'] = {'linear': _lin(sd, 'emb.embedder')}
+    n = _count_layers(sd, r'detection_layers\.(\d+)\.')
+    params['heads'] = [_conv_head_from_sd(sd, f'detection_layers.{i}')
+                       for i in range(n)]
+    anchors = cpt.get('anchors', {})
+    if modality in anchors:
+        params['anchors'] = np.asarray(anchors[modality], np.float32)
+    return params, cfg
 
 
-def import_unimodal_cap_model(cpt: dict):
-    '''Reference uni-modal Transformer checkpoint: not ported.'''
-    _unimodal('a uni-modal captioner checkpoint')
+def import_unimodal_cap_model(cpt: dict) -> Tuple[dict, dict]:
+    '''Reference uni-modal Transformer checkpoint -> (params, config)
+    (reference: model/captioning_module.py:16-98).'''
+    sd = _strip_module(cpt['model_state_dict'])
+    cfg = cpt.get('config', {})
+    params = {
+        'trg_emb': _vocab_embedder(sd, 'trg_emb'),
+        'encoder': _encoder_from_sd(sd),
+        'generator': _lin(sd, 'generator.linear'),
+    }
+    if 'src_emb.embedder.weight' in sd:
+        params['src_emb'] = {'linear': _lin(sd, 'src_emb.embedder')}
+    N = _count_layers(sd, r'decoder\.dec_layers\.(\d+)\.')
+    params['decoder'] = {'layers': [{
+        'self_att': _mha(sd, f'decoder.dec_layers.{i}.self_att'),
+        'enc_att': _mha(sd, f'decoder.dec_layers.{i}.enc_att'),
+        'ff': _ffn(sd, f'decoder.dec_layers.{i}.feed_forward'),
+        'res': [_ln(sd, f'decoder.dec_layers.{i}.res_layers.{j}.norm')
+                for j in range(3)]} for i in range(N)]}
+    return params, cfg
+
+
+def import_any_cap_model(cpt: dict) -> Tuple[dict, dict]:
+    '''``import_unimodal_cap_model`` or ``import_cap_model``, by the
+    state dict's layout: the uni-modal captioners embed captions as
+    'trg_emb', the bi-modal one as 'emb_C'.'''
+    unimodal = any(k.startswith('trg_emb.')
+                   for k in _strip_module(cpt['model_state_dict']))
+    return (import_unimodal_cap_model(cpt) if unimodal
+            else import_cap_model(cpt))
+
+
+def cap_embedding_key(modality: str) -> str:
+    '''The caption embedding's key: 'emb_C' in the bi-modal captioner,
+    'trg_emb' in the uni-modal ones.'''
+    return 'emb_C' if modality == 'audio_video' else 'trg_emb'
 
 
 # ---------------------------------------------------------------------------
@@ -919,28 +976,25 @@ def save_torch_prop_checkpoint(path: str, params, meta: dict,
 def load_cap_checkpoint(path: str, train_meta_path: str = None,
                         allow_vocab_drift: bool = False, device='cuda'):
     '''Load a captioner checkpoint from either format; returns (cfg, dims,
-    model, vocab), the ``BiModalTransformer`` built on ``device`` (the card
-    unless the caller names another; without a card the default raises) in
-    eval mode (reference analog: sample/single_video_prediction.py:95-117
-    for the .pt side).
+    model, vocab), the model (``BiModalTransformer``, or
+    ``UniModalTransformer`` for a uni-modal checkpoint) built on ``device``
+    (the card unless the caller names another; without a card the default
+    raises) in eval mode (reference analog:
+    sample/single_video_prediction.py:95-117 for the .pt side).
 
-    - ``path`` ending in ``.pt``: reference PyTorch pickle; the vocabulary
-      is rebuilt from ``train_meta_path`` and checked against the
-      checkpoint's vocabulary size. A size mismatch RAISES (decoding with a
-      drifted id->word map yields silently garbled captions) unless
-      ``allow_vocab_drift=True`` explicitly overrides.
+    - ``path`` ending in ``.pt``: reference PyTorch pickle, bi-modal or
+      uni-modal by its state dict's layout; the vocabulary is rebuilt from
+      ``train_meta_path`` and checked against the checkpoint's vocabulary
+      size. A size mismatch RAISES (decoding with a drifted id->word map
+      yields silently garbled captions) unless ``allow_vocab_drift=True``
+      explicitly overrides.
     - otherwise: native npz dir containing ``best_cap_model.*``; config and
       vocab itos come from the meta JSON (no rebuild, so no drift). A LoRA
       finetune's archive loads with its adapters on their linears.
     '''
     if path.endswith('.pt'):
         cpt = load_torch_checkpoint(path)
-        # dispatch on the state-dict layout: the bi-modal captioner embeds
-        # captions as 'emb_C', the uni-modal ablations as 'trg_emb'
-        sd = _strip_module(cpt['model_state_dict'])
-        if any(k.startswith('trg_emb.') for k in sd):
-            import_unimodal_cap_model(cpt)
-        params, cfg_dict = import_cap_model(cpt)
+        params, cfg_dict = import_any_cap_model(cpt)
         cfg = Config.from_dict(cfg_dict)
         if not train_meta_path:
             raise ValueError('.pt checkpoints need a train_meta_path to '
@@ -949,8 +1003,8 @@ def load_cap_checkpoint(path: str, train_meta_path: str = None,
         vocab = build_vocab_from_meta(train_meta_path, cfg.start_token,
                                       cfg.end_token, cfg.pad_token,
                                       cfg.min_freq_caps)
-        table = params['emb_C']['table']
-        voc_size = cpt.get('trg_voc_size') or table.shape[0]
+        emb = params['trg_emb' if 'trg_emb' in params else 'emb_C']
+        voc_size = cpt.get('trg_voc_size') or emb['table'].shape[0]
         if len(vocab) != voc_size:
             msg = (f'rebuilt vocab size {len(vocab)} != checkpoint voc '
                    f'size {voc_size} ({train_meta_path} is not the CSV '
@@ -960,34 +1014,36 @@ def load_cap_checkpoint(path: str, train_meta_path: str = None,
                 raise ValueError(
                     msg + '; pass --allow_vocab_drift to proceed anyway')
             print(f'warning: {msg} (override active)', file=sys.stderr)
-        dims = CapModelDims.from_config(cfg, table.shape[0])
-        table_dim = (table.shape[1] if 'adapter' in params['emb_C']
-                     else None)
-        model = BiModalTransformer(dims, device=device, table_dim=table_dim)
+        dims = CapModelDims.from_config(cfg, emb['table'].shape[0])
+        model = captioner_class(dims)(
+            dims, device=device,
+            table_dim=emb['table'].shape[1] if 'adapter' in emb else None)
         load_jax_params(model, params)
         return cfg, dims, model.eval(), vocab
 
     meta = read_checkpoint_meta(path, 'best_cap_model')
     cfg = Config.from_dict(meta['config'])
-    if cfg.modality != 'audio_video':
-        _unimodal(f'{path} ({cfg.modality} captioner)')
     vocab = Vocab(meta['vocab_itos'])
     dims = CapModelDims.from_config(cfg, len(vocab))
-    model = BiModalTransformer(dims, device=device,
-                               table_dim=native_table_dim(path))
+    model = captioner_class(dims)(
+        dims, device=device,
+        table_dim=native_table_dim(path, emb_key=cap_embedding_key(
+            cfg.modality)))
     load_model_params(path, 'best_cap_model', model)
     return cfg, dims, model.eval(), vocab
 
 
-def native_table_dim(path: str, name: str = 'best_cap_model'):
+def native_table_dim(path: str, name: str = 'best_cap_model',
+                     emb_key: str = 'emb_C'):
     '''The caption-embedding table's width when the npz checkpoint ``name``
-    under ``path`` carries the GloVe adapter (an 'emb_C/adapter' Linear,
-    present when the vectors' width differs from d_model_C), else None.'''
+    under ``path`` carries the GloVe adapter (an '<emb_key>/adapter'
+    Linear, present when the vectors' width differs from the captioner's
+    caption width), else None.'''
     npz_path = os.path.join(path, f'{name}.params.npz')
     if os.path.exists(npz_path):
         with np.load(npz_path) as z:
-            if f'emb_C{SEP}adapter{SEP}w' in z.files:
-                return z[f'emb_C{SEP}table'].shape[1]
+            if f'{emb_key}{SEP}adapter{SEP}w' in z.files:
+                return z[f'{emb_key}{SEP}table'].shape[1]
     return None
 
 
@@ -996,16 +1052,13 @@ def load_pretrained_cap_params(path: str, model: nn.Module) -> None:
     train_cap's ``--pretrained_cap_model_path`` (continued training; the
     JAX package's ``load_pretrained_cap_params``). ``path``: a native
     checkpoint directory (its ``best_cap_model``), a bare ``*.params.npz``
-    or a reference ``.pt``. Missing, extra and misshapen arrays raise. A
-    LoRA finetune's archive seeds the model with its adapters folded into
-    the base weights (``_fold_lora``), as the JAX package's does: a new
-    run's own ``--lora_rank`` puts fresh adapters on top.'''
+    or a reference .pt, bi-modal or uni-modal. Missing, extra and misshapen
+    arrays raise. A LoRA finetune's archive seeds the model with its
+    adapters folded into the base weights (``_fold_lora``), as the JAX
+    package's does: a new run's own ``--lora_rank`` puts fresh adapters on
+    top.'''
     if path.endswith('.pt'):
-        cpt = load_torch_checkpoint(path)
-        if any(k.startswith('trg_emb.')
-               for k in _strip_module(cpt['model_state_dict'])):
-            _unimodal(f'{path} (a uni-modal captioner)')
-        tree = import_cap_model(cpt)[0]
+        tree = import_any_cap_model(load_torch_checkpoint(path))[0]
     else:
         if os.path.isdir(path):
             if not checkpoint_exists(path, 'best_cap_model') and _has_orbax(
@@ -1019,28 +1072,31 @@ def load_pretrained_cap_params(path: str, model: nn.Module) -> None:
 def load_prop_checkpoint(path: str, max_prop_per_vid: int = None,
                          device='cuda'):
     '''Load a proposal-generator checkpoint (.pt or native npz dir); returns
-    (cfg, dims, model), the ``MultimodalProposalGenerator`` with its anchors
+    (cfg, dims, model), the model (``MultimodalProposalGenerator``, or
+    ``UnimodalProposalGenerator`` for a uni-modal one) with its anchors
     built on ``device`` (the card by default, as ``load_cap_checkpoint``) in
     eval mode (reference analog: sample/single_video_prediction.py:66-91).
     ``max_prop_per_vid`` overrides the config's.'''
+    params = None
     if path.endswith('.pt'):
         cpt = load_torch_checkpoint(path)
         modality = cpt.get('config', {}).get('modality', 'audio_video')
-        if modality != 'audio_video':
-            import_unimodal_prop_model(cpt, modality)
-        params, cfg_dict = import_prop_model(cpt)
-        if 'anchors_A' not in params or 'anchors_V' not in params:
-            raise KeyError(f'{path} has no audio and video anchors')
+        if modality == 'audio_video':
+            params, cfg_dict = import_prop_model(cpt)
+            if 'anchors_A' not in params or 'anchors_V' not in params:
+                raise KeyError(f'{path} has no audio and video anchors')
+        else:
+            params, cfg_dict = import_unimodal_prop_model(cpt, modality)
+            if 'anchors' not in params:
+                raise KeyError(f'{path} has no {modality} anchors')
     else:
         cfg_dict = read_checkpoint_meta(path, 'best_prop_model')['config']
-        if cfg_dict.get('modality', 'audio_video') != 'audio_video':
-            _unimodal(f'{path} ({cfg_dict["modality"]} proposal generator)')
     if max_prop_per_vid is not None:
         cfg_dict['max_prop_per_vid'] = max_prop_per_vid
     cfg = Config.from_dict(cfg_dict)
     dims = PropModelDims.from_config(cfg)
-    model = MultimodalProposalGenerator(dims, device=device)
-    if path.endswith('.pt'):
+    model = proposal_class(dims)(dims, device=device)
+    if params is not None:
         load_jax_params(model, params)
     else:
         load_model_params(path, 'best_prop_model', model)

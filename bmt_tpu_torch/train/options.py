@@ -49,18 +49,21 @@ def _not_ported(what: str, item):
                               f'item {item})')
 
 
+MODALITIES = ('audio', 'video', 'audio_video')
+
+
 def check_model_ported(cfg) -> None:
-    '''Raise NotImplementedError, naming its ROADMAP item, for a model the
-    port does not build (the uni-modal ones).'''
-    if getattr(cfg, 'modality', 'audio_video') != 'audio_video':
-        _not_ported(f'--modality {cfg.modality} (the uni-modal models)', 10)
+    '''Raise ValueError for a modality that no model is built for: the
+    bi-modal models take audio_video, the uni-modal ones audio or video.'''
+    modality = getattr(cfg, 'modality', 'audio_video')
+    if modality not in MODALITIES:
+        raise ValueError(f'--modality {modality!r}: one of {MODALITIES}')
 
 
 def check_ported(cfg) -> None:
-    '''Raise NotImplementedError, naming its ROADMAP item, for a model or an
-    option of the config that the port does not run (the uni-modal models,
-    parallelism, orbax); print once that multi-step dispatch runs step by
-    step.'''
+    '''Raise for a model or an option of the config that the port does not
+    run: NotImplementedError, naming its ROADMAP item, for parallelism and
+    orbax; print once that multi-step dispatch runs step by step.'''
     check_model_ported(cfg)
     for flag in ('dp_devices', 'ep_devices', 'sp_devices'):
         if (getattr(cfg, flag, 1) or 1) > 1:

@@ -1,8 +1,8 @@
 '''Proposal-generator trainer (counterpart of
 ``bmt_tpu.train.prop_trainer``; reference:
 scripts/train_proposal_generator.py:15-104): k-means anchors from the train
-JSON, the bi-modal encoder optionally seeded from a pretrained captioner
-(reference ``.pt`` or native npz) and frozen unless
+JSON, the encoder optionally seeded from a pretrained captioner of the same
+modality (reference ``.pt`` or native npz) and frozen unless
 ``--finetune_cap_encoder``, ``validate_prop`` F1 for the best checkpoint,
 ``last_prop_model`` and ``best_prop_model`` npz checkpoints with the JAX
 package's meta keys, resume down to the batch, and the ``PreemptionGuard``.
@@ -18,11 +18,11 @@ import torch
 from bmt_tpu_torch.config import Config
 from bmt_tpu_torch.data.proposal_data import ProposalDataset
 from bmt_tpu_torch.data.vocab import Vocab, build_vocab_from_meta
-from bmt_tpu_torch.models import MultimodalProposalGenerator, PropModelDims
+from bmt_tpu_torch.models import PropModelDims, proposal_class
 from bmt_tpu_torch.params import load_jax_params, to_jax_tree
 from bmt_tpu_torch.train.cap_trainer import (checkpoint_writer, eval_model,
                                              resume)
-from bmt_tpu_torch.train.checkpoint import (import_cap_model,
+from bmt_tpu_torch.train.checkpoint import (import_any_cap_model,
                                             load_pretrained_encoder_native,
                                             load_torch_checkpoint,
                                             optimizer_state_tree)
@@ -42,13 +42,15 @@ from bmt_tpu_torch.utils.proposal_utils import calc_anchors_using_kmeans
 
 def _load_pretrained_encoder(model, cfg) -> bool:
     '''Seed the encoder from ``--pretrained_cap_model_path`` (reference:
-    proposal_generator.py:234-249); returns whether it stays frozen.'''
+    proposal_generator.py:234-249; a uni-modal captioner's for a uni-modal
+    generator, :85-106); returns whether it stays frozen.'''
     path = getattr(cfg, 'pretrained_cap_model_path', None)
     if not path:
         return False
     print(f'Pretrained caption path: \n {path}')
     if path.endswith('.pt'):
-        tree = import_cap_model(load_torch_checkpoint(path))[0]['encoder']
+        tree = import_any_cap_model(load_torch_checkpoint(path))[0][
+            'encoder']
     else:
         # only the encoder subtree transfers, mirroring the reference's
         # 'encoder' key filter (proposal_generator.py:244-246)
@@ -89,10 +91,13 @@ def train_prop(cfg: Config, device=None):
                 f'{len(valid_ds.video_ids)} validation videos; anchors)')
 
     dims = PropModelDims.from_config(cfg)
-    model = MultimodalProposalGenerator(
+    model = proposal_class(dims)(
         dims, device=device,
         generator=torch.Generator(device=device).manual_seed(seed))
-    model.set_anchors(anchors['audio'], anchors['video'])
+    if cfg.modality == 'audio_video':
+        model.set_anchors(anchors['audio'], anchors['video'])
+    else:
+        model.set_anchors(anchors[cfg.modality])
     freeze_encoder = _load_pretrained_encoder(model, cfg)
     optimizer = build_optimizer(cfg, model, frozen=prop_frozen(freeze_encoder),
                                 total_steps=cfg.epoch_num * len(train_ds))

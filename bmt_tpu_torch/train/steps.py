@@ -1,7 +1,9 @@
-'''Training and validation steps of the bi-modal captioner and the bi-modal
-proposal generator (counterpart of ``make_cap_train_step``,
+'''Training and validation steps of the captioners and the proposal
+generators, bi-modal and uni-modal (counterpart of ``make_cap_train_step``,
 ``make_cap_val_step``, ``make_prop_train_step`` and
-``make_prop_inference_step`` in ``bmt_tpu.train.steps``).
+``make_prop_inference_step`` in ``bmt_tpu.train.steps``). The model picks
+the forward: both captioners take the same arguments, and a uni-modal
+proposal generator's loss terms are filed under its modality's side.
 
 The JAX steps are pure (state, batch) -> (state, metrics) functions; here
 the step updates the ``TrainState``'s model, optimizer and counters in place
@@ -217,7 +219,7 @@ def prop_frozen(freeze_encoder: bool = False):
     anchors always, and the encoder when it comes from a pretrained
     captioner and is not fine-tuned.'''
     def frozen(path: tuple) -> bool:
-        return (path[0] in ('anchors_A', 'anchors_V')
+        return (path[0] in ('anchors_A', 'anchors_V', 'anchors')
                 or (freeze_encoder and path[0] == 'encoder'))
     return frozen
 
@@ -235,14 +237,24 @@ def _prop_batch(batch: dict, device):
 def _prop_forward(model, src, targets, pad_idx, attention_impl,
                   compute_dtype, loss_denoms=None):
     '''The generator's forward in ``compute_dtype`` from the fp32 masters;
-    the masks come from the uncast features (channel 0 against pad_idx).'''
-    masks = make_masks(src, None, model.dims.modality, pad_idx)
+    the masks come from the uncast features (channel 0 against pad_idx).
+    Returns (predictions, loss, losses_A, losses_V); a uni-modal
+    generator's terms are losses_V for video, losses_A for audio, the
+    other side empty (``steps.py:375-389``).'''
+    modality = model.dims.modality
+    masks = make_masks(src, None, modality, pad_idx)
     args = ({k: x.to(compute_dtype) for k, x in src.items()}, targets, masks,
             attention_impl, loss_denoms)
     if compute_dtype == torch.float32:
-        return model(*args)
-    return torch.func.functional_call(model, cast_params(model, compute_dtype),
-                                      args)
+        out = model(*args)
+    else:
+        out = torch.func.functional_call(
+            model, cast_params(model, compute_dtype), args)
+    if modality == 'audio_video':
+        return out
+    preds, loss, losses = out
+    return ((preds, loss, {}, losses) if modality == 'video'
+            else (preds, loss, losses, {}))
 
 
 def _cell_counts(targets, anchors, stride: float, S: int):
@@ -277,11 +289,15 @@ def make_prop_train_step(dims, pad_idx: int, attention_impl: str = 'torch',
             raise ValueError(f'batch size {B} not divisible by '
                              f'grad_accum_steps={accum_steps}')
         denoms = None
-        if accum_steps > 1:
+        if accum_steps > 1 and dims.modality == 'audio_video':
             denoms = (_cell_counts(targets, model.anchors_A, dims.stride_A,
                                    src['audio'].shape[1]),
                       _cell_counts(targets, model.anchors_V, dims.stride_V,
                                    src['rgb'].shape[1]))
+        elif accum_steps > 1:
+            grid = src['rgb' if dims.modality == 'video' else 'audio']
+            denoms = _cell_counts(targets, model.anchors, model.stride,
+                                  grid.shape[1])
         mb = B // accum_steps
 
         model.train()

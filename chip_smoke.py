@@ -187,14 +187,37 @@ when it fails:
     int8 weights and scales of the generator, the activation levels and
     scales of a batch and the int8 K/V levels and scales equal on the card
     and the CPU bit for bit. It prints seconds, ms per step, launches and
-    scores per run.
+    scores per run;
+20. the uni-modal models and the acceptance chain on phase 17's tree and
+    checkpoints (build_parser()'s widths, bf16, --attention_impl pallas),
+    each run's launches counted from 0 and its shapes recorded: (20a)
+    train_cap --modality video (d_k = 256) and --modality audio
+    (d_model_audio = 128, H=4: d_k = 32), train_prop --modality audio with
+    the audio captioner's encoder, frozen, and evaluate of the audio
+    captioner on its proposals, each one epoch, failing as phase 17's runs
+    fail; (20b) in fp32 each modality's cached greedy decode against the
+    uncached one (B=4, 30 steps, plain attention; where a row parts, a
+    near-tie within TOP2_GAP_TOL), then the audio evaluation through
+    pallas and xla under phase 17d's rule; (20c) the kernels against their
+    plain versions at every shape 20a-20b launched them, as 17e, the
+    d = 32 shapes among them; (20d) each kernel's device time beside its
+    plain version's, the library call's and its bound at the most-launched
+    d = 32 shape, the d = 32 shape of the most work and the most-launched
+    d = 256 shape phase 17 did not launch (the most-launched d = 256 one
+    when there is none);
+    (20e) python -m bmt_tpu_torch.scripts.acceptance on phase 17's
+    bi-modal checkpoints: md5 SKIP (native checkpoints), import, gt_val and
+    learned_props PASS, and sample PASS against a golden from one direct
+    run of the port's app on seeded women_long_jump stand-ins; overall
+    PASS.
 
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. The report's `launches` are the captioning
 trainer's (phase 9); `launches_by_path` gives those of each main path's run
 (phases 9, 12, 15 and 16, phase 17's train_cap, train_prop and
-evaluate, phase 18's requests as `serve`, and phase 19's runs), `serving`
-phase 18's numbers, `main_py_options` phase 19's,
+evaluate, phase 18's requests as `serve`, phase 19's runs, and phase 20's
+as `unimodal` (20a's four runs) and `acceptance`), `serving` phase 18's
+numbers, `main_py_options` phase 19's, `unimodal` phase 20's,
 `main_py_procedures` phase 17's seconds, step and prefetch-wait
 times, scores, the checks at its launch shapes and busy share, `proposal_800x800` each kernel's times at the
 proposal cell's 800x800 call, `fp32_train_256x256` its fp32 times at the
@@ -203,6 +226,7 @@ the app's caption-batch 512x512 and B=1 800x800 calls; the report's
 `fp32_train_step_ms` holds the fp32 captioner train step's medians through
 'kernel' and 'torch' (phase 8).
 '''
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -228,6 +252,7 @@ import torch.nn.functional as F
 from bmt_tpu_torch.config import Config, build_parser
 from bmt_tpu_torch.decode import (beam_search_bimodal, greedy_decode_bimodal,
                                   greedy_decode_uncached,
+                                  make_bimodal_greedy_fn,
                                   sample_decode_bimodal)
 from bmt_tpu_torch.decode.greedy import bimodal_step_setup
 from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
@@ -240,7 +265,8 @@ from bmt_tpu_torch.ops.flash_attention import (
     flash_attention_forward, flash_attention_lse_reference,
     flash_attention_reference, key_mask_and_causal, launch_counts,
     reset_launch_counts, row_dot)
-from bmt_tpu_torch.models import MultimodalProposalGenerator, PropModelDims
+from bmt_tpu_torch.models import (MultimodalProposalGenerator, PropModelDims,
+                                  captioner_class, proposal_class)
 from bmt_tpu_torch.params import (load_jax_params, load_params_npz,
                                   save_params_npz, to_jax_tree)
 from bmt_tpu_torch.data import (AUDIO_BUCKETS, VIDEO_BUCKETS, Vocab,
@@ -251,6 +277,7 @@ from bmt_tpu_torch.ops.lora import add_lora, apply_adapter, has_lora
 from bmt_tpu_torch.ops.attention import _quantize_per_channel
 from bmt_tpu_torch.ops.quant import (quantize_linear_int8, quantize_rows_int8,
                                      quantize_tree_int8)
+from bmt_tpu_torch.scripts import acceptance
 from bmt_tpu_torch.scripts import serve as serve_cli
 from bmt_tpu_torch.serve import (SHORTEST_SEGMENT, CaptionEngine,
                                  MicroBatcher, VideoPipeline,
@@ -1879,7 +1906,7 @@ def write_anet_tree(root, seed=17):
             '--vocab_path', VOCAB_REF]
 
 
-def run_procedure(argv, dev, shapes: set):
+def run_procedure(argv, dev, shapes: collections.Counter):
     '''python -m bmt_tpu_torch's main(argv) on ``dev``, the launch counts
     set to 0 just before and read just after, the launches' shapes added to
     ``shapes``; its stdout is captured and its timing and score lines
@@ -1935,10 +1962,10 @@ def loads_back(cfg_argv, ckpt_dir, kind, steps, dev):
     count.'''
     if kind == 'cap':
         _, dims, model, _ = load_cap_checkpoint(ckpt_dir, device=dev)
-        fresh, frozen = BiModalTransformer(dims, device=dev), None
+        fresh, frozen = captioner_class(dims)(dims, device=dev), None
     else:
         _, dims, model = load_prop_checkpoint(ckpt_dir, device=dev)
-        fresh = MultimodalProposalGenerator(dims, device=dev)
+        fresh = proposal_class(dims)(dims, device=dev)
         frozen = prop_frozen(True)
     opt = build_optimizer(Config(build_parser().parse_args(cfg_argv)), fresh,
                           frozen=frozen)
@@ -1983,7 +2010,7 @@ def top2_gap(ckpt, tree_argv, vid, start, end, sentence, step, dev):
     ids = [START] + vocab.encode(sentence.lower().split())
     trg = torch.tensor([ids[:step + 1]], device=dev)
     with torch.inference_mode():
-        masks = make_masks(src, trg, 'audio_video', PAD)
+        masks = make_masks(src, trg, cfg.modality, PAD)
         top = model(src, trg, masks, 'torch')[0, -1].topk(2).values
     del model
     torch.cuda.empty_cache()
@@ -2019,20 +2046,20 @@ def compare_captions(subs, ckpt, tree_argv, dev):
 
 
 @contextlib.contextmanager
-def launch_shapes(seen: set):
-    '''Add to ``seen`` the (kernel, B, H, Sq, Sk, d, causal, dtype) of every
-    kernel launch inside the block: the wrappers' one launch call ``_run``
-    is wrapped (the launch counts are untouched). Its arguments are the
-    tensors (q and k first), then B, H, Sq, Sk, d, causal and, for a split
-    fp32 forward, the split count.'''
+def launch_shapes(seen: collections.Counter):
+    '''Count in ``seen`` the (kernel, B, H, Sq, Sk, d, causal, dtype) of
+    every kernel launch inside the block: the wrappers' one launch call
+    ``_run`` is wrapped (the launch counts are untouched). Its arguments are
+    the tensors (q and k first), then B, H, Sq, Sk, d, causal and, for a
+    split fp32 forward, the split count.'''
     ops = importlib.import_module('bmt_tpu_torch.ops.flash_attention')
     run = ops._run
 
     def recording(name, fn, *args):
         q, k = args[0], args[1]
         ints = [a for a in args if type(a) is int]
-        seen.add((name, *q.shape[:3], k.shape[2], q.shape[3], bool(ints[5]),
-                  q.dtype))
+        seen[(name, *q.shape[:3], k.shape[2], q.shape[3], bool(ints[5]),
+              q.dtype)] += 1
         return run(name, fn, *args)
     ops._run = recording
     try:
@@ -2041,7 +2068,7 @@ def launch_shapes(seen: set):
         ops._run = run
 
 
-def check_path_shapes(seen: set, dev):
+def check_path_shapes(seen: collections.Counter, dev):
     '''check_kernels at every shape of ``seen`` (launch_shapes), in the
     dtype it was launched in and in fp32: the lse forward everywhere, dQ
     and dK/dV where a backward kernel launched at that shape. A B=1 shape
@@ -2102,10 +2129,10 @@ def profiled_train_cap(tree_argv, log_dir):
 def phase_main_procedures(dev, smi, tmp):
     '''main.py's train_cap -> train_prop -> evaluate through the port's CLI
     on a synthetic ActivityNet tree under ``tmp`` (see the module
-    docstring); the checkpoints stay there for phases 18 and 19. Returns
+    docstring); the checkpoints stay there for phases 18-20. Returns
     ({procedure: launches}, {procedure: numbers for the report}, the
     captioner's checkpoint directory, the proposal generator's, the tree's
-    command-line flags).'''
+    command-line flags, the launch shapes).'''
     t0 = time.perf_counter()
     tree = write_anet_tree(os.path.join(tmp, 'data'))
     print(f'    tree: {ANET_TRAIN} train + {ANET_VAL} validation videos '
@@ -2114,7 +2141,7 @@ def phase_main_procedures(dev, smi, tmp):
     common = tree + CLI_FLAGS + ['--log_dir', log]
     cap_dir = os.path.join(log, 'train_cap', 'cap')
     prop_dir = os.path.join(log, 'train_prop', 'prop')
-    launches, report, shapes = {}, {}, set()
+    launches, report, shapes = {}, {}, collections.Counter()
 
     print(f'    [17a] train_cap {" ".join(CAP_FLAGS)} ({smi}):')
     cap_argv = ['--procedure', 'train_cap', *common, *CAP_FLAGS,
@@ -2237,7 +2264,7 @@ def phase_main_procedures(dev, smi, tmp):
           f'{100 * device_ms / plain["step_ms"]:.1f}% of its median step); '
           f'{100 * device_ms * n / float(m[3]):.1f}% of the traced run\'s '
           f'wall, which holds the profiler\'s own host work ({smi})')
-    return launches, report, cap_dir, prop_dir, tree
+    return launches, report, cap_dir, prop_dir, tree, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -2353,7 +2380,7 @@ def phase_serving(dev, smi, cap_dir, prop_dir, tmp):
     '''The serving API at full width from phase 17's checkpoints (see the
     module docstring). Returns (the launches of 18a's requests, numbers for
     the report).'''
-    report, shapes = {}, set()
+    report, shapes = {}, collections.Counter()
     _, dims, base, _ = load_cap_checkpoint(cap_dir, device=dev)   # fp32
     g = torch.Generator(device=dev).manual_seed(18)
     lora = {}
@@ -2724,15 +2751,19 @@ def moe_aux_in_loss(moe_dir, dev):
     return losses, [a.item() for a in aux]
 
 
-def moe_cached_vs_uncached(model, x):
-    '''19d: fp32 greedy decode of a MoE captioner KV-cached (the MoE FFNs
-    one token at a time, lossless) and uncached (the teacher-forced forward
-    over the prefix at every step), both through plain attention with no
-    end token. Returns (rows equal, the largest top-2 log-prob gap at a
-    row's first differing step or None).'''
-    cached = greedy_decode_bimodal(model, x, STEPS, START, -1, PAD, 'torch')
+def cached_vs_uncached(model, x):
+    '''19d and 20b: fp32 greedy decode of a captioner (bi-modal or
+    uni-modal, its MoE FFNs one token at a time, lossless) KV-cached and
+    uncached (the teacher-forced forward over the prefix at every step),
+    both through plain attention with no end token. Returns (rows equal,
+    the largest top-2 log-prob gap at a row's first differing step or
+    None).'''
+    modality = model.dims.modality
+    cached = make_bimodal_greedy_fn(model.dims, STEPS, START, -1, PAD,
+                                    'torch')(model, x)
     uncached = greedy_decode_uncached(
-        lambda s, t, m: model(s, t, m, 'torch'), x, STEPS, START, -1, PAD)
+        lambda s, t, m: model(s, t, m, 'torch'), x, STEPS, START, -1, PAD,
+        modality)
     same = (cached == uncached).all(dim=1)
     gap = None
     for r in (~same).nonzero().flatten().tolist():
@@ -2740,7 +2771,7 @@ def moe_cached_vs_uncached(model, x):
         row = {k: v[r:r + 1] for k, v in x.items()}
         trg = uncached[r:r + 1, :step]
         with torch.inference_mode():
-            masks = make_masks(row, trg, 'audio_video', PAD)
+            masks = make_masks(row, trg, modality, PAD)
             top = model(row, trg, masks, 'torch')[0, -1].topk(2).values
         gap = max(gap or 0.0, float(top[0] - top[1]))
     return int(same.sum()), gap
@@ -2774,7 +2805,7 @@ def phase_main_py_options(dev, smi, tmp, tree, cap_dir, prop_dir, full):
     ({run: launches}, numbers for the report).'''
     log = os.path.join(tmp, 'log')
     common = tree + CLI_FLAGS + ['--log_dir', log]
-    launches, report, shapes = {}, {}, set()
+    launches, report, shapes = {}, {}, collections.Counter()
     cap_argv = ['--procedure', 'train_cap', *common, *CAP_FLAGS]
 
     print(f'    [19a] train_cap {" ".join(LORA_FLAGS)} from phase 17\'s '
@@ -2870,7 +2901,7 @@ def phase_main_py_options(dev, smi, tmp, tree, cap_dir, prop_dir, full):
     x['rgb'][1, sv // 2:] = PAD
     x['flow'][1, sv // 2:] = 0.0
     x['audio'][1, sa // 3:] = PAD
-    equal, gap = moe_cached_vs_uncached(model, x)
+    equal, gap = cached_vs_uncached(model, x)
     print(f'      cached == uncached greedy in {equal} of {b} rows '
           f'({STEPS} steps); largest top-2 gap where they part: {gap}')
     check(gap is None or gap <= TOP2_GAP_TOL,
@@ -2912,6 +2943,279 @@ def phase_main_py_options(dev, smi, tmp, tree, cap_dir, prop_dir, full):
           f'bit')
     report['int8_values_equal'] = n_int8
     return launches, report
+
+
+# ---------------------------------------------------------------------------
+# the uni-modal models and the acceptance chain
+# ---------------------------------------------------------------------------
+
+# the audio captioner (d_model 128) at train_cap's lr 5e-5 writes no word of
+# a reference after its one epoch's 6 steps (METEOR 0 on the H100, so no
+# best_cap_model); at 3e-4 it writes the frequent ones, as the others do
+UNI_LR = {'video': [], 'audio': ['--lr', '3e-4']}
+# the bundled women_long_jump video's length and rows (I3D at 2.56 s a row,
+# VGGish at 0.96 s): its stand-in features are drawn from a seed
+SAMPLE_SECONDS, SAMPLE_ROWS = 35.155, {'rgb': 14, 'flow': 14, 'vggish': 37}
+
+
+def most_launched(shapes, keep):
+    '''((B, H, Sq, Sk, d, causal), launches) of the shape with the most
+    launches (all kernels, all dtypes) among those of ``shapes`` that
+    ``keep`` accepts; None when it accepts none.'''
+    count = collections.Counter()
+    for (_, *geom, _), n in shapes.items():
+        if keep(tuple(geom)):
+            count[tuple(geom)] += n
+    return count.most_common(1)[0] if count else None
+
+
+def unimodal_kernel_times(shapes, seen17, smi, dev):
+    '''20d: each kernel's times (kernel_times, bf16) at the most-launched
+    d = 32 shape, at the d = 32 shape of the most work (B H Sq Sk), and at
+    the most-launched d = 256 shape phase 17 did not launch (else the
+    most-launched d = 256 one). Returns {label: times}.'''
+    old = {tuple(geom) for _, *geom, _ in seen17}
+    picks = {'d=32': most_launched(shapes, lambda g: g[4] == 32)}
+    d32 = [tuple(geom) for _, *geom, _ in shapes if geom[4] == 32]
+    if d32:
+        big = max(d32, key=lambda g: g[0] * g[1] * g[2] * g[3])
+        picks['d=32 most work'] = most_launched(shapes, lambda g: g == big)
+    new = most_launched(shapes, lambda g: g[4] == 256 and g not in old)
+    picks['d=256 new' if new else 'd=256'] = new or most_launched(
+        shapes, lambda g: g[4] == 256)
+    check(all(picks.values()), f'launch shapes at d = 32 and 256: {picks}')
+    out = {}
+    for label, (geom, n) in picks.items():
+        b, h, sq, sk, d, causal = geom
+        case = (f'B={b} H={h} Sq={sq} Sk={sk} d={d}'
+                f'{" causal" if causal else ""}', *geom)
+        t = kernel_times(case, dev, dtype=torch.bfloat16)
+        print(f'      {label} at {case[0]} ({n} launches in 20a-20b; '
+              f'bf16, {smi}):')
+        for kname in (KERNEL, KERNEL_DQ, KERNEL_DKV):
+            print(f'        {kname:20s} ' + times_line('', t[kname]))
+        out[label] = {'shape': case[0], 'launches': n, **{
+            kname: {k: t[kname][k] for k in ('kernel', 'plain', 'library',
+                                              'bound', 'bound_by')}
+            for kname in (KERNEL, KERNEL_DQ, KERNEL_DKV)}}
+    return out
+
+
+def run_acceptance(tmp, tree, cap_dir, prop_dir, dev):
+    '''20e: scripts.acceptance's main on phase 17's checkpoints, the sample
+    stage against a golden from one direct run of the port's app on seeded
+    stand-in features. Returns (the report, seconds, launches).'''
+    rng = np.random.default_rng(20)
+    sample_dir = os.path.join(tmp, 'sample')
+    os.makedirs(sample_dir)
+    for name, width in (('rgb', 1024), ('flow', 1024), ('vggish', 128)):
+        np.save(os.path.join(sample_dir, f'women_long_jump_{name}.npy'),
+                rng.standard_normal((SAMPLE_ROWS[name], width), np.float32))
+    paths = dict(zip(tree[::2], tree[1::2]))
+    args = types.SimpleNamespace(train_meta_path=paths['--train_meta_path'],
+                                 device=str(dev))
+    bootstrap = os.path.join(tmp, 'bootstrap_sample.json')
+    with open(bootstrap, 'w') as f:
+        f.write('[]')
+    golden = acceptance.run_sample(args, cap_dir, prop_dir, sample_dir,
+                                   bootstrap, SAMPLE_SECONDS,
+                                   os.path.join(tmp, 'golden'))
+    check(golden.get('predicted'), f'the app\'s golden run: {golden}')
+    expected = os.path.join(tmp, 'expected_sample.json')
+    with open(expected, 'w') as f:
+        json.dump(golden['predicted'], f)
+    report_path = os.path.join(tmp, 'acceptance_report.json')
+    argv = ['--procedure', 'evaluate', *tree,
+            '--pretrained_cap_model_path', cap_dir,
+            '--pretrained_prop_model_path', prop_dir,
+            '--log_dir', os.path.join(tmp, 'acc_log'),
+            '--sample_dir', sample_dir, '--expected_sample', expected,
+            '--sample_duration', str(SAMPLE_SECONDS),
+            '--report_path', report_path, '--device', str(dev)]
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(printed):
+        rc, seconds = synced(lambda: acceptance.main(argv))
+    launches = launch_counts()
+    for line in printed.getvalue().splitlines():
+        if line.startswith(('  ', 'OVERALL')):
+            print(f'      {line.strip()}')
+    report = read_json(report_path)
+    check(rc == 0, f'acceptance exited {rc}: {report}')
+    return report, seconds, launches
+
+
+def phase_unimodal(dev, smi, tmp, tree, cap_dir, prop_dir, seen17):
+    '''The uni-modal models and the acceptance chain on phase 17's tree and
+    checkpoints (see the module docstring). ``seen17``: phase 17's launch
+    shapes. Returns ({'unimodal', 'acceptance': launches}, numbers for the
+    report).'''
+    log = os.path.join(tmp, 'log')
+    common = tree + CLI_FLAGS + ['--log_dir', log]
+    runs, report, shapes = {}, {}, collections.Counter()
+    uni = {m: os.path.join(log, 'train_cap', f'uni_{m}')
+           for m in ('video', 'audio')}
+
+    def procedure(name, argv):
+        result, secs, launches, stages = run_procedure(argv, dev, shapes)
+        runs[name] = launches
+        report[name] = {'s': secs, 'launches': launches, 'stages': stages}
+        return result
+
+    for modality, d_k in (('video', 256), ('audio', 32)):
+        name = f'train_cap_{modality}'
+        print(f'    [20a] train_cap --modality {modality} (d_k = {d_k}) '
+              f'{" ".join(CAP_FLAGS + UNI_LR[modality])} ({smi}):')
+        argv = ['--procedure', 'train_cap', *common, *CAP_FLAGS,
+                *UNI_LR[modality], '--modality', modality, '--exper_name',
+                f'uni_{modality}']
+        best = procedure(name, argv)
+        check(all(runs[name].values()),
+              f'{modality} train_cap launched {runs[name]}')
+        check(checkpoint_exists(uni[modality], 'best_cap_model'),
+              f'{modality} train_cap wrote no best_cap_model')
+        loss = logged(uni[modality], 'debug/train_loss_epoch')
+        meta = read_json(os.path.join(uni[modality],
+                                      'last_cap_model.meta.json'))
+        n = loads_back(argv, uni[modality], 'cap', meta['step'], dev)
+        report[name].update(meteor=best, loss=loss, parameters=n,
+                            **epoch_numbers(report[name]['stages']))
+        print(f'      train loss {loss}, best METEOR {best}; {meta["step"]} '
+              f'steps; both checkpoints load back ({n} parameters; '
+              f'last_cap_model with its optimizer)')
+        torch.cuda.empty_cache()
+
+    print(f'    [20a] train_prop --modality audio {" ".join(PROP_FLAGS)}, '
+          f'the encoder from the audio best_cap_model, frozen ({smi}):')
+    prop_argv = ['--procedure', 'train_prop', *common, *PROP_FLAGS,
+                 '--modality', 'audio', '--exper_name', 'uni_prop',
+                 '--pretrained_cap_model_path', uni['audio']]
+    uni_prop = os.path.join(log, 'train_prop', 'uni_prop')
+    f1 = procedure('train_prop_audio', prop_argv)
+    check(checkpoint_exists(uni_prop, 'best_prop_model'),
+          'the audio train_prop wrote no best_prop_model')
+    loss = logged(uni_prop, 'debug/loss_epoch')
+    steps = read_json(os.path.join(uni_prop,
+                                   'last_prop_model.meta.json'))['step']
+    n = loads_back(prop_argv, uni_prop, 'prop', steps, dev)
+    prop_params = params_npz(os.path.join(uni_prop,
+                                          'best_prop_model.params.npz'))
+    cap_params = params_npz(os.path.join(uni['audio'],
+                                         'best_cap_model.params.npz'))
+    enc = [k for k in prop_params if k.startswith('encoder/')]
+    check(enc and all(np.array_equal(prop_params[k], cap_params[k])
+                      for k in enc),
+          'the audio proposal encoder is not the captioner\'s, frozen')
+    report['train_prop_audio'].update(f1=f1, loss=loss, parameters=n,
+                                      **epoch_numbers(
+                                          report['train_prop_audio'][
+                                              'stages']))
+    print(f'      train loss {loss}, F1 {f1}; {steps} steps; the encoder '
+          f'bit for bit the captioner\'s; both checkpoints load back ({n} '
+          f'parameters)')
+    torch.cuda.empty_cache()
+
+    props = os.path.join(uni_prop, 'submissions',
+                         'prop_results_val_1_e0_maxprop100.json')
+    ev_argv = ['--procedure', 'evaluate', *common, '--prop_pred_path', props]
+    print(f'    [20a] evaluate the audio captioner on those proposals (bf16, '
+          f'the kernel) at 4 tIoUs ({smi}):')
+    metrics = procedure('evaluate_audio', ev_argv + [
+        '--pretrained_cap_model_path', uni['audio']])
+    avg = metrics['Average across tIoUs']
+    check(all(np.isfinite(v) for v in avg.values()), f'scores {avg}')
+    report['evaluate_audio']['scores'] = {
+        k: avg[k] for k in ('METEOR', 'Bleu_4', 'Bleu_3', 'Precision',
+                            'Recall')}
+    print('      scores (average over tIoUs): ' + ', '.join(
+        f'{k} {v:.6f}' for k, v in report['evaluate_audio']['scores']
+        .items()))
+    unimodal = {k: sum(c[k] for c in runs.values())
+                for k in (KERNEL, KERNEL_DQ, KERNEL_DKV)}
+    check(all(unimodal.values()), f'a kernel never launched in 20a: '
+          f'{unimodal}')
+    torch.cuda.empty_cache()
+
+    b, sv, sa = OPTION_ROWS
+    print(f'    [20b] fp32: cached against uncached greedy decode of each '
+          f'modality (B={b}, {STEPS} steps, plain attention), then the '
+          f'audio evaluation through pallas and xla:')
+    for modality in ('video', 'audio'):
+        _, dims, model, _ = load_cap_checkpoint(uni[modality], device=dev)
+        x = features(torch.Generator(device=dev).manual_seed(20), b, sv, sa,
+                     dims, dev)
+        x['rgb'][1, sv // 2:] = PAD
+        x['flow'][1, sv // 2:] = 0.0
+        x['audio'][1, sa // 3:] = PAD
+        x = {k: v for k, v in x.items()
+             if (k == 'audio') == (modality == 'audio')}
+        equal, gap = cached_vs_uncached(model, x)
+        print(f'      {modality}: cached == uncached in {equal} of {b} rows; '
+              f'largest top-2 gap where they part: {gap}')
+        check(gap is None or gap <= TOP2_GAP_TOL,
+              f'{modality}: cached and uncached decodes part at a gap of '
+              f'{gap}')
+        report[f'fp32_cached_{modality}'] = {'equal_rows': [equal, b],
+                                             'gap': gap}
+        del model
+        torch.cuda.empty_cache()
+    subs, ckpt = {}, None
+    for flag in ('pallas', 'xla'):
+        ckpt = fp32_copy(uni['audio'], os.path.join(tmp, f'uni_fp32_{flag}'),
+                         flag)
+        _, _, counts, _ = run_procedure(
+            ev_argv + ['--pretrained_cap_model_path', ckpt], dev, shapes)
+        check((counts[KERNEL] > 0) == (flag == 'pallas'),
+              f'the fp32 {flag} audio evaluation launched {counts}')
+        epoch = read_checkpoint_meta(ckpt, 'best_cap_model')['epoch']
+        subs[flag] = read_json(os.path.join(
+            ckpt, f'captioning_results_learned_props_e{epoch}.json'))
+    segs, differ, gap = compare_captions(subs, ckpt, tree, dev)
+    print(f'      fp32 audio captions, kernel vs plain: {segs - differ} of '
+          f'{segs} segments equal')
+    report['fp32_captions_audio'] = {'segments': segs, 'differ': differ,
+                                     'top2_gap': gap}
+    torch.cuda.empty_cache()
+
+    print(f'    [20c] the kernels against their plain versions at every '
+          f'shape 20a-20b launched them ({len(shapes)} launch shapes):')
+    d32 = {s[0] for s in shapes if s[5] == 32}
+    check(d32 == {KERNEL, KERNEL_DQ, KERNEL_DKV},
+          f'the kernels launched at d = 32: {sorted(d32)}')
+    err, worst, checks = check_path_shapes(shapes, dev)
+    print(f'      checks by dtype {checks} all within TOL, LSE_TOL and '
+          f'BWD_TOL; max_abs_err by kernel ' + ', '.join(
+              f'{n} {err[n]:.3e} ({worst[n]})' for n in err))
+    report['path_shapes'] = {
+        'launch_shapes': len(shapes),
+        'd32_shapes': len({tuple(s[1:7]) for s in shapes if s[5] == 32}),
+        'checks': checks, 'max_abs_err': err, 'at': worst}
+    torch.cuda.empty_cache()
+
+    print('    [20d] kernel times at the uni-modal shapes:')
+    report['kernel_times'] = unimodal_kernel_times(shapes, seen17, smi, dev)
+
+    print(f'    [20e] python -m bmt_tpu_torch.scripts.acceptance on phase '
+          f'17\'s bi-modal checkpoints ({smi}):')
+    acc, secs, acc_launches = run_acceptance(tmp, tree, cap_dir, prop_dir,
+                                             dev)
+    stages = acc['stages']
+    want = {'md5': 'SKIP', 'import': 'PASS', 'gt_val': 'PASS',
+            'learned_props': 'PASS', 'sample': 'PASS'}
+    got = {k: v['status'] for k, v in stages.items()}
+    check(got == want and acc['overall'] == 'PASS',
+          f'acceptance stages {got}, overall {acc["overall"]}')
+    check(acc_launches[KERNEL] > 0, f'acceptance launched {acc_launches}')
+    print(f'      -> {secs:.2f} s end to end; launches {acc_launches}')
+    report['acceptance'] = {
+        's': secs, 'launches': acc_launches, 'stages': got,
+        'gt_val_meteor': [stages['gt_val']['measured_avg_meteor'],
+                          stages['gt_val']['embedded_avg_meteor']],
+        'learned_props_meteor': stages['learned_props'][
+            'learned_props_meteor'],
+        'sample_segments': len(stages['sample']['predicted'])}
+    return {'unimodal': unimodal, 'acceptance': acc_launches}, report
 
 
 
@@ -3129,7 +3433,7 @@ def main():
               f'bmt_tpu_torch: train_cap -> train_prop -> evaluate; '
               f'build_parser widths, bf16, --attention_impl pallas) from '
               f'.npy files:')
-        proc_launches, procedures, cap_dir, prop_dir, tree = \
+        proc_launches, procedures, cap_dir, prop_dir, tree, seen17 = \
             phase_main_procedures(dev, smi, tmp)
         torch.cuda.empty_cache()
         started[18] = round(time.perf_counter() - t_main, 1)
@@ -3146,6 +3450,15 @@ def main():
               f'checkpoints:')
         option_launches, options = phase_main_py_options(
             dev, smi, tmp, tree, cap_dir, prop_dir, procedures)
+        torch.cuda.empty_cache()
+        started[20] = round(time.perf_counter() - t_main, 1)
+        print(f'[20] the uni-modal models and the acceptance chain through '
+              f'the port (python -m bmt_tpu_torch --modality audio|video, '
+              f'python -m bmt_tpu_torch.scripts.acceptance; build_parser '
+              f'widths, bf16, --attention_impl pallas) on phase 17\'s tree '
+              f'and checkpoints:')
+        unimodal_launches, unimodal = phase_unimodal(
+            dev, smi, tmp, tree, cap_dir, prop_dir, seen17)
 
     # times at the train cell's encoder 256x256 call (forward with lse), and
     # at the proposal cell's 800x800 call; launches of each main path's run
@@ -3156,9 +3469,11 @@ def main():
              'video_pipeline': pipeline_launches,
              'train_epoch_prop': prop_launches,
              'single_video_app': app_launches, **proc_launches,
-             'serve': serve_launches, **option_launches}
+             'serve': serve_launches, **option_launches,
+             **unimodal_launches}
     path_err = {k: max(procedures['path_shapes']['max_abs_err'][k],
-                       options['path_shapes']['max_abs_err'][k])
+                       options['path_shapes']['max_abs_err'][k],
+                       unimodal['path_shapes']['max_abs_err'][k])
                 for k in (KERNEL, KERNEL_DQ, KERNEL_DKV)}
     report = [
         (KERNEL, max(max_err, train_err[KERNEL], prop_err[KERNEL],
@@ -3193,7 +3508,8 @@ def main():
         for kname, err, t in report],
         'fp32_train_step_ms': train_ms32,
         'main_py_procedures': procedures, 'serving': serving,
-        'main_py_options': options, 'phase_started_s': started,
+        'main_py_options': options, 'unimodal': unimodal,
+        'phase_started_s': started,
         'script_s': round(time.perf_counter() - t_main, 1)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -251,8 +251,8 @@ def test_temperature_must_be_positive(setup, temperature):
 
 
 def test_bound_decoders_match_the_functions(setup):
-    '''make_bimodal_{greedy,beam}_fn bind the functions' arguments; a
-    uni-modal dims raises, naming the ROADMAP item.'''
+    '''make_bimodal_{greedy,beam,sample}_fn bind the functions' arguments;
+    a uni-modal dims dispatches to the uni-modal decoders.'''
     jdims, _, model, src = setup
     x = to_torch(src)
     greedy = make_bimodal_greedy_fn(jdims, MAX_LEN, START, END, PAD,
@@ -266,8 +266,21 @@ def test_bound_decoders_match_the_functions(setup):
         beam_search_bimodal(model, x, MAX_LEN, START, END, PAD, 2,
                             0.6)[0].numpy())
     import dataclasses
-    audio = dataclasses.replace(jdims, modality='audio')
-    for make in (make_bimodal_greedy_fn, make_bimodal_beam_fn,
-                 make_bimodal_sample_fn):
-        with pytest.raises(NotImplementedError, match='item 10'):
-            make(audio, MAX_LEN, START, END, PAD)
+    from bmt_tpu_torch.decode import (beam_search_unimodal,
+                                      greedy_decode_unimodal)
+    from bmt_tpu_torch.models import UniModalTransformer
+    audio = dataclasses.replace(model.dims, modality='audio')
+    uni = UniModalTransformer(
+        audio, device='cpu',
+        generator=torch.Generator().manual_seed(0)).eval()
+    ax = {'audio': x['audio']}
+    want = greedy_decode_unimodal(uni, ax, MAX_LEN, START, END, PAD)
+    for fn in (make_bimodal_greedy_fn(audio, MAX_LEN, START, END, PAD),
+               make_bimodal_sample_fn(audio, MAX_LEN, START, END, PAD,
+                                      top_k=1)):
+        np.testing.assert_array_equal(fn(uni, ax).numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        make_bimodal_beam_fn(audio, MAX_LEN, START, END, PAD, 2)(
+            uni, ax).numpy(),
+        beam_search_unimodal(uni, ax, MAX_LEN, START, END, PAD, 2)[0]
+        .numpy())

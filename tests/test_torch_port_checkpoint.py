@@ -635,21 +635,32 @@ def test_lora_trees_and_configs_raise(tmp_path, vocab_csv):
 
 
 def test_unimodal_checkpoints_raise(tmp_path, vocab_csv):
-    with pytest.raises(NotImplementedError, match='item 10'):
-        tckpt.import_unimodal_cap_model({'model_state_dict': {}})
-    with pytest.raises(NotImplementedError, match='item 10'):
-        tckpt.import_unimodal_prop_model({'model_state_dict': {}}, 'audio')
-    pt = str(tmp_path / 'uni.pt')
-    torch.save({'model_state_dict': {'module.trg_emb.embedder.weight':
-                                     torch.zeros(3, 2)}}, pt)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        tckpt.load_cap_checkpoint(pt, vocab_csv[0], device='cpu')
-    cfg, _, model = port_captioner(len(vocab_csv[1]))
-    tckpt.save_checkpoint(str(tmp_path / 'a'), model, {
-        'config': dict(cfg.to_dict(), modality='audio'),
-        'vocab_itos': vocab_csv[1].itos})
-    with pytest.raises(NotImplementedError, match='item 10'):
-        tckpt.load_cap_checkpoint(str(tmp_path / 'a'), device='cpu')
+    '''The uni-modal checkpoints load: a native directory of either
+    modality builds the uni-modal model of its config (the reference .pt
+    import is held to JAX's in tests/test_torch_port_unimodal.py). What no
+    model is built for still raises: an unknown modality, and the .pt
+    export of a uni-modal captioner (bi-modal only, as in JAX).'''
+    from bmt_tpu_torch.models import UniModalTransformer
+    cfg, _, _ = port_captioner(len(vocab_csv[1]))
+    for modality in ('audio', 'video'):
+        d = dict(cfg.to_dict(), modality=modality)
+        dims = CapModelDims.from_config(
+            port_config.Config.from_dict(d), len(vocab_csv[1]))
+        uni = UniModalTransformer(dims, device='cpu',
+                                  generator=torch.Generator().manual_seed(1))
+        tckpt.save_checkpoint(str(tmp_path / modality), uni, {
+            'config': d, 'vocab_itos': vocab_csv[1].itos})
+        _, got_dims, got, _ = tckpt.load_cap_checkpoint(
+            str(tmp_path / modality), device='cpu')
+        assert isinstance(got, UniModalTransformer)
+        assert got_dims == dims
+        jax.tree.map(np.testing.assert_array_equal, to_jax_tree(got),
+                     to_jax_tree(uni))
+        with pytest.raises(ValueError, match='bi-modal'):
+            tckpt.save_torch_checkpoint(str(tmp_path / 'uni.pt'), got, {})
+    with pytest.raises(ValueError, match='modality'):
+        check_model_ported(port_config.Config.from_dict(
+            dict(cfg.to_dict(), modality='subs_audio_video')))
 
 
 def test_loaders_build_on_the_card_unless_asked(tmp_path, vocab_csv,

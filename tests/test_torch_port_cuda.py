@@ -188,6 +188,26 @@ def _app_key_mask(cuda, B, Sk, seed):
             < lengths[:, None]).int()
 
 
+# the uni-modal audio models' calls (d_model_audio 128, H=4: d = 32,
+# zero-padded to the 64-column tile): the encoder's self-attention over up to
+# 800 audio rows, the decoder's causal self-attention over the caption and
+# its cross-attention to the memory
+D32_CASES = [((4, 4, 300, 300, 32), 'padding'),
+             ((4, 4, 23, 23, 32), 'causal'),
+             ((4, 4, 23, 800, 32), 'padding'),
+             ((2, 4, 800, 800, 32), 'padding')]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,kind', D32_CASES)
+def test_kernels_at_head_dim_32_match_plain_on_card(cuda, dtype, shape, kind):
+    '''The lse forward, dQ and dK/dV at d = 32, where the columns 32-63 of
+    the padded tiles must load as zero and never be stored: ragged padded
+    key masks, causal, and a batch row with every key masked (lse -inf,
+    gradients exactly 0).'''
+    _check_training_kernels(*_inputs(cuda, dtype, shape, kind), dtype)
+
+
 @pytest.mark.parametrize('B,Sq,Sk', [
     (1, 800, 800), (1, 300, 300), (1, 800, 300), (1, 300, 800),
     (100, 512, 512), (100, 192, 192), (100, 512, 192), (100, 192, 512)])
@@ -258,7 +278,8 @@ def test_fp32_key_split_is_deterministic_on_card(cuda, monkeypatch, shape,
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape,kind', [
     ((2, 4, 256, 256, 256), 'padding'), ((2, 2, 129, 129, 64), 'causal'),
-    ((2, 4, 256, 256, 256), 'causal')])
+    ((2, 4, 256, 256, 256), 'causal'), ((4, 4, 300, 300, 32), 'padding'),
+    ((4, 4, 23, 23, 32), 'causal')])
 def test_backward_kernels_are_deterministic_on_card(cuda, dtype, shape,
                                                     kind):
     '''No atomics: one block owns a query tile (dQ) or a key tile (dK/dV)

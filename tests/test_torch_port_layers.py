@@ -176,8 +176,15 @@ def test_masks_match_jax_including_channel0_quirk():
         np.testing.assert_array_equal(ours[key].numpy(), np.asarray(ref[key]))
     np.testing.assert_array_equal(tm.subsequent_mask(5).numpy(),
                                   np.asarray(jm.subsequent_mask(5)))
+    for modality in ('video', 'audio'):
+        ref = jm.make_masks(to_jax(src), None, modality, PAD)
+        ours = tm.make_masks(to_torch(src), None, modality, PAD)
+        assert set(ours) == set(ref)
+        for key in ref:
+            np.testing.assert_array_equal(ours[key].numpy(),
+                                          np.asarray(ref[key]))
     with pytest.raises(ValueError):
-        tm.make_masks(to_torch(src), None, 'video', PAD)
+        tm.make_masks(to_torch(src), None, 'subs', PAD)
 
 
 def test_model_tree_matches_jax_tree_and_round_trips():

@@ -142,16 +142,17 @@ def test_lora_optimizer_keeps_state_for_the_adapters_only():
 
 
 @pytest.mark.parametrize('flags,what', [
-    ({'modality': 'audio'}, 'item 10'), ({'dp_devices': 2}, 'item 11'),
-    ({'fsdp': None}, 'item 11'), ({'ckpt_format': 'orbax'}, 'item 12')])
+    ({'dp_devices': 2}, 'item 11'), ({'fsdp': None}, 'item 11'),
+    ({'ckpt_format': 'orbax'}, 'item 12')])
 def test_only_unimodal_parallelism_and_orbax_still_raise(tree, tmp_path,
                                                          flags, what):
-    '''The options this port runs pass ``check_ported``; the uni-modal
-    models, parallelism and orbax raise, naming their ROADMAP item.'''
+    '''The options this port runs pass ``check_ported``, the uni-modal
+    models among them; parallelism and orbax raise, naming their ROADMAP
+    item.'''
     from bmt_tpu_torch.train.options import check_ported
     ported = dict(lora_rank=2, moe_experts=4, kv_cache_int8=None,
                   weights_int8=None, decode_strategy='beam',
-                  optim_mu_dtype='bfloat16')
+                  optim_mu_dtype='bfloat16', modality='audio')
     check_ported(Config(build_parser().parse_args(
         mini_argv(tree, tmp_path, 'train_cap', **ported))))
     with pytest.raises(NotImplementedError, match=what):
