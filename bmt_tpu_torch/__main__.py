@@ -16,7 +16,10 @@ Data parallelism, as main.py's ``--dp_devices N`` (``Config.train_batch_size
 process joins the group, which must have N ranks; with no group around it
 the command spawns N workers, one a card (``parallel.launch.spawn``), and
 returns rank 0's result. The group runs on NCCL on the card and on gloo on
-the CPU.
+the CPU. ``--sp_devices M`` (train_prop) and ``--ep_devices M`` (train_cap)
+multiply the ranks: N x M processes, the ranks of one sp or ep group
+sharing a row block (``parallel.mesh.axes``); ``--fsdp`` shards the large
+parameters over the N dp ranks.
 '''
 from __future__ import annotations
 
@@ -62,19 +65,22 @@ def main(argv=None):
         print('--debug: config built, no procedure run '
               '(reference main.py:178-182 semantics)')
         return None
+    import numpy as np
     import torch
     import torch.distributed as dist
 
     from bmt_tpu_torch.parallel import maybe_init_distributed, rank_device
+    from bmt_tpu_torch.parallel.mesh import axes
     device_type = torch.device(device).type
     if maybe_init_distributed(device_type):
         device = rank_device(device, dist.get_backend())
         if device.type == 'cuda':
             torch.cuda.set_device(device)
         return run(cfg, device)
-    if (cfg.dp_devices or 1) > 1:
+    ranks = int(np.prod(axes(cfg)))
+    if ranks > 1:
         from bmt_tpu_torch.parallel.launch import spawn
-        return spawn(run, (cfg,), cfg.dp_devices, device)[0]
+        return spawn(run, (cfg,), ranks, device)[0]
     return run(cfg, device)
 
 

@@ -21,6 +21,12 @@ The feed-forwards are dense, or Switch MoE with ``moe_experts`` > 1
 (``ops.moe``). Given an ``aux_out`` list, each layer appends the sum of its
 two MoE load-balance losses, returned out of the (possibly recomputed)
 layer rather than appended inside it, as the JAX encoder does.
+
+Under sequence parallelism (``parallel.seq``, the JAX package's
+``shard_seq`` sites ``encoders.py:80, 198``) a modality may arrive as this
+rank's block of its sequence, shorter than its mask: its queries stay the
+block, and its keys and values are the whole sequence, gathered where an
+attention reads them (``seq.keys``).
 '''
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from bmt_tpu_torch.ops.attention import MultiheadAttention
 from bmt_tpu_torch.ops.layers import (Dropout, LayerNorm, checkpoint,
                                       residual)
 from bmt_tpu_torch.ops.moe import ffn_apply, ffn_or_moe
+from bmt_tpu_torch.parallel import seq
 
 
 class EncoderLayer(nn.Module):
@@ -45,8 +52,10 @@ class EncoderLayer(nn.Module):
         self.dropout = Dropout(dout_p)
 
     def forward(self, x, src_mask, attention_impl='torch', aux_out=None):
-        x = residual(self.res[0], x, lambda y: self.self_att(
-            y, y, y, src_mask, attention_impl), self.dropout)
+        def self_att(y):
+            kv = seq.keys(y, src_mask)
+            return self.self_att(y, kv, kv, src_mask, attention_impl)
+        x = residual(self.res[0], x, self_att, self.dropout)
         return residual(self.res[1], x,
                         lambda y: ffn_apply(self.ff, y, aux_out, True),
                         self.dropout)
@@ -107,16 +116,21 @@ class BiModalEncoderLayer(nn.Module):
         load-balance losses third (0 for dense FFNs).'''
         drop = self.dropout
         aux = [] if with_aux else None
+        def att(mha, mask, kv=None):
+            def run(y):
+                k = seq.keys(y if kv is None else kv, mask)
+                return mha(y, k, k, mask, attention_impl)
+            return run
         # 1. self-attention
-        M1 = residual(self.res_M1[0], M1, lambda y: self.self_att_M1(
-            y, y, y, M1_mask, attention_impl), drop)
-        M2 = residual(self.res_M2[0], M2, lambda y: self.self_att_M2(
-            y, y, y, M2_mask, attention_impl), drop)
+        M1 = residual(self.res_M1[0], M1, att(self.self_att_M1, M1_mask),
+                      drop)
+        M2 = residual(self.res_M2[0], M2, att(self.self_att_M2, M2_mask),
+                      drop)
         # 2. cross-attention: each modality queries the other
-        M1m2 = residual(self.res_M1[1], M1, lambda y: self.cross_att_M1(
-            y, M2, M2, M2_mask, attention_impl), drop)
-        M2m1 = residual(self.res_M2[1], M2, lambda y: self.cross_att_M2(
-            y, M1, M1, M1_mask, attention_impl), drop)
+        M1m2 = residual(self.res_M1[1], M1,
+                        att(self.cross_att_M1, M2_mask, M2), drop)
+        M2m1 = residual(self.res_M2[1], M2,
+                        att(self.cross_att_M2, M1_mask, M1), drop)
         # 3. feed-forward
         M1m2 = residual(self.res_M1[2], M1m2,
                         lambda y: ffn_apply(self.ff_M1, y, aux), drop)

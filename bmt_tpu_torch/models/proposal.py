@@ -21,6 +21,15 @@ names them for the optimizer as ``prop_trainer`` does.
 uni-modal encoder and one set of heads with the modality's stride, conv
 layers and kernel sizes; its keys are ``encoder``, ``heads``, optionally
 ``emb``, and one ``anchors``.
+
+Sequence parallelism (``parallel.seq``; the JAX package's ``shard_seq``
+sites ``proposal.py:357, 396, 473``): a modality's features may be this
+rank's block of its sequence, shorter than its mask. The positional
+encoding, the YOLO grid and the dense targets then start at the block's
+first row, each head's first conv reads a halo of its neighbours' rows,
+the losses sum over the block's cells (the caller divides by the whole
+batch's cell counts), and predictions without targets are gathered in
+sequence order.
 '''
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from bmt_tpu_torch.models.encoders import BiModalEncoder, Encoder
 from bmt_tpu_torch.ops.layers import (Dropout, FeatureEmbedder, LayerNorm,
                                       positional_encode,
                                       positional_encoding_table)
+from bmt_tpu_torch.parallel import seq
 from bmt_tpu_torch.params import init_params
 
 POS_ENC_LEN = 3660  # rows of the positional table, as in the reference
@@ -127,31 +137,41 @@ class ProposalHead(nn.Module):
                     if with_layer_norm else None)
         self.dropout = Dropout(dout_p)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, whole: int | None = None
+                ) -> torch.Tensor:
+        '''``whole``: the sequence's length when ``x`` is a block of it
+        (sequence parallelism); the first conv then reads a halo of the
+        neighbouring blocks instead of zero padding.'''
         x = x.transpose(1, 2)                       # (B, D, S) for Conv1d
         last = len(self.convs) - 1
         for n, conv in enumerate(self.convs):
             if self.lns is not None:
                 x = self.lns[n](x.transpose(1, 2)).transpose(1, 2)
-            x = conv(x)
+            k = conv.kernel_size[0]
+            haloed = (seq.halo(x, k // 2, whole) if n == 0 and whole
+                      else None)
+            x = (conv(x) if haloed is None
+                 else F.conv1d(haloed, conv.weight, conv.bias))
             if n < last:
                 x = F.relu(self.dropout(x))
         return x.transpose(1, 2)
 
 
 def yolo_decode(raw: torch.Tensor, anchors: torch.Tensor,
-                stride: float) -> dict:
+                stride: float, first: int = 0) -> dict:
     '''raw (B, S, 3 A) head output -> {'sigma_c', 'l', 'sigma_o': (B, A, S)
     in raw's dtype, 'predictions': (B, A S, 3) fp32 [center, length, conf]
     in seconds}, anchor-major. The world coordinates are fp32 whatever the
-    compute dtype: a bf16 grid rounds cells past 256 (799 -> 800).'''
+    compute dtype: a bf16 grid rounds cells past 256 (799 -> 800).
+    ``first``: the grid cell of raw's first row (a sequence block).'''
     B, S, _ = raw.shape
     A = anchors.shape[0]
     x = raw.reshape(B, S, A, 3).permute(0, 2, 1, 3)      # (B, A, S, 3)
     sigma_c = torch.sigmoid(x[..., 0])
     l = x[..., 1]
     sigma_o = torch.sigmoid(x[..., 2])
-    grid = torch.arange(S, dtype=torch.float32, device=raw.device)
+    grid = torch.arange(first, first + S, dtype=torch.float32,
+                        device=raw.device)
     prior = (anchors / stride).float()[None, :, None]
     center = (sigma_c.float() + grid) * stride
     length = prior * torch.exp(l.float()) * stride
@@ -281,17 +301,29 @@ def _heads(dims, d_in, conv_layers, anchors_num, kernel_sizes, device):
         for k in kernel_sizes)
 
 
-def _modality_heads(dims, heads, x, anchors, stride, dense_targets, denoms):
+def _modality_heads(dims, heads, x, anchors, stride, dense_targets, denoms,
+                    whole: int | None = None):
     '''Every head of one modality; the targets are made once, since they
-    depend only on (grid size, stride, anchors).'''
+    depend only on (grid size, stride, anchors). ``whole``: the sequence's
+    length when ``x`` is a block of it (sequence parallelism): the targets
+    are the block's cells of the whole grid's, and predictions without
+    targets are gathered whole.'''
+    S = x.shape[1]
+    whole = whole or S
+    first = seq.offset(S, whole)
     targets = None
     if dense_targets is not None:
-        targets = make_targets_dense(*dense_targets, anchors, stride,
-                                     x.shape[1])
+        targets = make_targets_dense(*dense_targets, anchors, stride, whole)
+        if S != whole:
+            targets = tuple(t[..., first:first + S] for t in targets)
     preds, total, terms = [], 0.0, {}
     for head in heads:
-        decoded = yolo_decode(head(x), anchors, stride)
-        preds.append(decoded['predictions'])
+        decoded = yolo_decode(head(x, whole), anchors, stride, first)
+        p = decoded['predictions']
+        if targets is None and S != whole:
+            p = seq.gather(p.view(p.shape[0], -1, S, 3), whole, 2)
+            p = p.reshape(p.shape[0], -1, 3)
+        preds.append(p)
         if targets is not None:
             loss, ldict = yolo_losses(decoded, targets, dims.obj_coeff,
                                       dims.noobj_coeff, denoms)
@@ -367,20 +399,23 @@ class MultimodalProposalGenerator(nn.Module):
         targets the loss is 0.0 and the loss dicts are empty.'''
         dims = self.dims
         A, V = src['audio'], src['rgb'] + src['flow']
+        Sa, Sv = masks['A_mask'].shape[-1], masks['V_mask'].shape[-1]
         if dims.use_linear_embedder:
             A, V = self.emb_A(A), self.emb_V(V)
-        A = self.dropout(positional_encode(self.pe_A, A))
-        V = self.dropout(positional_encode(self.pe_V, V))
+        A = self.dropout(positional_encode(self.pe_A, A,
+                                           seq.offset(A.shape[1], Sa)))
+        V = self.dropout(positional_encode(self.pe_V, V,
+                                           seq.offset(V.shape[1], Sv)))
         Av, Va = self.encoder(A, V, masks['A_mask'], masks['V_mask'],
                               attention_impl)
         denoms_A, denoms_V = (loss_denoms if loss_denoms is not None
                               else (None, None))
         preds_A, loss_A, losses_A = _modality_heads(
             dims, self.heads_A, Av, self.anchors_A, dims.stride_A,
-            dense_targets, denoms_A)
+            dense_targets, denoms_A, Sa)
         preds_V, loss_V, losses_V = _modality_heads(
             dims, self.heads_V, Va, self.anchors_V, dims.stride_V,
-            dense_targets, denoms_V)
+            dense_targets, denoms_V, Sv)
         return (torch.cat([preds_A, preds_V], dim=1), loss_A + loss_V,
                 losses_A, losses_V)
 
@@ -439,12 +474,14 @@ class UnimodalProposalGenerator(nn.Module):
             x, src_mask = src['rgb'] + src['flow'], masks['V_mask']
         else:
             x, src_mask = src['audio'], masks['A_mask']
+        S = src_mask.shape[-1]
         if dims.use_linear_embedder:
             x = self.emb(x)
-        x = self.dropout(positional_encode(self.pe, x))
+        x = self.dropout(positional_encode(self.pe, x,
+                                           seq.offset(x.shape[1], S)))
         x = self.encoder(x, src_mask, attention_impl)
         return _modality_heads(dims, self.heads, x, self.anchors, self.stride,
-                               dense_targets, loss_denoms)
+                               dense_targets, loss_denoms, S)
 
 
 def proposal_class(dims: PropModelDims):

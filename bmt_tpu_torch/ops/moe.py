@@ -23,6 +23,18 @@ The Switch load-balance loss E mean_b sum_e f_be P_be (f the share of a
 row's tokens routed to e, P the mean router probability) is appended to an
 explicit ``aux_out`` list when one is given. The einsums stay torch's: the
 JAX package leaves them to XLA, outside any Pallas kernel.
+
+Expert parallelism (``--ep_devices``; ``parallel.sharding_rules`` sets
+``ep``, the group of ep ranks, and cuts the experts): a rank holds a
+contiguous block of E/ep experts, the router stays whole, and every ep rank
+routes the same tokens the same way (they hold the same rows). Each rank
+runs its experts on the tokens routed to them, in both forwards, and the
+combine is summed over the group (``ReduceFromGroup``, whose backward
+passes dL/dy through, since dL/dy is the same on every rank). The input and
+the gates enter the experts through ``CopyToGroup``, whose backward sums
+the ranks' partial gradients, so every rank holds the whole dL/dx and the
+router's whole gradient; the load-balance loss comes from the whole router
+outside that sum, once.
 '''
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bmt_tpu_torch.ops.layers import Dropout, FeedForward
+from bmt_tpu_torch.parallel.mesh import CopyToGroup, ReduceFromGroup
 
 
 class _Leaves(nn.Module):
@@ -59,6 +72,7 @@ class MoEFeedForward(nn.Module):
                                w2=((E, Fd, D), device), b2=((E, D), device))
         self.dropout = Dropout(dout_p)
         self.capacity_factor = capacity_factor
+        self.ep = None          # the ep ranks' group when experts are cut
 
     @torch.no_grad()
     def init_from(self, generator: torch.Generator) -> None:
@@ -83,7 +97,8 @@ class MoEFeedForward(nn.Module):
         if deterministic is None:
             deterministic = not self.training
         ex = self.experts
-        E = ex.w1.shape[0]
+        E = self.router.w.shape[1]
+        n_local = ex.w1.shape[0]
         squeeze = x.dim() == 2
         if squeeze:
             x = x[None]
@@ -98,34 +113,45 @@ class MoEFeedForward(nn.Module):
             f, P = onehot.mean(dim=1), probs.mean(dim=1)          # (B, E)
             aux_out.append((f * P).sum(dim=-1).mean() * E)
 
+        first = 0
+        if n_local < E:          # this rank's block of experts (ep ranks)
+            if self.ep is None or n_local * self.ep.size != E:
+                raise ValueError(f'{n_local} of {E} experts here, but no ep '
+                                 f'group of {E // max(n_local, 1)} ranks')
+            first = self.ep.rank * n_local
+            x = CopyToGroup.apply(x, self.ep)
+            gate = CopyToGroup.apply(gate, self.ep)
+        mine = slice(first, first + n_local)
         w1, b1, w2, b2 = (t.to(dt) for t in (ex.w1, ex.b1, ex.w2, ex.b2))
         if deterministic:
             y = torch.zeros_like(x)
-            for e in range(E):
-                h = F.relu(x @ w1[e] + b1[e])
-                sel = (onehot[..., e] * gate).to(dt)[..., None]
-                y = y + sel * (h @ w2[e] + b2[e])
-            return y[0] if squeeze else y
-
-        C = max(1, min(S, math.ceil(S / E * self.capacity_factor)))
-        # a token's slot in its expert's queue; a slot of -1 (not routed
-        # there) or past C (over capacity) matches no column: all zeros
-        pos = torch.cumsum(onehot, dim=1) * onehot - 1.0          # (B, S, E)
-        slots = (pos[..., None] == torch.arange(
-            C, device=x.device, dtype=pos.dtype)).float()         # (B,S,E,C)
-        dispatch = onehot[..., None] * slots
-        xin = torch.einsum('bsec,bsd->ebcd', dispatch.to(dt), x)
-        h = F.relu(torch.einsum('ebcd,edf->ebcf', xin, w1)
-                   + b1[:, None, None, :])
-        h = self.dropout(h)
-        out = (torch.einsum('ebcf,efd->ebcd', h, w2)
-               + b2[:, None, None, :])
-        combine = (dispatch * gate[..., None, None]).to(dt)
-        y = torch.einsum('bsec,ebcd->bsd', combine, out)
+            for i in range(n_local):
+                h = F.relu(x @ w1[i] + b1[i])
+                sel = (onehot[..., first + i] * gate).to(dt)[..., None]
+                y = y + sel * (h @ w2[i] + b2[i])
+        else:
+            C = max(1, min(S, math.ceil(S / E * self.capacity_factor)))
+            # a token's slot in its expert's queue; a slot of -1 (not
+            # routed there) or past C (over capacity) matches no column
+            pos = torch.cumsum(onehot, dim=1) * onehot - 1.0      # (B, S, E)
+            slots = (pos[..., None] == torch.arange(
+                C, device=x.device, dtype=pos.dtype)).float()     # (B,S,E,C)
+            dispatch = (onehot[..., None] * slots)[:, :, mine]
+            xin = torch.einsum('bsec,bsd->ebcd', dispatch.to(dt), x)
+            h = F.relu(torch.einsum('ebcd,edf->ebcf', xin, w1)
+                       + b1[:, None, None, :])
+            h = self.dropout(h)
+            out = (torch.einsum('ebcf,efd->ebcd', h, w2)
+                   + b2[:, None, None, :])
+            combine = (dispatch * gate[..., None, None]).to(dt)
+            y = torch.einsum('bsec,ebcd->bsd', combine, out)
+        if n_local < E:
+            y = ReduceFromGroup.apply(y, self.ep)
         return y[0] if squeeze else y
 
     def extra_repr(self) -> str:
-        E, D, Fd = self.experts.w1.shape
+        _, D, Fd = self.experts.w1.shape
+        E = self.router.w.shape[1]
         return f'experts={E}, d_model={D}, d_ff={Fd}, ' \
                f'capacity_factor={self.capacity_factor}'
 

@@ -1,16 +1,27 @@
-'''Data parallelism (counterpart of ``bmt_tpu.parallel.mesh``; the reference
-wraps its models in ``nn.DataParallel``, scripts/train_captioning_module.py:61).
+'''Data, sequence and expert parallelism, and ZeRO-3 (counterpart of
+``bmt_tpu.parallel.mesh``; the reference wraps its models in
+``nn.DataParallel``, scripts/train_captioning_module.py:61).
 
 Two forms, as the JAX package has one mesh for both:
 
 - ``DataParallel``: one process per card in a ``torch.distributed`` group
   (``maybe_init_distributed``), for the trainers and the evaluation. The
-  global batch (``Config.train_batch_size = B * dp_devices``) is split into
-  contiguous row blocks, one a rank (``local_rows``, the datasets' per-process
-  hook; ``shard``); the train steps sum the ranks' gradients with one
-  all-reduce of a flat buffer a step (summed, not averaged: the losses are
-  already divided by the global token and cell counts, which are all-reduced
-  first), and decode outputs are gathered in row order (``decode``).
+  ranks form a grid of ``dp x sp x ep`` in the JAX mesh's axis order
+  (``dp``, ``sp``, ``ep``; ``mp`` is not ported), rank r at coordinates
+  ``unravel(r, (dp, sp, ep))``. The global batch (``Config.train_batch_size
+  = B * dp_devices``) is split into contiguous row blocks by the **dp**
+  coordinate (``local_rows``, the datasets' per-process hook; ``shard``), so
+  the ranks of one sp or ep group see the same rows, as under JAX's
+  ``P('dp')``. Under sp, ``shard`` also takes the rank's block of each
+  ``(B, S, D)`` feature leaf whose S divides sp (``parallel.seq``). The
+  train steps sum the ranks' gradients over the ranks that share the ep
+  coordinate (``data`` group: dp x sp) with one all-reduce of a flat buffer
+  a step (summed, not averaged: the losses are already divided by the global
+  token and cell counts, which are all-reduced first), and decode outputs
+  are gathered in row order over dp (``decode``). ``--fsdp`` shards the
+  large parameters and their optimizer state over dp
+  (``parallel.sharding_rules.ParamShards``), ``--ep_devices`` the MoE
+  experts over ep (``ops.moe``).
 - ``LocalReplicas``: copies of a model on local devices in one process, for
   serving (``serve.CaptionEngine(dp=)``) and the acceptance chain: a batch's
   row blocks decode in one thread each, on a CUDA stream of their own, so one
@@ -22,10 +33,18 @@ Two forms, as the JAX package has one mesh for both:
 The backend is NCCL when every rank has a card of its own; gloo on the
 CPU, and on the card only when the caller of ``launch.spawn`` names it (two
 ranks sharing one card, where NCCL refuses). Nothing falls back: fewer
-cards than ranks raises, naming both counts. Collectives on CUDA tensors under gloo go through host copies.
+cards than ranks raises, naming both counts. Collectives on CUDA tensors
+under gloo go through host copies (``Group``), one implementation for both
+backends.
 
-Not ported (ROADMAP queue 1 item 11): the ``sp``, ``ep`` and ``mp`` axes and
-``fsdp``; they raise.
+Where each flag acts follows the JAX package (``axes``): ``--sp_devices`` in
+train_prop, ``--ep_devices`` in train_cap, ``--fsdp`` in both; evaluate and
+the acceptance chain are data-parallel only. ``--fsdp`` composes with
+either: the dp shards are replicated over sp (their gradients summed over
+dp x sp), and under ep the experts keep their ep blocks whole over dp
+(the JAX rules split them over dp too; the results do not depend on the
+layout). Not ported (ROADMAP queue 1 item 11): the ``mp`` axis; it
+raises.
 '''
 from __future__ import annotations
 
@@ -86,7 +105,8 @@ def check_cards(n: int, backend: str) -> int:
     count = torch.cuda.device_count()
     if backend == 'nccl' and n > count:
         raise ValueError(
-            f'--dp_devices {n} needs {n} CUDA devices (one a rank under '
+            f'a group of {n} ranks (--dp_devices x --sp_devices x '
+            f'--ep_devices) needs {n} CUDA devices (one a rank under '
             f'NCCL), but {count} are visible')
     if 0 < n < count:
         print(f'NOTE: data parallelism over {n} of {count} visible CUDA '
@@ -113,19 +133,84 @@ def rank_device(device, backend: str) -> torch.device:
     return torch.device('cuda', idx % count)
 
 
-def _refuse_other_axes(sp=1, ep=1, mp=1, fsdp=False) -> None:
-    for flag, n in (('sp_devices', sp), ('ep_devices', ep), ('mp', mp)):
-        if (n or 1) > 1:
-            raise NotImplementedError(f'--{flag} {n} (parallelism) is '
-                                      f'{NOT_PORTED}')
-    if fsdp:
-        raise NotImplementedError(f'--fsdp (parallelism) is {NOT_PORTED}')
+def _refuse_other_axes(mp=1) -> None:
+    if (mp or 1) > 1:
+        raise NotImplementedError(f'--mp {mp} (tensor parallelism) is '
+                                  f'{NOT_PORTED}')
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+PROCEDURE_AXES = {'train_cap': ('ep',), 'train_prop': ('sp',)}
+
+
+def axes(cfg) -> tuple:
+    '''(dp, sp, ep) of the config's procedure, where the JAX package
+    reads each flag: ``--sp_devices`` in train_prop only, ``--ep_devices``
+    in train_cap only; evaluate is data-parallel only. An unset
+    ``--dp_devices`` is 1.'''
+    live = PROCEDURE_AXES.get(getattr(cfg, 'procedure', None), ())
+    return (getattr(cfg, 'dp_devices', 1) or 1,
+            (getattr(cfg, 'sp_devices', 1) or 1) if 'sp' in live else 1,
+            (getattr(cfg, 'ep_devices', 1) or 1) if 'ep' in live else 1)
+
+
+class Group:
+    '''A set of ranks for collectives: ``size``, this rank's index
+    ``rank`` in it, the ``torch.distributed`` handle (None: the default
+    group), and whether CUDA tensors travel through host copies (gloo).
+    A copy of a module keeps the same group (``__deepcopy__``).'''
+
+    def __init__(self, handle=None, size: int = 1, rank: int = 0,
+                 host: bool = False):
+        self.handle, self.size, self.rank, self.host = handle, size, rank, host
+
+    def __deepcopy__(self, memo):
+        return self
+
+    def _buf(self, t: torch.Tensor) -> torch.Tensor:
+        if self.host and t.device.type != 'cpu':
+            return t.detach().cpu()
+        return t.detach().clone().contiguous()
+
+    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        '''The reduction over the group of ``t`` (a new tensor on ``t``'s
+        device).'''
+        if self.size == 1:
+            return t
+        buf = self._buf(t)
+        dist.all_reduce(buf, op=op, group=self.handle)
+        return buf.to(t.device)
+
+    def all_gather(self, t: torch.Tensor) -> list:
+        '''Every rank's equal-shaped ``t``, in group order, on ``t``'s
+        device.'''
+        if self.size == 1:
+            return [t]
+        src = self._buf(t)
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.handle)
+        return [x.to(t.device) for x in parts]
+
+
+def _axis_groups(shape: tuple, rank: int, keep: tuple, host: bool) -> Group:
+    '''The group of the ranks that share this rank's coordinates on the
+    axes not in ``keep`` (indices into ``shape``). Every rank creates every
+    such group, in one order, as ``new_group`` asks.'''
+    world = int(np.prod(shape))
+    size = int(np.prod([shape[i] for i in keep]))
+    if size == 1:
+        return Group()
+    if size == world:
+        return Group(None, size, rank, host)
+    grid = np.arange(world).reshape(shape)
+    moved = np.moveaxis(grid, keep, range(len(shape) - len(keep), len(shape)))
+    mine = None
+    for ranks in moved.reshape(-1, size):
+        handle = dist.new_group([int(r) for r in ranks])
+        if rank in ranks:
+            mine = Group(handle, size, int(np.where(ranks == rank)[0][0]),
+                         host)
+    return mine
 
 
 def _leading(tree) -> Optional[int]:
@@ -143,68 +228,111 @@ def _leading(tree) -> Optional[int]:
 
 
 class DataParallel:
-    '''The data-parallel group of this process: ``n_dp`` ranks (1 outside a
-    group), this one's ``rank`` and ``device``. ``dp``: the configured
-    ``--dp_devices``; above 1 it must equal the group's size (a group joined
-    by ``maybe_init_distributed`` or the spawn in ``__main__``).'''
+    '''This process's place in the ``dp x sp x ep`` grid: ``n_dp``,
+    ``n_sp``, ``n_ep`` ranks a side (1 outside a group), its global
+    ``rank`` and coordinates ``dp_rank``, ``sp_rank``, ``ep_rank``, its
+    ``device``, and the groups of the ranks that differ only in dp
+    (``dp_group``), sp (``sp_group``), ep (``ep_group``), and in dp or sp
+    (``data_group``: the ranks that share the ep coordinate, over which
+    losses, counts and gradients sum). ``dp``, ``sp``, ``ep``: the
+    configured counts (``axes``); their product must equal the group's
+    size (a group joined by ``maybe_init_distributed`` or the spawn in
+    ``__main__``). ``fsdp``: the trainers shard the large parameters over
+    dp (``shard_params``).'''
 
     def __init__(self, dp: Optional[int] = None, device=None, sp: int = 1,
                  ep: int = 1, mp: int = 1, fsdp: bool = False):
-        _refuse_other_axes(sp, ep, mp, fsdp)
-        dp = dp or 1
+        _refuse_other_axes(mp)
+        dp, sp, ep = dp or 1, sp or 1, ep or 1
+        self.fsdp = bool(fsdp)
         self.device = torch.device(device or 'cuda')
+        self.shards = None
+        want = dp * sp * ep
         if dist.is_initialized():
             world = dist.get_world_size()
-            if dp != world:
-                raise ValueError(f'--dp_devices {dp}, but the process group '
-                                 f'has {world} ranks; they must be equal')
-            self.n_dp, self.rank = world, dist.get_rank()
-            self.backend = dist.get_backend()
-        elif dp > 1:
+            if want != world:
+                raise ValueError(
+                    f'--dp_devices {dp} x --sp_devices {sp} x --ep_devices '
+                    f'{ep} = {want} ranks, but the process group has {world} '
+                    f'ranks; they must be equal')
+            self.rank, self.backend = dist.get_rank(), dist.get_backend()
+        elif want > 1:
             raise RuntimeError(
-                f'--dp_devices {dp}: data parallelism runs one process a '
-                f'rank; launch through python -m bmt_tpu_torch (it spawns '
-                f'them) or torchrun')
+                f'--dp_devices {dp} x --sp_devices {sp} x --ep_devices {ep}: '
+                f'parallelism runs one process a rank; launch through '
+                f'python -m bmt_tpu_torch (it spawns them) or torchrun')
         else:
-            self.n_dp, self.rank, self.backend = 1, 0, None
+            self.rank, self.backend = 0, None
+        self.n_dp, self.n_sp, self.n_ep, self.size = dp, sp, ep, want
+        self.dp_rank, self.sp_rank, self.ep_rank = (
+            int(i) for i in np.unravel_index(self.rank, (dp, sp, ep)))
+        host = self.backend == 'gloo' and self.device.type != 'cpu'
+        shape = (dp, sp, ep)
+        self.world = Group(None, want, self.rank, host) if want > 1 \
+            else Group()
+        self.dp_group = _axis_groups(shape, self.rank, (0,), host)
+        self.sp_group = _axis_groups(shape, self.rank, (1,), host)
+        self.ep_group = _axis_groups(shape, self.rank, (2,), host)
+        self.data_group = _axis_groups(shape, self.rank, (0, 1), host)
 
     @property
     def is_main(self) -> bool:
         '''Rank 0: the one that writes checkpoints, logs and scores.'''
         return self.rank == 0
 
+    @property
+    def seed_rank(self) -> int:
+        '''The index of this rank's dropout stream (``steps.step_seed``):
+        its (dp, sp) place, so the ep ranks of one row block draw the same
+        masks and each sp rank draws for its own rows; 0 in one process.'''
+        return self.dp_rank * self.n_sp + self.sp_rank
+
     def local_rows(self, B: int) -> Optional[tuple]:
-        '''This rank's contiguous row block (lo, hi) of a (B, ...) batch; None
-        with one rank (the whole batch is local), as the JAX package's.'''
+        '''This rank's contiguous row block (lo, hi) of a (B, ...) batch by
+        its dp coordinate; None with one dp rank (the whole batch is local),
+        as the JAX package's.'''
         if self.n_dp == 1:
             return None
         if B % self.n_dp:
             raise ValueError(f'batch of {B} rows does not split over '
                              f'{self.n_dp} ranks')
         n = B // self.n_dp
-        return self.rank * n, (self.rank + 1) * n
+        return self.dp_rank * n, (self.dp_rank + 1) * n
 
     def shard(self, batch):
         '''This rank's rows of every array leaf of a batch (a dict tree of
         (B, ...) numpy arrays or tensors), as tensors on its device; other
-        leaves as they are.'''
+        leaves as they are. Under sp, each (B, S, D) leaf whose S divides
+        sp keeps only this rank's sequence block, and the batch gains
+        ``'seq_split'``, the names of those leaves (``parallel.seq``).'''
         B = _leading(batch)
         rows = self.local_rows(B)
-        if rows is None:
+        split = set()
+        if rows is None and self.n_sp == 1:
             return batch
-        lo, hi = rows
+        lo, hi = rows if rows is not None else (0, B)
 
-        def take(x):
-            if isinstance(x, (np.ndarray, torch.Tensor)) and x.ndim:
-                return torch.as_tensor(x[lo:hi]).to(self.device)
-            return x
-        return _tree_map(take, batch)
+        def take(x, key=None):
+            if isinstance(x, dict):
+                return {k: take(v, k) for k, v in x.items()}
+            if not (isinstance(x, (np.ndarray, torch.Tensor)) and x.ndim):
+                return x
+            x = x[lo:hi]
+            if self.n_sp > 1 and x.ndim == 3 and x.shape[1] % self.n_sp == 0:
+                n = x.shape[1] // self.n_sp
+                x = x[:, self.sp_rank * n:(self.sp_rank + 1) * n]
+                split.add(key)
+            return torch.as_tensor(x).to(self.device)
+        out = take(batch)
+        if split:
+            out['seq_split'] = tuple(sorted(split))
+        return out
 
     def maybe_shard(self, batch):
-        '''``shard`` when the batch splits evenly over the ranks, else the
-        batch as it is (every rank then runs all of it).'''
+        '''``shard`` when the batch splits evenly over the dp ranks, else
+        the batch as it is (every rank then runs all of it).'''
         B = _leading(batch)
-        if self.n_dp > 1 and B is not None and B % self.n_dp == 0:
+        if self.size > 1 and B is not None and B % self.n_dp == 0:
             return self.shard(batch)
         return batch
 
@@ -214,43 +342,36 @@ class DataParallel:
         return self.backend == 'gloo' and t.device.type != 'cpu'
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        '''The sum over ranks of ``t`` (a new tensor on ``t``'s device).'''
-        if self.n_dp == 1:
-            return t
-        buf = t.detach().cpu() if self._host(t) else t.detach().clone()
-        dist.all_reduce(buf)
-        return buf.to(t.device)
+        '''The sum of ``t`` over the ranks that share this rank's ep
+        coordinate (the row and sequence blocks of one global batch).'''
+        return self.data_group.all_reduce(t)
+
+    def gather_params(self) -> None:
+        '''Before a train step's forward: the whole parameters of the
+        ``--fsdp`` leaves (``ParamShards.gather``); nothing without.'''
+        if self.shards is not None:
+            self.shards.gather()
 
     def all_reduce_grads(self, params) -> None:
-        '''Sum every parameter's ``.grad`` over the ranks, in place: one
-        all-reduce of a flat buffer per dtype. A parameter without a
-        gradient joins as zeros, as the optimizer reads it.'''
-        if self.n_dp == 1:
-            return
-        by_dtype: dict = {}
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-        for grads in by_dtype.values():
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            flat = self.all_reduce_sum(flat)
-            torch._foreach_copy_(grads, [
-                chunk.view_as(g) for chunk, g in zip(
-                    flat.split([g.numel() for g in grads]), grads)])
+        '''Sum every parameter's ``.grad`` over the data group, in place:
+        one all-reduce of a flat buffer per dtype. A parameter without a
+        gradient joins as zeros, as the optimizer reads it. Under
+        ``--fsdp`` each rank keeps its shard of the large leaves' sums and
+        the parameters go back to their shards
+        (``ParamShards.reduce_grads``).'''
+        if self.shards is not None:
+            params = self.shards.reduce_grads(params)
+        sum_grads(params, self.data_group)
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        '''The ranks' equal-shaped row blocks joined in rank order.'''
+        '''The dp ranks' equal-shaped row blocks joined in rank order.'''
         if self.n_dp == 1:
             return t
-        src = t.detach().cpu() if self._host(t) else t.detach().contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.n_dp)]
-        dist.all_gather(parts, src)
-        return torch.cat(parts).to(t.device)
+        return torch.cat(self.dp_group.all_gather(t))
 
     def broadcast_object(self, obj, src: int = 0):
         '''Rank ``src``'s ``obj`` on every rank (a picklable value).'''
-        if self.n_dp == 1:
+        if self.size == 1:
             return obj
         box = [obj]
         dist.broadcast_object_list(box, src=src, device=(
@@ -259,7 +380,7 @@ class DataParallel:
 
     def any(self, flag: bool) -> bool:
         '''Whether ``flag`` holds on any rank (so all stop together).'''
-        if self.n_dp == 1:
+        if self.size == 1:
             return bool(flag)
         t = torch.tensor([int(bool(flag))], device=(
             self.device if self.backend == 'nccl' else 'cpu'))
@@ -268,8 +389,9 @@ class DataParallel:
 
     @torch.no_grad()
     def broadcast_module(self, module: torch.nn.Module, src: int = 0) -> None:
-        '''Rank ``src``'s parameters into every rank's ``module``, in place.'''
-        if self.n_dp == 1:
+        '''Rank ``src``'s parameters into every rank's ``module``, in place
+        (before ``shard_params``: every rank then holds the whole model).'''
+        if self.size == 1:
             return
         params = list(module.parameters())
         flat = torch.cat([p.detach().reshape(-1).float() for p in params])
@@ -279,16 +401,87 @@ class DataParallel:
         for p, chunk in zip(params, flat.split([p.numel() for p in params])):
             p.copy_(chunk.view_as(p))
 
+    def shard_params(self, state, min_elems: Optional[int] = None):
+        '''Shard ``state``'s model, optimizer state and EMA as the grid
+        asks (``--fsdp`` over dp, the MoE experts over ep): returns the
+        ``ParamShards`` (kept as ``self.shards``, which the train steps
+        read), or None when nothing shards.'''
+        from bmt_tpu_torch.parallel.sharding_rules import (FSDP_MIN_ELEMS,
+                                                           ParamShards)
+        self.shards = None
+        if not ((self.fsdp and self.n_dp > 1) or self.n_ep > 1):
+            return None
+        self.shards = ParamShards(
+            state, self, self.fsdp,
+            FSDP_MIN_ELEMS if min_elems is None else min_elems)
+        return self.shards
+
+    def whole(self, everything: bool = False):
+        '''A context in which the ``--fsdp`` leaves and the EMA are whole
+        on every rank (for validation), and with ``everything`` the MoE
+        experts and the optimizer's moments too (for checkpoints and
+        resumes); on exit each rank keeps its shards again. A no-op when
+        nothing is sharded. A collective: every rank enters it.'''
+        if self.shards is None:
+            return contextlib.nullcontext()
+        return self.shards.whole(everything)
+
     def decode(self, fn, model, stacks: dict) -> torch.Tensor:
         '''fn(model, stacks) over this rank's rows, gathered in row order on
         every rank; the whole batch when its rows do not split evenly.
         A sampler draws the global batch's noise (``row_blocks``).'''
         B = _leading(stacks)
         local = self.maybe_shard(stacks)
-        if local is stacks:
-            return fn(model, stacks)
+        if local is stacks or self.n_dp == 1:
+            return fn(model, local)
         out = row_blocks(fn)(model, local, (self.local_rows(B)[0], B))
         return self.gather_rows(out)
+
+
+def sum_grads(params, group: Group) -> None:
+    '''Sum every parameter's ``.grad`` over ``group``, in place: one
+    all-reduce of a flat buffer per dtype; a parameter without a gradient
+    joins as zeros.'''
+    if group.size == 1:
+        return
+    by_dtype: dict = {}
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = group.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+        torch._foreach_copy_(grads, [
+            chunk.view_as(g) for chunk, g in zip(
+                flat.split([g.numel() for g in grads]), grads)])
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    '''y = sum over ``group`` of x; the backward passes dL/dy through
+    unchanged, since every rank holds the same dL/dy of the sum (the
+    Megatron "g" operator).'''
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class CopyToGroup(torch.autograd.Function):
+    '''y = x, the same on every rank of ``group``; the backward sums the
+    ranks' partial gradients (the Megatron "f" operator).'''
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous()), None
 
 
 def row_blocks(fn):
@@ -313,7 +506,7 @@ def decode_parallel(n: Optional[int], device):
     n = n or 1
     if dist.is_initialized():
         dp = DataParallel(n, device)
-        return dp if dp.n_dp > 1 else None
+        return dp if dp.size > 1 else None
     return LocalReplicas(replica_devices(n, device)) if n > 1 else None
 
 
@@ -336,7 +529,7 @@ class LocalReplicas:
 
     def __init__(self, devices):
         self.devices = [torch.device(d) for d in devices]
-        self.n_dp = len(self.devices)
+        self.n_dp = self.size = len(self.devices)
         self._models: list = []
         self._source = None
         self._streams = [torch.cuda.Stream(d) if d.type == 'cuda' else None

@@ -28,7 +28,13 @@ process a card, spawned by ``python -m bmt_tpu_torch`` or joined under
 torchrun; ``parallel.DataParallel``): the global batch ``B * N`` is split
 over the ranks, every rank loads the same weights (rank 0's are broadcast
 after the resume), and rank 0 alone writes checkpoints, logs and scores, as
-the JAX package's process 0 does.
+the JAX package's process 0 does. ``--fsdp`` (with ``--fsdp_min_elems``)
+shards the large parameters, their Adam moments and the EMA over the dp
+ranks, and ``--ep_devices N`` (with ``--moe_experts`` divisible by N) the
+MoE experts over N ranks that see the same rows (``dp_devices x N``
+processes; ``parallel.DataParallel.shard_params``); validation, checkpoints
+and resumes see the whole model (``DataParallel.whole``), so a directory
+written under either flag is an unsharded run's.
 
 ``--modality audio`` or ``video`` trains the uni-modal captioner
 (``UniModalTransformer``), its encoder optionally seeded from a uni-modal
@@ -54,6 +60,7 @@ from bmt_tpu_torch.data.vocab import load_glove
 from bmt_tpu_torch.models import CapModelDims, captioner_class
 from bmt_tpu_torch.ops.lora import add_lora, count_lora, lora_frozen_predicate
 from bmt_tpu_torch.parallel import DataParallel
+from bmt_tpu_torch.parallel.mesh import axes
 from bmt_tpu_torch.params import load_jax_params, to_jax_tree
 from bmt_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter, _has_orbax, _orbax_only, cap_embedding_key,
@@ -166,12 +173,25 @@ def checkpoint_writer(cfg, dp=None):
 
 
 def data_parallel(cfg, device) -> DataParallel:
-    '''The run's data-parallel group; the axes that are not ported
-    raise.'''
-    return DataParallel(getattr(cfg, 'dp_devices', 1), device,
-                        sp=getattr(cfg, 'sp_devices', 1),
-                        ep=getattr(cfg, 'ep_devices', 1),
-                        fsdp=getattr(cfg, 'fsdp', False))
+    '''The run's process grid: dp x sp x ep as the procedure reads the
+    flags (``parallel.mesh.axes``), ``--fsdp``; the axes that are not
+    ported raise.'''
+    dp, sp, ep = axes(cfg)
+    return DataParallel(dp, device, sp=sp, ep=ep,
+                        fsdp=bool(getattr(cfg, 'fsdp', False)))
+
+
+def shard_state(dp: DataParallel, state: TrainState, cfg):
+    '''Cut the rank's shards of the state (``--fsdp``, the experts over
+    ep), once every rank holds the same whole state; prints the rank's
+    share of the sharded bytes.'''
+    shards = dp.shard_params(state, getattr(cfg, 'fsdp_min_elems', None))
+    if shards is not None:
+        held = shards.bytes()
+        print(f'[shards] rank {dp.rank}: {held["sharded"] / 2**20:.1f} MiB '
+              f'of sharded leaves, {held["whole"] / 2**20:.1f} MiB whole '
+              f'(parameters, moments, EMA)')
+    return shards
 
 
 def train_cap(cfg: Config, device=None):
@@ -179,6 +199,12 @@ def train_cap(cfg: Config, device=None):
     unless ``device`` names another. Returns the best METEOR.'''
     device = resolve_device(device)
     check_ported(cfg)
+    n_ep = axes(cfg)[2]
+    if n_ep > 1 and (getattr(cfg, 'moe_experts', 0) or 0) % n_ep:
+        raise ValueError(
+            f'--ep_devices {n_ep} requires --moe_experts divisible by it '
+            f'(got {cfg.moe_experts}); expert weights shard their leading '
+            f'expert axis over the ep mesh axis')
     dp = data_parallel(cfg, device)
     impl, dtype = attention_impl(cfg), compute_dtype(cfg)
     seed = 0
@@ -243,7 +269,7 @@ def train_cap(cfg: Config, device=None):
     optimizer = build_optimizer(cfg, model, frozen=is_frozen,
                                 total_steps=cfg.epoch_num * len(train_ds))
     ema_decay = float(getattr(cfg, 'ema_decay', 0.0) or 0.0)
-    dp_step = dp if dp.n_dp > 1 else None
+    dp_step = dp if dp.size > 1 else None
     train_step = make_cap_train_step(
         dims, cfg.smoothing, train_ds.pad_idx, impl, dtype,
         accum_steps=getattr(cfg, 'grad_accum_steps', 1) or 1,
@@ -273,6 +299,7 @@ def train_cap(cfg: Config, device=None):
     ckpt_dir = cfg.model_checkpoint_path if cfg.to_log else None
     meta = resume(ckpt_dir, 'last_cap_model', state)
     dp.broadcast_module(state.model)
+    shard_state(dp, state, cfg)
     if meta is not None:
         start_epoch = meta.get('epoch', -1) + 1
         best_metric = meta.get('best_metric', 0.0)
@@ -294,6 +321,30 @@ def train_cap(cfg: Config, device=None):
                 'scheduler': (scheduler.state_dict()
                               if scheduler is not None else None),
                 **fields}
+
+    def save_epoch(epoch, evaluated, is_best, *scores):
+        t0 = perf_counter()
+        meta = meta_of(epoch, **dict(zip(
+            ('val_1_loss', 'val_2_loss', 'val_1_metrics', 'val_2_metrics'),
+            scores)))
+        opt = optimizer_state_tree(state.model, state.optimizer)
+        # rolling checkpoint every epoch: a crash before the first 1-by-1
+        # validation still resumes from the latest epoch
+        save_ckpt(ckpt_dir, state.model, meta, opt, 'last_cap_model')
+        if state.ema is not None:
+            save_ckpt(ckpt_dir, evaluated, {'epoch': epoch}, None,
+                      'last_cap_model.ema')
+        if is_best:
+            # best_* holds the weights that SCORED best (the EMA when on),
+            # so eval and serving load it unchanged
+            save_ckpt(ckpt_dir, evaluated, meta, opt, 'best_cap_model')
+            if lora_rank:
+                # the finetune's shippable artifact: the adapter leaves
+                # alone, which serving's --lora_adapter reads
+                save_lora_npz(os.path.join(
+                    ckpt_dir, 'best_cap_model.lora.npz'), evaluated)
+        report_time(f'checkpoint save {epoch}', t0,
+                    ' (last and best)' if is_best else ' (last)')
 
     # SIGTERM -> finish the current batch, checkpoint, exit cleanly
     guard = None
@@ -326,57 +377,64 @@ def train_cap(cfg: Config, device=None):
                 # mid-epoch: save with the last COMPLETED epoch and the
                 # batch cursor, so the resume re-enters this epoch there
                 b = guard.batch_in_epoch
-                save_ckpt(ckpt_dir, state.model, meta_of(
-                    epoch - 1 if b else epoch, batch_in_epoch=b or 0,
-                    val_1_loss=None, val_2_loss=None, val_1_metrics=None,
-                    val_2_metrics=None), state.optimizer, 'last_cap_model')
-                if state.ema is not None:
-                    save_ckpt(ckpt_dir, eval_model(state), {'epoch': epoch},
-                              None, 'last_cap_model.ema')
+                with dp.whole(everything=True):
+                    save_ckpt(ckpt_dir, state.model, meta_of(
+                        epoch - 1 if b else epoch, batch_in_epoch=b or 0,
+                        val_1_loss=None, val_2_loss=None,
+                        val_1_metrics=None, val_2_metrics=None),
+                        state.optimizer, 'last_cap_model')
+                    if state.ema is not None:
+                        save_ckpt(ckpt_dir, eval_model(state),
+                                  {'epoch': epoch}, None,
+                                  'last_cap_model.ema')
                 print(f'[preempt] rolling checkpoint saved @ epoch {epoch} '
                       f'batch {b if b else "end"}; exiting')
                 break
 
-            # EMA (if on) is what gets EVALUATED and what best_* holds
-            evaluated = eval_model(state)
-            t0 = perf_counter()
-            val_1_loss = validate_next_word(val_step, evaluated, val_1_ds,
-                                            epoch, dp_step)
-            val_2_loss = validate_next_word(val_step, evaluated, val_2_ds,
-                                            epoch, dp_step)
-            report_time(f'next-word validation {epoch}', t0,
-                        f' (losses {val_1_loss:.5f}, {val_2_loss:.5f})')
-            val_avg = (val_1_loss + val_2_loss) / 2
-            logger.add_scalar('debug/val_loss_avg', val_avg, epoch)
+            # EMA (if on) is what gets EVALUATED and what best_* holds;
+            # --fsdp validates the whole model, ep the experts' shards
+            with dp.whole():
+                evaluated = eval_model(state)
+                t0 = perf_counter()
+                val_1_loss = validate_next_word(val_step, evaluated, val_1_ds,
+                                                epoch, dp_step)
+                val_2_loss = validate_next_word(val_step, evaluated, val_2_ds,
+                                                epoch, dp_step)
+                report_time(f'next-word validation {epoch}', t0,
+                            f' (losses {val_1_loss:.5f}, {val_2_loss:.5f})')
+                val_avg = (val_1_loss + val_2_loss) / 2
+                logger.add_scalar('debug/val_loss_avg', val_avg, epoch)
 
-            if scheduler is not None:
-                set_learning_rate(state.optimizer, scheduler.step(val_avg))
+                if scheduler is not None:
+                    set_learning_rate(state.optimizer, scheduler.step(val_avg))
 
-            val_1_metrics = val_2_metrics = avg = None
-            if epoch >= cfg.one_by_one_starts_at:
-                # decode in the compute dtype: a cast copy of the weights
-                decoding = (evaluated if dtype == torch.float32 else
-                            copy.deepcopy(evaluated).to(dtype=dtype)).eval()
-                val_1_metrics = validation_1by1(cfg, decoding, decode_fn,
-                                                val_1_ds, epoch, logger,
-                                                dp=dp_step)
-                val_2_metrics = validation_1by1(cfg, decoding, decode_fn,
-                                                val_2_ds, epoch, logger,
-                                                dp=dp_step)
-                del decoding
-                avg = average_metrics_in_two_dicts(
-                    val_1_metrics, val_2_metrics)['Average across tIoUs']
-                print(f'[scores] epoch {epoch}: ' + ', '.join(
-                    f'{k} {avg[k]:.6f}' for k in (
-                        'METEOR', 'Bleu_4', 'Bleu_3', 'Precision', 'Recall')))
-                if cfg.to_log:
-                    for name, tag in (('METEOR', 'meteor'),
-                                      ('Bleu_4', 'bleu4'),
-                                      ('Bleu_3', 'bleu3'),
-                                      ('Precision', 'precision'),
-                                      ('Recall', 'recall')):
-                        logger.add_scalar(f'metrics/{tag}', avg[name] * 100,
-                                          epoch)
+                val_1_metrics = val_2_metrics = avg = None
+                if epoch >= cfg.one_by_one_starts_at:
+                    # decode in the compute dtype: a cast copy of the weights
+                    decoding = (evaluated if dtype == torch.float32 else
+                                copy.deepcopy(evaluated).to(dtype=dtype))
+                    decoding.eval()
+                    val_1_metrics = validation_1by1(cfg, decoding, decode_fn,
+                                                    val_1_ds, epoch, logger,
+                                                    dp=dp_step)
+                    val_2_metrics = validation_1by1(cfg, decoding, decode_fn,
+                                                    val_2_ds, epoch, logger,
+                                                    dp=dp_step)
+                    del decoding
+                    avg = average_metrics_in_two_dicts(
+                        val_1_metrics, val_2_metrics)['Average across tIoUs']
+                    print(f'[scores] epoch {epoch}: ' + ', '.join(
+                        f'{k} {avg[k]:.6f}' for k in (
+                            'METEOR', 'Bleu_4', 'Bleu_3', 'Precision',
+                            'Recall')))
+                    if cfg.to_log:
+                        for name, tag in (('METEOR', 'meteor'),
+                                          ('Bleu_4', 'bleu4'),
+                                          ('Bleu_3', 'bleu3'),
+                                          ('Precision', 'precision'),
+                                          ('Recall', 'recall')):
+                            logger.add_scalar(f'metrics/{tag}',
+                                              avg[name] * 100, epoch)
 
             is_best = False
             if avg is not None:
@@ -387,31 +445,15 @@ def train_cap(cfg: Config, device=None):
                 else:
                     unchanged += 1
 
-            if ckpt_dir and dp.is_main:
-                t0 = perf_counter()
-                meta = meta_of(epoch, val_1_loss=val_1_loss,
-                               val_2_loss=val_2_loss,
-                               val_1_metrics=val_1_metrics,
-                               val_2_metrics=val_2_metrics)
-                opt = optimizer_state_tree(state.model, state.optimizer)
-                # rolling checkpoint every epoch: a crash before the first
-                # 1-by-1 validation still resumes from the latest epoch
-                save_ckpt(ckpt_dir, state.model, meta, opt, 'last_cap_model')
-                if state.ema is not None:
-                    save_ckpt(ckpt_dir, evaluated, {'epoch': epoch}, None,
-                              'last_cap_model.ema')
-                if is_best:
-                    # best_* holds the weights that SCORED best (the EMA
-                    # when on), so eval and serving load it unchanged
-                    save_ckpt(ckpt_dir, evaluated, meta, opt,
-                              'best_cap_model')
-                    if lora_rank:
-                        # the finetune's shippable artifact: the adapter
-                        # leaves alone, which serving's --lora_adapter reads
-                        save_lora_npz(os.path.join(
-                            ckpt_dir, 'best_cap_model.lora.npz'), evaluated)
-                report_time(f'checkpoint save {epoch}', t0,
-                            ' (last and best)' if is_best else ' (last)')
+            if ckpt_dir:
+                # the whole weights, moments and EMA on every rank; rank 0
+                # writes them
+                with dp.whole(everything=True):
+                    if dp.shards is not None:
+                        evaluated = eval_model(state)
+                    if dp.is_main:
+                        save_epoch(epoch, evaluated, is_best, val_1_loss,
+                                   val_2_loss, val_1_metrics, val_2_metrics)
             del evaluated
     finally:
         if guard is not None:

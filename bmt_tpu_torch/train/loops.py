@@ -23,7 +23,9 @@ only its row block of every batch (the datasets' ``local_rows``) and steps
 on it; the validation loss is summed over the ranks, the decode runs on
 each rank's rows and is gathered in row order, rank 0 alone writes and
 scores the submission and hands the scores to the others, and a preemption
-signal on any rank stops every rank after the same step. Not ported:
+signal on any rank stops every rank after the same step. The ranks of one
+sp or ep group load the same rows (``local_rows`` reads the dp
+coordinate). Not ported:
 multi-step dispatch (ROADMAP queue 1 item 12).
 '''
 from __future__ import annotations
@@ -166,7 +168,7 @@ def _stop(guard, dp) -> bool:
     if guard is None:               # the same on every rank: no collective
         return False
     requested = guard.requested
-    if dp is not None and dp.n_dp > 1:
+    if dp is not None and dp.size > 1:
         requested = guard.requested = dp.any(requested)
     return requested
 
@@ -266,7 +268,7 @@ def make_decode_fn(greedy_fn, compute_dtype=None, dp=None):
         dtype = compute_dtype or p.dtype
         stacks = {k: torch.as_tensor(x).to(p.device, dtype)
                   for k, x in src.items()}
-        if dp is not None and dp.n_dp > 1:
+        if dp is not None and dp.size > 1:
             return dp.decode(greedy_fn, model, stacks)
         return greedy_fn(model, stacks)
     return decode_fn
@@ -430,7 +432,7 @@ def validate_prop(cfg, inference_step, model, dataset, epoch: int,
         n_valid = len(batch['video_ids'])
         padded = _pad_batch_to(batch, dataset.batch_size)
         src = {'src': padded['src']}
-        if dp is None or dp.n_dp == 1:
+        if dp is None or dp.size == 1:
             preds = inference_step(model, src)
         else:
             local = dp.maybe_shard(src)

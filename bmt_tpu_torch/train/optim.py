@@ -183,7 +183,10 @@ class Optimizer:
     without one counts as a zero gradient, as in the JAX tree) and returns
     the global norm of the raw gradients, a device scalar. ``layout``: the
     optax layout of the state (``optax_layout``, ``masked`` telling whether
-    a frozen predicate was given).'''
+    a frozen predicate was given). ``shards``: set by
+    ``parallel.sharding_rules.ParamShards`` when some parameters are
+    shards; the norm is then the whole model's and the non-finite verdict
+    every rank's.'''
 
     def __init__(self, params: list, cfg, total_steps: Optional[int] = None,
                  masked: bool = False):
@@ -199,6 +202,7 @@ class Optimizer:
         self.notfinite = 0
         self.total_notfinite = 0
         self.last_finite = True
+        self.shards = None
         wd = getattr(cfg, 'weight_decay', 0.0) or 0.0
         if not params:
             raise ValueError('no trainable parameters')
@@ -225,12 +229,17 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        norm = (torch.linalg.vector_norm(norms) if self.shards is None
+                else self.shards.global_norm(self.params, norms))
         self.calls += 1
         if self.skip_nonfinite:
             # one host sync a step, only with the guard on
             amax = torch.stack(torch._foreach_norm(grads, math.inf))
             self.last_finite = bool(torch.isfinite(amax).all())
+            if self.shards is not None:      # one verdict for every rank
+                self.last_finite = not self.shards.dp.any(
+                    not self.last_finite)
             if self.last_finite:
                 self.notfinite = 0
             else:

@@ -1,6 +1,6 @@
 '''How the port's trainers and evaluation read a ``Config``: the device, the
 JAX package's flag values in the port's terms, the options that are not
-ported, and the timing lines they print.
+ported (orbax), and the timing lines they print.
 
 The config keeps the JAX flag values, so a config dict round-trips between
 the packages; ``--attention_impl pallas`` (the Pallas kernels) reads as the
@@ -44,11 +44,6 @@ def compute_dtype(cfg, default: str = 'float32') -> torch.dtype:
             else torch.float32)
 
 
-def _not_ported(what: str, item):
-    raise NotImplementedError(f'{what} is not ported yet (ROADMAP queue 1 '
-                              f'item {item})')
-
-
 MODALITIES = ('audio', 'video', 'audio_video')
 
 
@@ -62,15 +57,12 @@ def check_model_ported(cfg) -> None:
 
 def check_ported(cfg) -> None:
     '''Raise for a model or an option of the config that the port does not
-    run: NotImplementedError, naming its ROADMAP item, for the parallelism
-    beyond data parallelism and for orbax; print once that multi-step
-    dispatch runs step by step.'''
+    run: NotImplementedError, naming its ROADMAP item, for orbax (item
+    12); print once that multi-step dispatch runs step by step.
+    ``--fsdp``, ``--ep_devices`` (train_cap) and ``--sp_devices``
+    (train_prop) run, alone and together; in the other procedures they
+    have no effect, as in the JAX package.'''
     check_model_ported(cfg)
-    for flag in ('ep_devices', 'sp_devices'):
-        if (getattr(cfg, flag, 1) or 1) > 1:
-            _not_ported(f'--{flag} {getattr(cfg, flag)} (parallelism)', 11)
-    if getattr(cfg, 'fsdp', False):
-        _not_ported('--fsdp (parallelism)', 11)
     if getattr(cfg, 'ckpt_format', 'npz') != 'npz':
         raise NotImplementedError(
             f'--ckpt_format {cfg.ckpt_format}: the port reads and writes the '

@@ -6,7 +6,11 @@ modality (reference ``.pt`` or native npz) and frozen unless
 ``--finetune_cap_encoder``, ``validate_prop`` F1 for the best checkpoint,
 ``last_prop_model`` and ``best_prop_model`` npz checkpoints with the JAX
 package's meta keys, resume down to the batch, and the ``PreemptionGuard``;
-``--dp_devices N`` over a data-parallel group, as ``train_cap``.
+``--dp_devices N`` over a data-parallel group and ``--fsdp``, as
+``train_cap``; ``--sp_devices N`` splits the features' sequences over N
+ranks that hold the same rows (``dp_devices x N`` processes;
+``parallel.seq``): each rank runs the encoder, the heads and the losses on
+its block, and validation gathers the predictions in sequence order.
 '''
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from bmt_tpu_torch.models import PropModelDims, proposal_class
 from bmt_tpu_torch.params import load_jax_params, to_jax_tree
 from bmt_tpu_torch.train.cap_trainer import (checkpoint_writer,
                                              data_parallel, eval_model,
-                                             resume)
+                                             resume, shard_state)
 from bmt_tpu_torch.train.checkpoint import (import_any_cap_model,
                                             load_pretrained_encoder_native,
                                             load_torch_checkpoint,
@@ -68,7 +72,7 @@ def train_prop(cfg: Config, device=None):
     device = resolve_device(device)
     check_ported(cfg)
     dp = data_parallel(cfg, device)
-    dp_step = dp if dp.n_dp > 1 else None
+    dp_step = dp if dp.size > 1 else None
     impl, dtype = attention_impl(cfg), compute_dtype(cfg)
     seed = 0
     np.random.seed(seed)
@@ -112,7 +116,8 @@ def train_prop(cfg: Config, device=None):
         dims, pad_idx, impl, dtype,
         accum_steps=getattr(cfg, 'grad_accum_steps', 1) or 1,
         ema_decay=ema_decay, dp=dp_step)
-    inference_step = make_prop_inference_step(dims, pad_idx, impl, dtype)
+    inference_step = make_prop_inference_step(dims, pad_idx, impl, dtype,
+                                              dp=dp_step)
     state = init_train_state(model, optimizer, seed, ema=ema_decay > 0)
 
     n_params = sum(p.numel() for p in optimizer.params)
@@ -131,6 +136,7 @@ def train_prop(cfg: Config, device=None):
     ckpt_dir = cfg.log_path if cfg.to_log else None
     meta = resume(ckpt_dir, 'last_prop_model', state)
     dp.broadcast_module(state.model)
+    shard_state(dp, state, cfg)
     if meta is not None:
         start_epoch = meta.get('epoch', -1) + 1
         best_metric = meta.get('best_metric', -np.inf)
@@ -149,6 +155,23 @@ def train_prop(cfg: Config, device=None):
                 'scheduler': (scheduler.state_dict()
                               if scheduler is not None else None),
                 **fields}
+
+    def save_epoch(epoch, evaluated, is_best, metrics):
+        t0 = perf_counter()
+        meta = meta_of(epoch, val_anet_metrics=metrics)
+        opt = optimizer_state_tree(state.model, state.optimizer)
+        # rolling checkpoint every epoch (resume), best kept apart
+        save_ckpt(ckpt_dir, state.model, meta, opt, 'last_prop_model')
+        if state.ema is not None:
+            save_ckpt(ckpt_dir, evaluated, {'epoch': epoch}, None,
+                      'last_prop_model.ema')
+        if is_best:
+            # best_* holds the weights that scored (EMA when on)
+            save_ckpt(ckpt_dir, evaluated, meta, opt, 'best_prop_model')
+            print(f'Saved model @ {epoch} epoch. '
+                  f'Best metric: {best_metric:.5f}')
+        report_time(f'checkpoint save {epoch}', t0,
+                    ' (last and best)' if is_best else ' (last)')
 
     guard = None
     if ckpt_dir and getattr(cfg, 'preempt_save', True):
@@ -178,23 +201,26 @@ def train_prop(cfg: Config, device=None):
 
             if guard is not None and guard.requested:
                 b = guard.batch_in_epoch
-                save_ckpt(ckpt_dir, state.model, meta_of(
-                    epoch - 1 if b else epoch, batch_in_epoch=b or 0,
-                    val_anet_metrics=None), state.optimizer,
-                    'last_prop_model')
-                if state.ema is not None:
-                    save_ckpt(ckpt_dir, eval_model(state), {'epoch': epoch},
-                              None, 'last_prop_model.ema')
+                with dp.whole(everything=True):
+                    save_ckpt(ckpt_dir, state.model, meta_of(
+                        epoch - 1 if b else epoch, batch_in_epoch=b or 0,
+                        val_anet_metrics=None), state.optimizer,
+                        'last_prop_model')
+                    if state.ema is not None:
+                        save_ckpt(ckpt_dir, eval_model(state),
+                                  {'epoch': epoch}, None,
+                                  'last_prop_model.ema')
                 print(f'[preempt] rolling checkpoint saved @ epoch {epoch} '
                       f'batch {b if b else "end"}; exiting')
                 break
 
             # EMA (if on) is what gets validated and what best_* holds
-            evaluated = eval_model(state)
-            t0 = perf_counter()
-            avg_f1, metrics = validate_prop(cfg, inference_step, evaluated,
-                                            valid_ds, epoch, logger,
-                                            dp=dp_step)
+            with dp.whole():
+                evaluated = eval_model(state)
+                t0 = perf_counter()
+                avg_f1, metrics = validate_prop(cfg, inference_step,
+                                                evaluated, valid_ds, epoch,
+                                                logger, dp=dp_step)
             avg = metrics['Average across tIoUs']
             report_time(f'proposal validation {epoch}', t0,
                         f' (precision {avg["Precision"]:.6f}, recall '
@@ -210,23 +236,14 @@ def train_prop(cfg: Config, device=None):
             else:
                 unchanged += 1
 
-            if ckpt_dir and dp.is_main:
-                t0 = perf_counter()
-                meta = meta_of(epoch, val_anet_metrics=metrics)
-                opt = optimizer_state_tree(state.model, state.optimizer)
-                # rolling checkpoint every epoch (resume), best kept apart
-                save_ckpt(ckpt_dir, state.model, meta, opt, 'last_prop_model')
-                if state.ema is not None:
-                    save_ckpt(ckpt_dir, evaluated, {'epoch': epoch}, None,
-                              'last_prop_model.ema')
-                if is_best:
-                    # best_* holds the weights that scored (EMA when on)
-                    save_ckpt(ckpt_dir, evaluated, meta, opt,
-                              'best_prop_model')
-                    print(f'Saved model @ {epoch} epoch. '
-                          f'Best metric: {best_metric:.5f}')
-                report_time(f'checkpoint save {epoch}', t0,
-                            ' (last and best)' if is_best else ' (last)')
+            if ckpt_dir:
+                # the whole weights, moments and EMA on every rank; rank 0
+                # writes them
+                with dp.whole(everything=True):
+                    if dp.shards is not None:
+                        evaluated = eval_model(state)
+                    if dp.is_main:
+                        save_epoch(epoch, evaluated, is_best, metrics)
             del evaluated
     finally:
         if guard is not None:

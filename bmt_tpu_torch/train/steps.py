@@ -26,13 +26,24 @@ The caption loss is the global KL sum over the global non-pad token count
 (the count all-reduced before the backward), the proposal losses divide by
 the global obj/noobj cell counts (all-reduced ``denoms``), the ranks'
 gradients are summed (not averaged) before the clip and the update, and the
-MoE load-balance term keeps the global batch's weight. Dropout draws from a
-generator seeded by (seed, step, rank), so the ranks' masks differ; the JAX
-package draws one global mask, so dp parity is held with dropout off.
+MoE load-balance term keeps the global batch's weight. The sums run over
+``dp``'s data group: the dp ranks, and the sp ranks of the proposal step,
+which hold the same rows' sequence blocks; the ep ranks of one row block
+compute the same loss and need no sum. Dropout draws from a generator
+seeded by (seed, step, ``dp.seed_rank``): the ep ranks of a row block draw
+the same masks, the other ranks their own; the JAX package draws one global
+mask, so parity is held with dropout off.
 
-Not ported: ``make_multistep`` (a TPU dispatch workaround) and the
-proposal steps' ``seq_mesh`` (sequence parallelism, ROADMAP queue 1 item
-11).
+``--fsdp`` (``dp.shards``): a step gathers the whole large parameters
+before its forward (``dp.gather_params``) and keeps its shards of their
+summed gradients (``dp.all_reduce_grads``), so the optimizer and the EMA
+run on shards. Sequence parallelism (the proposal steps): the batch's
+features are this rank's sequence blocks (``'seq_split'``), the key
+padding masks are gathered whole, the model runs inside
+``parallel.seq.sequence_parallel``, and the cell counts are the blocks'
+summed over the data group.
+
+Not ported: ``make_multistep`` (a TPU dispatch workaround).
 '''
 from __future__ import annotations
 
@@ -45,6 +56,7 @@ from torch import nn
 from bmt_tpu_torch.models.proposal import make_targets_dense
 from bmt_tpu_torch.ops.layers import dropout_generator
 from bmt_tpu_torch.ops.masks import make_masks
+from bmt_tpu_torch.parallel import seq
 from bmt_tpu_torch.train.losses import label_smoothing_kl_logits
 from bmt_tpu_torch.train.optim import Optimizer
 
@@ -137,8 +149,8 @@ def _ema_update(ema, model, decay: float):
                         alpha=1.0 - decay)
 
 
-def _rank(dp) -> int:
-    return 0 if dp is None else dp.rank
+def _seed_rank(dp) -> int:
+    return 0 if dp is None else dp.seed_rank
 
 
 def make_cap_train_step(dims, smoothing: float, pad_idx: int,
@@ -162,9 +174,9 @@ def make_cap_train_step(dims, smoothing: float, pad_idx: int,
     term too, as JAX's does.
 
     ``dp``: the batch is this rank's rows, a contiguous block of the global
-    batch; the token counts (the global batch's and each global
-    microbatch's, the contiguous slices JAX accumulates over) are summed
-    over the ranks, and the gradients are summed over the ranks before the
+    batch (by its dp coordinate); the token counts (the global batch's and
+    each global microbatch's, the contiguous slices JAX accumulates over)
+    are summed over the ranks, and the gradients are summed over the ranks before the
     update. A rank's microbatch lies inside one global microbatch, which
     n_dp such blocks of equal rows make up, so the global microbatch's
     Switch loss (a per-row mean) is the mean of their means: each block's
@@ -185,8 +197,8 @@ def make_cap_train_step(dims, smoothing: float, pad_idx: int,
         # this rank's microbatch i is the (rank * accum + i)-th block of mb
         # rows of the global batch, inside global microbatch block // n_dp
         n_dp = 1 if dp is None else dp.n_dp
-        in_mb = [(_rank(dp) * accum_steps + i) // n_dp
-                 for i in range(accum_steps)]
+        in_mb = [((0 if dp is None else dp.dp_rank) * accum_steps + i)
+                 // n_dp for i in range(accum_steps)]
         tokens = (cap_y != pad_idx)
         counts = tokens.sum()[None]
         if collect_aux:
@@ -199,8 +211,10 @@ def make_cap_train_step(dims, smoothing: float, pad_idx: int,
 
         model.train()
         state.optimizer.zero_grad()
+        if dp is not None:
+            dp.gather_params()
         state.generator.manual_seed(step_seed(state.seed, state.step,
-                                              _rank(dp)))
+                                              _seed_rank(dp)))
         kl_sum = torch.zeros((), device=device)
         with dropout_generator(state.generator):
             for i in range(accum_steps):
@@ -282,14 +296,19 @@ def _prop_batch(batch: dict, device):
 
 
 def _prop_forward(model, src, targets, pad_idx, attention_impl,
-                  compute_dtype, loss_denoms=None):
+                  compute_dtype, loss_denoms=None, split=()):
     '''The generator's forward in ``compute_dtype`` from the fp32 masters;
-    the masks come from the uncast features (channel 0 against pad_idx).
-    Returns (predictions, loss, losses_A, losses_V); a uni-modal
-    generator's terms are losses_V for video, losses_A for audio, the
-    other side empty (``steps.py:375-389``).'''
+    the masks come from the uncast features (channel 0 against pad_idx),
+    gathered whole for the features in ``split`` (this rank's sequence
+    blocks, under an active ``seq.sequence_parallel``). Returns
+    (predictions, loss, losses_A, losses_V); a uni-modal generator's
+    terms are losses_V for video, losses_A for audio, the other side empty
+    (``steps.py:375-389``).'''
     modality = model.dims.modality
     masks = make_masks(src, None, modality, pad_idx)
+    for key, source in (('A_mask', 'audio'), ('V_mask', 'rgb')):
+        if key in masks and source in split:
+            masks[key] = seq.gather_mask(masks[key])
     args = ({k: x.to(compute_dtype) for k, x in src.items()}, targets, masks,
             attention_impl, loss_denoms)
     if compute_dtype == torch.float32:
@@ -304,10 +323,16 @@ def _prop_forward(model, src, targets, pad_idx, attention_impl,
             else (preds, loss, losses, {}))
 
 
-def _cell_counts(targets, anchors, stride: float, S: int):
-    '''(obj, noobj) cell counts of the whole batch: target math alone (the
-    anchors are the only parameter it reads, and they are frozen).'''
-    obj, noobj, _, _ = make_targets_dense(*targets, anchors, stride, S)
+def _cell_counts(targets, anchors, stride: float, S: int, split=False):
+    '''(obj, noobj) cell counts of the batch: target math alone (the
+    anchors are the only parameter it reads, and they are frozen). ``S``:
+    the grid's rows here; with ``split`` a block of the active sp group's
+    sequence, whose cells alone are counted.'''
+    whole = S * (seq.active().size if split else 1)
+    obj, noobj, _, _ = make_targets_dense(*targets, anchors, stride, whole)
+    if split:
+        first = seq.offset(S, whole)
+        obj, noobj = obj[..., first:first + S], noobj[..., first:first + S]
     return obj.sum().float(), noobj.sum().float()
 
 
@@ -330,9 +355,16 @@ def make_prop_train_step(dims, pad_idx: int, attention_impl: str = 'torch',
     the ranks, and so are the gradients and the reported losses.'''
 
     def step(state: TrainState, batch: dict):
+        with seq.sequence_parallel(None if dp is None else dp.sp_group):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: dict):
         model = state.model
         device = next(model.parameters()).device
         src, targets = _prop_batch(batch, device)
+        split = batch.get('seq_split', ())
+        if dp is not None:
+            dp.gather_params()      # the anchors too, read by the counts
         B = targets[0].shape[0]
         if B % accum_steps:
             raise ValueError(f'batch size {B} not divisible by '
@@ -341,13 +373,13 @@ def make_prop_train_step(dims, pad_idx: int, attention_impl: str = 'torch',
         if (accum_steps > 1 or dp is not None) \
                 and dims.modality == 'audio_video':
             denoms = (_cell_counts(targets, model.anchors_A, dims.stride_A,
-                                   src['audio'].shape[1]),
+                                   src['audio'].shape[1], 'audio' in split),
                       _cell_counts(targets, model.anchors_V, dims.stride_V,
-                                   src['rgb'].shape[1]))
+                                   src['rgb'].shape[1], 'rgb' in split))
         elif accum_steps > 1 or dp is not None:
-            grid = src['rgb' if dims.modality == 'video' else 'audio']
+            key = 'rgb' if dims.modality == 'video' else 'audio'
             denoms = _cell_counts(targets, model.anchors, model.stride,
-                                  grid.shape[1])
+                                  src[key].shape[1], key in split)
         if dp is not None:
             nested = isinstance(denoms[0], tuple)
             flat = dp.all_reduce_sum(torch.stack(
@@ -360,7 +392,7 @@ def make_prop_train_step(dims, pad_idx: int, attention_impl: str = 'torch',
         model.train()
         state.optimizer.zero_grad()
         state.generator.manual_seed(step_seed(state.seed, state.step,
-                                              _rank(dp)))
+                                              _seed_rank(dp)))
         loss_sum, terms = torch.zeros((), device=device), {}
         with dropout_generator(state.generator):
             for i in range(accum_steps):
@@ -368,7 +400,7 @@ def make_prop_train_step(dims, pad_idx: int, attention_impl: str = 'torch',
                 _, loss, losses_A, losses_V = _prop_forward(
                     model, {k: x[rows] for k, x in src.items()},
                     tuple(t[rows] for t in targets), pad_idx, attention_impl,
-                    compute_dtype, denoms)
+                    compute_dtype, denoms, split)
                 loss.backward()
                 loss_sum = loss_sum + loss.detach()
                 for suffix, losses in (('_A', losses_A), ('_V', losses_V)):
@@ -393,10 +425,12 @@ def make_prop_train_step(dims, pad_idx: int, attention_impl: str = 'torch',
 
 def make_prop_inference_step(dims, pad_idx: int,
                              attention_impl: str = 'torch',
-                             compute_dtype=torch.float32):
+                             compute_dtype=torch.float32, dp=None):
     '''Forward-only proposal predictions (reference:
     proposal_epoch_loops.py:99-110): step(model, batch) -> (B, N, 3) fp32
-    [center, length, conf] in seconds.'''
+    [center, length, conf] in seconds. ``dp``: a batch of this rank's
+    sequence blocks (``'seq_split'``) predicts over its sp group, and every
+    sp rank returns its rows' whole predictions.'''
 
     @torch.no_grad()
     def step(model: nn.Module, batch: dict) -> torch.Tensor:
@@ -404,6 +438,8 @@ def make_prop_inference_step(dims, pad_idx: int,
         src = {k: torch.as_tensor(x, device=device)
                for k, x in batch['src'].items()}
         model.eval()
-        return _prop_forward(model, src, None, pad_idx, attention_impl,
-                             compute_dtype)[0].float()
+        with seq.sequence_parallel(None if dp is None else dp.sp_group):
+            return _prop_forward(model, src, None, pad_idx, attention_impl,
+                                 compute_dtype,
+                                 split=batch.get('seq_split', ()))[0].float()
     return step

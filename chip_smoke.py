@@ -214,7 +214,8 @@ when it fails:
     parallelism on phase 17's tree and checkpoints: (21a) export_decode at
     the decode cell (B=64, Sa=256, Sv=96, 30 steps, end token 3) through
     'kernel' in bf16 and fp32 and 'torch' in fp32, the three exported side
-    by side in child processes, each blob loaded from bytes and replayed
+    by side in child processes while 21b-21d run (printed after them),
+    each blob loaded from bytes and replayed
     with phase 17's best_cap_model and a seeded parameter set against the
     live decode (fp32 bit for bit; bf16 equal or a near-tie within
     BF16_GAP_TOL), the forward kernel's launches inside the replay (above
@@ -225,18 +226,32 @@ when it fails:
     last_cap_model's weights and optimizer file bit for bit; (21c) two
     ranks spawned as python -m bmt_tpu_torch spawns them, on gloo (both on
     the one card: NCCL refuses two ranks on one device; NCCL with two
-    cards or more): the fp32 captioner train cell and the fp32 proposal
-    cell, 3 Adam steps of the global batch split over the ranks (dropout
-    0), held to the single process's steps within STEP_TOL and
-    PROP_STEP_TOL, with the dp step's ms beside the single step's (a cost
-    of sharing the card, not scaling); then train_cap --B 16 --dp_devices
-    2 and its fp32 evaluation over two ranks and over one, under phase
-    17d's caption rule; (21d) a CaptionEngine with two replicas on the one
+    cards or more): train_cap --B 16 --dp_devices 2 and its fp32
+    evaluation over two ranks and over one, under phase 17d's caption rule
+    (the two ranks' train steps are held to one process in 22a); (21d) a CaptionEngine with two replicas on the one
     card answers phase 18's 64 requests with one replica's sentences (a
     near-tie within BF16_GAP_TOL allowed), 2 x 8 forward launches, and
     captions/s beside one replica's; (21e) the kernels against their plain
     versions at every 21a-21d launch shape, the ranks' included (the
-    spawned workers return their launches and shapes).
+    spawned workers return their launches and shapes);
+22. --fsdp, expert and sequence parallelism, two gloo ranks sharing the
+    card: (22a) the fp32 train cells, 3 Adam steps (dropout 0) of the
+    global batch, held to one process's within STEP_TOL and PROP_STEP_TOL:
+    the captioner and the proposal generator under --fsdp (dp 2, leaves of
+    >= FSDP_MIN_ELEMS shard), the MoE captioner (E = 4) over ep 2, the
+    proposal generator over sp 2 (each rank a 400-row audio and 150-row
+    video block); each rank's memory_allocated after init and after the
+    steps beside one process's, and its sharded and whole bytes; (22b) on
+    phase 17's tree at build_parser widths, bf16, pallas, one epoch:
+    train_cap --fsdp --dp_devices 2 --B 16, train_prop --fsdp --dp_devices
+    2 --B 8, train_cap --moe_experts 4 --ep_devices 2, train_prop
+    --sp_devices 2, spawned as python -m bmt_tpu_torch spawns them; each
+    run directory loads in one process (best_* through the app's loader;
+    a captioner's last_* with its optimizer too) and each captioner is
+    scored by evaluate in one process; the seconds by stage; (22c) the kernels against their
+    plain versions at every 22a-22b launch shape, and their times at the
+    sp shapes (B=16: 400x800, 150x300, 400x300, 150x800) beside the plain
+    versions, the library and the bound.
 
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. The report's `launches` are the captioning
@@ -245,8 +260,9 @@ trainer's (phase 9); `launches_by_path` gives those of each main path's run
 evaluate, phase 18's requests as `serve`, phase 19's runs, phase 20's
 as `unimodal` (20a's four runs) and `acceptance`, and phase 21's:
 `export_replay`, `moments ...`, `dp_*` summed over the ranks,
-`engine_replicas`), `serving` phase 18's numbers, `main_py_options` phase
-19's, `unimodal` phase 20's, `export_dp` phase 21's,
+`engine_replicas`; and phase 22's `22a ...` and `22b ...`, summed over the
+ranks), `serving` phase 18's numbers, `main_py_options` phase 19's,
+`unimodal` phase 20's, `export_dp` phase 21's, `sharding` phase 22's,
 `main_py_procedures` phase 17's seconds, step and prefetch-wait
 times, scores, the checks at its launch shapes and busy share, `proposal_800x800` each kernel's times at the
 proposal cell's 800x800 call, `fp32_train_256x256` its fp32 times at the
@@ -3346,25 +3362,35 @@ def export_worker(dev, cap_dir, dims, impl, dtype, shape, out_path):
     return seconds
 
 
-def phase_export(dev, smi, cap_dir, seen, tmp):
-    '''21a: export_decode at the decode cell (B, SA, SV, STEPS), replayed
-    from bytes with phase 17's best_cap_model and a seeded parameter set
-    against the live decode. Returns ({case: numbers}, the replays'
-    forward launches).'''
-    dims = CapModelDims(voc_size=VOC)
+def start_exports(dev, cap_dir, tmp):
+    '''21a's exports, started in child processes (the host traces them,
+    beside 21b-21d); ``phase_export`` waits for them.'''
     paths = {f'{impl} {str(dtype)[6:]}': os.path.join(
         tmp, f'decode_{impl}_{str(dtype)[6:]}.pt2')
         for impl, dtype in EXPORT_CASES}
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(len(EXPORT_CASES), mp_context=mp.get_context(
-            'spawn')) as pool:
-        futures = {name: pool.submit(export_worker, str(dev), cap_dir, dims,
-                                     impl, dtype, (B, SV, SA, STEPS),
-                                     paths[name])
-                   for name, (impl, dtype) in zip(paths, EXPORT_CASES)}
-        export_s = {name: f.result() for name, f in futures.items()}
-    print(f'      {len(paths)} exports side by side in child processes: '
-          f'{time.perf_counter() - t0:.2f} s of wall time')
+    pool = ProcessPoolExecutor(len(EXPORT_CASES),
+                               mp_context=mp.get_context('spawn'))
+    futures = {name: pool.submit(export_worker, str(dev), cap_dir,
+                                 CapModelDims(voc_size=VOC), impl, dtype,
+                                 (B, SV, SA, STEPS), paths[name])
+               for name, (impl, dtype) in zip(paths, EXPORT_CASES)}
+    return {'pool': pool, 'futures': futures, 'paths': paths,
+            't0': time.perf_counter()}
+
+
+def phase_export(dev, smi, cap_dir, seen, exports):
+    '''21a: export_decode at the decode cell (B, SA, SV, STEPS), the
+    exports started by ``start_exports``, replayed from bytes with phase
+    17's best_cap_model and a seeded parameter set against the live
+    decode. Returns ({case: numbers}, the replays' forward launches).'''
+    dims = CapModelDims(voc_size=VOC)
+    paths = exports['paths']
+    with exports['pool']:
+        export_s = {name: f.result()
+                    for name, f in exports['futures'].items()}
+    print(f'      {len(paths)} exports side by side in child processes, '
+          f'beside 21b-21d: {time.perf_counter() - exports["t0"]:.2f} s of '
+          f'wall time from their start to the last one\'s end')
     trees = {'phase 17': load_params_npz(os.path.join(
                  cap_dir, 'best_cap_model.params.npz')),
              'seeded': to_jax_tree(BiModalTransformer(
@@ -3535,22 +3561,29 @@ def phase_moments(dev, smi, tmp, tree, seen):
 
 
 def dp_cells():
-    '''21c's step-parity cells, everything a spawned rank needs to build
-    them: the fp32 captioner at the train cell (global B=TB) and the fp32
-    proposal generator at the proposal cell (global B=PB, remat, bench.py's
-    anchors), dropout 0, PARITY_CFG's Adam.'''
-    return {'captioner': {'dims': CapModelDims(voc_size=VOC, dout_p=0.0),
-                          'b': TB, 'seeds': [60 + i for i in range(DP_STEPS)],
-                          'shape': (SV, SA, TSC), 'cfg': PARITY_CFG},
-            'proposal': {'dims': PropModelDims(dout_p=0.0, remat=True),
-                         'b': PB, 'seeds': [70 + i for i in range(DP_STEPS)],
-                         'shape': (PSA, PSV, PE), 'anchors': ANCHORS,
-                         'cfg': PARITY_CFG}}
+    '''22a's step-parity cells, everything a spawned rank needs to build
+    them: the fp32 captioner at the train cell (global B=TB), its MoE
+    variant (E = MOE_EXPERTS) and the fp32 proposal generator at the
+    proposal cell (global B=PB, remat, bench.py's anchors), dropout 0,
+    PARITY_CFG's Adam.'''
+    cap = {'b': TB, 'seeds': [60 + i for i in range(DP_STEPS)],
+           'shape': (SV, SA, TSC), 'cfg': PARITY_CFG}
+    return {'captioner': ('captioner', {
+                **cap, 'dims': CapModelDims(voc_size=VOC, dout_p=0.0)}),
+            'moe': ('captioner', {
+                **cap, 'dims': CapModelDims(voc_size=VOC, dout_p=0.0,
+                                            moe_experts=MOE_EXPERTS)}),
+            'proposal': ('proposal', {
+                'dims': PropModelDims(dout_p=0.0, remat=True), 'b': PB,
+                'seeds': [70 + i for i in range(DP_STEPS)],
+                'shape': (PSA, PSV, PE), 'anchors': ANCHORS,
+                'cfg': PARITY_CFG})}
 
 
 def dp_cell(kind, cell, dev, dp=None):
     '''(state, step, host batches) of a ``dp_cells`` cell on ``dev``; the
-    step over ``dp``'s group when given.'''
+    step over ``dp``'s group when given, the state's shards cut as the
+    group asks (``--fsdp`` at FSDP_MIN_ELEMS, the experts over ep).'''
     dims = cell['dims']
     if kind == 'captioner':
         model = BiModalTransformer(
@@ -3570,12 +3603,15 @@ def dp_cell(kind, cell, dev, dp=None):
         step = make_prop_train_step(dims, PAD, 'kernel', dp=dp)
         batches = [prop_train_batch(seed, cell['b'], *cell['shape'], dims)
                    for seed in cell['seeds']]
+    if dp is not None:
+        dp.shard_params(state)
     return state, step, batches
 
 
 def dp_steps(state, step, batches, dp=None):
-    '''Run the batches (this rank's rows of each under ``dp``); returns
-    (metrics by step, ms by step).'''
+    '''Run the batches (this rank's rows, and under sp its sequence
+    blocks, of each under ``dp``); returns (metrics by step, ms by
+    step).'''
     metrics, ms = [], []
     for batch in batches:
         sync()
@@ -3587,22 +3623,57 @@ def dp_steps(state, step, batches, dp=None):
     return metrics, ms
 
 
-def dp_step_worker(kind, cell, out_path, device):
-    '''One rank of 21c's step parity (a spawned process): its launches and
-    launch shapes, and rank 0's parameters saved to ``out_path``.'''
+def allocated(device) -> int:
+    '''Bytes the caching allocator holds for tensors on ``device`` (0 on
+    the CPU, where a rehearsal runs).'''
+    device = torch.device(device)
+    return torch.cuda.memory_allocated(device) if device.type == 'cuda' \
+        else 0
+
+
+def shard_step_worker(cells, grid, fsdp, out_dir, device):
+    '''One rank of 22a's step parity (a spawned process) on the (dp, sp,
+    ep) ``grid`` with ``--fsdp`` as asked: for each (name, (kind, cell)) of
+    ``cells``, its metrics, launches and launch shapes, its bytes
+    (``memory_allocated`` after init and after the steps, the moments made;
+    ``ParamShards.bytes``), and rank 0's whole parameters saved under
+    ``out_dir``.'''
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dp = DataParallel(DP, device)
-    state, step, batches = dp_cell(kind, cell, device, dp)
-    seen = collections.Counter()
-    reset_launch_counts()
-    with launch_shapes(seen):
-        metrics, ms = dp_steps(state, step, batches, dp)
-    if dp.is_main:
-        torch.save({n: p.detach().cpu()
-                    for n, p in state.model.named_parameters()}, out_path)
-    return {'rank': dp.rank, 'metrics': metrics, 'ms': ms,
-            'launches': launch_counts(), 'shapes': dict(seen)}
+    dp = DataParallel(grid[0], device, sp=grid[1], ep=grid[2], fsdp=fsdp)
+    out = {'rank': dp.rank, 'cells': {}}
+    for name, (kind, cell) in cells:
+        # the last cell's state: ParamShards and its optimizer refer to
+        # each other, so only the collector frees them
+        dp.shards = None
+        gc.collect()
+        sync()
+        base = allocated(device)
+        state, step, batches = dp_cell(kind, cell, device, dp)
+        sync()
+        init_bytes = allocated(device) - base
+        seen = collections.Counter()
+        reset_launch_counts()
+        with launch_shapes(seen):
+            metrics, ms = dp_steps(state, step, batches, dp)
+        launches = launch_counts()
+        state.optimizer.zero_grad()
+        gc.collect()
+        sync()
+        held = dp.shards.bytes() if dp.shards is not None else None
+        out['cells'][name] = {
+            'metrics': metrics, 'ms': ms, 'launches': launches,
+            'shapes': dict(seen), 'init_bytes': init_bytes,
+            'step_bytes': allocated(device) - base, 'held': held}
+        with dp.whole(everything=True):
+            if dp.is_main:
+                torch.save({n: p.detach().cpu() for n, p in
+                            state.model.named_parameters()},
+                           os.path.join(out_dir, f'{name}.pt'))
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def dp_procedure_worker(cfg, device):
@@ -3627,10 +3698,9 @@ def summed(ranks):
 
 
 def phase_data_parallel(dev, smi, tmp, tree, prop_dir, seen):
-    '''21c: two ranks of a gloo group sharing the card. The fp32 train
-    steps of both cells against the single-process steps on the same
-    global batch; then train_cap --dp_devices 2 and its evaluation over two
-    ranks against one. Returns ({run: launches}, numbers).'''
+    '''21c: two ranks of a gloo group sharing the card: train_cap
+    --dp_devices 2 and its evaluation over two ranks against one. Returns
+    ({run: launches}, numbers).'''
     n_cards = torch.cuda.device_count()
     backend = DP_BACKEND if n_cards < DP else 'nccl'
     why = ('NCCL refuses two ranks on one device' if backend == 'gloo'
@@ -3638,48 +3708,9 @@ def phase_data_parallel(dev, smi, tmp, tree, prop_dir, seen):
     print(f'      backend {backend} ({why}); the ranks share '
           f'{min(n_cards, DP)} card(s): step times are not a scaling '
           f'number')
+    # the two ranks' fp32 train steps are held to one process in 22a
+    # (under --fsdp, expert and sequence parallelism)
     launches, report = {}, {'backend': backend}
-    for kind, cell in dp_cells().items():
-        state, step, batches = dp_cell(kind, cell, dev)
-        single, single_ms = dp_steps(state, step, batches)
-        want = {n: p.detach().cpu()
-                for n, p in state.model.named_parameters()}
-        del state, step
-        gc.collect()
-        torch.cuda.empty_cache()
-        out = os.path.join(tmp, f'dp_{kind}.pt')
-        ranks = spawn(dp_step_worker, (kind, cell, out), DP, dev, backend)
-        got = torch.load(out)
-        os.remove(out)
-        tol = STEP_TOL if kind == 'captioner' else PROP_STEP_TOL
-        errs = {'loss': max(abs(a['loss'] / b['loss'] - 1) for a, b in
-                            zip(ranks[0]['metrics'], single)),
-                'grad_norm': max(abs(a['grad_norm'] / b['grad_norm'] - 1)
-                                 for a, b in zip(ranks[0]['metrics'],
-                                                 single)),
-                'param': max((got[n] - w).abs().max().item()
-                             for n, w in want.items())}
-        for key, e in errs.items():
-            check(e <= tol[key], f'dp {kind} steps: {key} error {e} (tol '
-                  f'{tol[key]})')
-        for r in ranks:
-            check(all(r['launches'].values()), f'dp {kind}: rank '
-                  f'{r["rank"]} launched {r["launches"]}')
-            seen.update(r['shapes'])
-        launches[f'dp_steps_{kind}'] = summed(ranks)
-        dp_ms = statistics.median(ranks[0]['ms'][1:])
-        one_ms = statistics.median(single_ms[1:])
-        report[f'steps_{kind}'] = {'errors': errs, 'dp_ms': dp_ms,
-                                   'single_ms': one_ms}
-        print(f'      {kind} fp32, {DP_STEPS} Adam steps, global batch '
-              f'{cell["b"]}: dp={DP} against one '
-              f'process, errors {errs} (tolerances {tol}); ms a step '
-              f'(median of steps 2-{DP_STEPS}): {DP} ranks sharing one card '
-              f'{dp_ms:.2f}, one process {one_ms:.2f} ({smi}); launches per '
-              f'rank {[r["launches"] for r in ranks]}')
-        del got, want
-        torch.cuda.empty_cache()
-
     log = os.path.join(tmp, 'dplog')
     argv = ['--procedure', 'train_cap', *tree, *CLI_FLAGS, *DP_CAP_FLAGS,
             '--log_dir', log, '--exper_name', 'dpcap', '--dp_devices',
@@ -3794,6 +3825,235 @@ def phase_engine_replicas(dev, smi, cap_dir):
     torch.cuda.empty_cache()
     return counts[DP], {'differ': differ, 'worst_gap': worst,
                         'captions_per_s': cps}
+
+
+# ---------------------------------------------------------------------------
+# --fsdp, expert and sequence parallelism
+# ---------------------------------------------------------------------------
+
+# 22a's spawns: (label, (dp, sp, ep), --fsdp, the cells it runs), each
+# against one process's steps on the same global batches
+SHARD_SPAWNS = (('fsdp', (DP, 1, 1), True, ('captioner', 'proposal')),
+                ('ep', (1, 1, DP), False, ('moe',)),
+                ('sp', (1, DP, 1), False, ('proposal',)))
+# 22b's procedures on phase 17's tree: (label, procedure, flags); the
+# global batches are 17a's and 17b's (32 and 16)
+SHARD_RUNS = (
+    ('fsdp_cap', 'train_cap', [*DP_CAP_FLAGS, '--fsdp', '--dp_devices',
+                               str(DP)]),
+    ('fsdp_prop', 'train_prop', ['--B', str(16 // DP), '--fsdp',
+                                 '--dp_devices', str(DP)]),
+    ('ep_cap', 'train_cap', [*CAP_FLAGS, '--moe_experts', str(MOE_EXPERTS),
+                             '--ep_devices', str(DP)]),
+    ('sp_prop', 'train_prop', [*PROP_FLAGS, '--sp_devices', str(DP)]))
+# the attention calls of a proposal step under sp = 2 at the proposal cell:
+# a rank's query block (S/2 rows) against the whole key sequence
+SP_CASES = [('sp audio self-attn', PB, 4, PSA // DP, PSA, 256, False),
+            ('sp video self-attn', PB, 4, PSV // DP, PSV, 256, False),
+            ('sp audio->video cross', PB, 4, PSA // DP, PSV, 256, False),
+            ('sp video->audio cross', PB, 4, PSV // DP, PSA, 256, False)]
+
+
+def step_errors(ranks_cell, single, got, want):
+    '''21c's errors of a sharded run against one process: loss and
+    grad_norm relative, each step; parameters absolute after the last.'''
+    return {'loss': max(abs(a['loss'] / b['loss'] - 1) for a, b in
+                        zip(ranks_cell['metrics'], single)),
+            'grad_norm': max(abs(a['grad_norm'] / b['grad_norm'] - 1)
+                             for a, b in zip(ranks_cell['metrics'], single)),
+            'param': max((got[n] - w).abs().max().item()
+                         for n, w in want.items())}
+
+
+def phase_shard_steps(dev, smi, tmp, seen):
+    '''22a: fp32 train-step parity of two gloo ranks sharing the card
+    under --fsdp (the captioner and the proposal generator), expert
+    parallelism (the MoE captioner) and sequence parallelism (the proposal
+    generator), DP_STEPS steps each against one process; each rank's
+    bytes beside one process's. Returns ({run: launches}, numbers).'''
+    cells = dp_cells()
+    single, launches, report = {}, {}, {}
+    for name in ('captioner', 'moe', 'proposal'):
+        kind, cell = cells[name]
+        gc.collect()
+        sync()
+        base = allocated(dev)          # what earlier phases still hold
+        state, step, batches = dp_cell(kind, cell, dev)
+        sync()
+        init_bytes = allocated(dev) - base
+        metrics, ms = dp_steps(state, step, batches)
+        state.optimizer.zero_grad()
+        gc.collect()
+        sync()
+        single[name] = {
+            'metrics': metrics, 'ms': ms, 'init_bytes': init_bytes,
+            'step_bytes': allocated(dev) - base,
+            'want': {n: p.detach().cpu()
+                     for n, p in state.model.named_parameters()}}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, grid, fsdp, names in SHARD_SPAWNS:
+        t0 = time.perf_counter()
+        ranks = spawn(shard_step_worker,
+                      ([(n, cells[n]) for n in names], grid, fsdp, tmp),
+                      int(np.prod(grid)), dev, DP_BACKEND)
+        secs = time.perf_counter() - t0
+        for name in names:
+            got = torch.load(os.path.join(tmp, f'{name}.pt'))
+            os.remove(os.path.join(tmp, f'{name}.pt'))
+            one = single[name]
+            mine = [r['cells'][name] for r in ranks]
+            errs = step_errors(mine[0], one['metrics'], got, one['want'])
+            tol = PROP_STEP_TOL if name == 'proposal' else STEP_TOL
+            for key, e in errs.items():
+                check(e <= tol[key], f'{label} {name} steps: {key} error '
+                      f'{e} (tol {tol[key]})')
+            for r in mine:
+                check(all(r['launches'].values()), f'{label} {name}: a rank '
+                      f'launched {r["launches"]}')
+                seen.update(r['shapes'])
+            if label == 'sp':
+                check(any(sh[3] == PSA // DP and sh[4] == PSA
+                          for sh in mine[0]['shapes']),
+                      f'sp: no {PSA // DP}x{PSA} launch')
+            key = f'{label} {name}'
+            launches[key] = {k: sum(r['launches'][k] for r in mine)
+                             for k in (KERNEL, KERNEL_DQ, KERNEL_DKV)}
+            mib = 2 ** 20
+            report[key] = {
+                'errors': errs, 'spawn_s': secs,
+                'ms': statistics.median(mine[0]['ms'][1:]),
+                'single_ms': statistics.median(one['ms'][1:]),
+                'rank_init_MiB': [r['init_bytes'] / mib for r in mine],
+                'rank_step_MiB': [r['step_bytes'] / mib for r in mine],
+                'rank_held_MiB': [None if r['held'] is None else
+                                  {k: v / mib for k, v in r['held'].items()}
+                                  for r in mine],
+                'single_init_MiB': one['init_bytes'] / mib,
+                'single_step_MiB': one['step_bytes'] / mib}
+            rep = report[key]
+            print(f'      {label} {name} fp32, {DP_STEPS} Adam steps, global '
+                  f'batch {cells[name][1]["b"]}, grid dp x sp x ep {grid}: '
+                  f'errors {errs} (tolerances {tol}); ms a step (median of '
+                  f'steps 2-{DP_STEPS}): {len(mine)} ranks sharing one card '
+                  f'{rep["ms"]:.2f}, one process {rep["single_ms"]:.2f}; '
+                  f'MiB allocated after init a rank '
+                  f'{[round(x, 1) for x in rep["rank_init_MiB"]]}, one '
+                  f'process {rep["single_init_MiB"]:.1f}; after the steps '
+                  f'(moments made) '
+                  f'{[round(x, 1) for x in rep["rank_step_MiB"]]}, one '
+                  f'process {rep["single_step_MiB"]:.1f}; a rank\'s '
+                  f'sharded / whole leaves (parameters, moments) MiB '
+                  f'{rep["rank_held_MiB"]} ({smi}); spawn {secs:.1f} s; '
+                  f'launches {launches[key]}')
+    del single
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def phase_shard_procedures(dev, smi, tmp, tree, cap_dir, seen):
+    '''22b: the procedures under each flag on phase 17's tree, one epoch,
+    build_parser widths, bf16, pallas, the ranks spawned as python -m
+    bmt_tpu_torch spawns them (gloo: two ranks share the card); the two
+    train_cap runs side by side, then the two train_prop runs (four ranks
+    on the card and the host at once: their seconds are a cost of that,
+    not the procedures' own); each run directory loads in one process
+    (best_* through the app's loader; a captioner's last_* with its
+    optimizer too), and each captioner is scored by evaluate in one
+    process. Returns ({run: launches}, numbers).'''
+    from bmt_tpu_torch.parallel.mesh import axes
+    log = os.path.join(tmp, 'shardlog')
+    props = os.path.join(os.path.dirname(os.path.dirname(cap_dir)),
+                         'train_prop', 'prop', 'submissions',
+                         'prop_results_val_1_e0_maxprop100.json')
+    launches, report = {}, {}
+
+    def argv_of(label, procedure, flags):
+        argv = ['--procedure', procedure, *tree, *CLI_FLAGS, *flags,
+                '--log_dir', log, '--exper_name', label]
+        if procedure == 'train_prop':
+            argv += ['--pretrained_cap_model_path', cap_dir]
+        return argv
+
+    def spawned(run):
+        cfg = Config(build_parser().parse_args(argv_of(*run)))
+        n = int(np.prod(axes(cfg)))
+        t0 = time.perf_counter()
+        ranks = spawn(dp_procedure_worker, (cfg,), n, dev, DP_BACKEND)
+        return n, time.perf_counter() - t0, ranks
+
+    for procedure in ('train_cap', 'train_prop'):
+        runs = [r for r in SHARD_RUNS if r[1] == procedure]
+        with ThreadPoolExecutor(len(runs)) as pool:
+            done = list(pool.map(spawned, runs))
+        for (label, _, flags), (n, secs, ranks) in zip(runs, done):
+            argv = argv_of(label, procedure, flags)
+            kind = 'cap' if procedure == 'train_cap' else 'prop'
+            run_dir = os.path.join(log, procedure, label)
+            check(checkpoint_exists(run_dir, f'best_{kind}_model'),
+                  f'{label}: no best_{kind}_model')
+            for r in ranks:
+                # train_prop's encoder is the captioner's, frozen: no
+                # backward kernel runs there (17b's rule)
+                check(all(r['launches'].values()) if kind == 'cap'
+                      else r['launches'][KERNEL] > 0,
+                      f'{label}: a rank launched {r["launches"]}')
+                seen.update(r['shapes'])
+            if label == 'sp_prop':
+                check(any(s[3] == PSA // DP and s[4] == PSA
+                          for s in ranks[0]['shapes']),
+                      f'{label}: no {PSA // DP}x{PSA} launch')
+            launches[label] = summed(ranks)
+            meta = read_json(os.path.join(run_dir,
+                                          f'last_{kind}_model.meta.json'))
+            t0 = time.perf_counter()
+            if kind == 'cap':
+                params = loads_back(argv, run_dir, kind, meta['step'], dev)
+                loaded = ('best_cap_model, and last_cap_model with its '
+                          'optimizer')
+            else:
+                # the app's loader; the optimizer file is the CPU tests'
+                # (its ~2 GB read would add ~10 s a run here)
+                _, _, model = load_prop_checkpoint(run_dir, device=dev)
+                params = sum(p.numel() for p in model.parameters())
+                loaded = 'best_prop_model through the app\'s loader'
+                del model
+            load_s = time.perf_counter() - t0
+            print(f'      {procedure} {" ".join(flags)}: {n} ranks, '
+                  f'{secs:.2f} s beside the other {procedure} run, result '
+                  f'{ranks[0]["result"]}, {meta["step"]} steps; loads in '
+                  f'one process in {load_s:.2f} s ({params} parameters, '
+                  f'{loaded}); rank 0: ' + '; '.join(ranks[0]['lines']))
+            report[label] = {'s': secs, 'load_s': load_s, 'ranks': n,
+                             'steps': meta['step'],
+                             'result': ranks[0]['result'],
+                             'lines': ranks[0]['lines']}
+            if kind == 'cap':
+                ev = ['--procedure', 'evaluate', *tree, *CLI_FLAGS,
+                      '--prop_pred_path', props,
+                      '--pretrained_cap_model_path', run_dir]
+                _, ev_s, launches[f'{label} evaluate'], _ = run_procedure(
+                    ev, dev, seen)
+                report[label]['evaluate_s'] = ev_s
+            shutil.rmtree(run_dir)
+            torch.cuda.empty_cache()
+    return launches, report
+
+
+def phase_sp_kernel_times(dev, smi):
+    '''22c: the three kernels' times at the sp shapes (bf16), beside their
+    plain versions, the library call and their bound.'''
+    out = {}
+    for case in SP_CASES:
+        t = kernel_times(case, dev)
+        out[f'{case[3]}x{case[4]}'] = t
+        print(f'      {case[0]:24s} B={case[1]} Sq={case[3]} Sk={case[4]}: '
+              + '; '.join(f'{k} {v["kernel"]:.4f} ms (plain '
+                          f'{v["plain"]:.4f}, library {v["library"]:.4f}, '
+                          f'bound {v["bound"]:.4f} by {v["bound_by"]})'
+                          for k, v in t.items()) + f' ({smi})')
+    return out
 
 
 def main():
@@ -4042,11 +4302,9 @@ def main():
               f'data parallelism (dp={DP}) on phase 17\'s tree and '
               f'checkpoints:')
         seen21 = collections.Counter()
-        print(f'    [21a] export_decode at the decode cell (B={B}, Sa={SA}, '
-              f'Sv={SV}, {STEPS} steps, end token {END}), replayed from '
-              f'bytes:')
-        export_report, export_launches = phase_export(dev, smi, cap_dir,
-                                                      seen21, tmp)
+        # the exports trace on the host in child processes while 21b-21d
+        # run (their seconds are a cost of sharing the host with them)
+        exports = start_exports(dev, cap_dir, tmp)
         print(f'    [21b] Adam\'s moments: train_cap resumed through '
               f'.opt.npz (CAP_FLAGS, no 1-by-1; build_parser widths, '
               f'bf16):')
@@ -4060,6 +4318,11 @@ def main():
               f'(bf16, kernel):')
         engine_launches, engine_report = phase_engine_replicas(dev, smi,
                                                                cap_dir)
+        print(f'    [21a] export_decode at the decode cell (B={B}, Sa={SA}, '
+              f'Sv={SV}, {STEPS} steps, end token {END}), exported beside '
+              f'21b-21d, replayed from bytes:')
+        export_report, export_launches = phase_export(dev, smi, cap_dir,
+                                                      seen21, exports)
         print(f'    [21e] the kernels against their plain versions at every '
               f'shape 21a-21d launched them, in that dtype and in fp32 '
               f'({len(seen21)} launch shapes, the ranks\' among them):')
@@ -4077,6 +4340,42 @@ def main():
                             **{f'moments {k}': v
                                for k, v in moment_launches.items()},
                             **dp_launches, 'engine_replicas': engine_launches}
+        started[22] = round(time.perf_counter() - t_main, 1)
+        print(f'[22] --fsdp, expert and sequence parallelism ({DP} gloo '
+              f'ranks sharing the card; not a scaling number):')
+        seen22 = collections.Counter()
+        print(f'    [22a] fp32 train-step parity against one process '
+              f'({DP_STEPS} Adam steps, dropout 0, eps {PARITY_CFG.eps}):')
+        shard_step_launches, shard_steps = phase_shard_steps(dev, smi, tmp,
+                                                             seen22)
+        print('    [22b] the procedures under each flag (build_parser '
+              'widths, bf16, --attention_impl pallas, one epoch) on phase '
+              '17\'s tree:')
+        shard_run_launches, shard_runs = phase_shard_procedures(
+            dev, smi, tmp, tree, cap_dir, seen22)
+        print(f'    [22c] the kernels against their plain versions at every '
+              f'shape 22a-22b launched them, in that dtype and in fp32 '
+              f'({len(seen22)} launch shapes, the ranks\' among them; those '
+              f'17e or 21e checked are not checked again), and their times '
+              f'at the sp shapes:')
+        # a shape and dtype that 17e or 21e checked is not checked again
+        err22, worst22, checks22 = check_path_shapes(collections.Counter({
+            k: v for k, v in seen22.items()
+            if k not in seen17 and k not in seen21}), dev)
+        print(f'      checks by dtype {checks22} all within TOL, LSE_TOL and '
+              f'BWD_TOL; max_abs_err by kernel ' + ', '.join(
+                  f'{n} {err22[n]:.3e} ({worst22.get(n, "no new shape")})'
+                  for n in err22))
+        sp_ms = phase_sp_kernel_times(dev, smi)
+        sharding = {'steps': shard_steps, 'procedures': shard_runs,
+                    'sp_kernel_ms': sp_ms,
+                    'path_shapes': {'launch_shapes': len(seen22),
+                                    'checks': checks22,
+                                    'max_abs_err': err22, 'at': worst22}}
+        phase22_launches = {**{f'22a {k}': v
+                                for k, v in shard_step_launches.items()},
+                            **{f'22b {k}': v
+                               for k, v in shard_run_launches.items()}}
 
     # times at the train cell's encoder 256x256 call (forward with lse), and
     # at the proposal cell's 800x800 call; launches of each main path's run
@@ -4088,10 +4387,11 @@ def main():
              'train_epoch_prop': prop_launches,
              'single_video_app': app_launches, **proc_launches,
              'serve': serve_launches, **option_launches,
-             **unimodal_launches, **phase21_launches}
+             **unimodal_launches, **phase21_launches, **phase22_launches}
     path_err = {k: max(procedures['path_shapes']['max_abs_err'][k],
                        options['path_shapes']['max_abs_err'][k],
-                       unimodal['path_shapes']['max_abs_err'][k], err21[k])
+                       unimodal['path_shapes']['max_abs_err'][k], err21[k],
+                       err22[k])
                 for k in (KERNEL, KERNEL_DQ, KERNEL_DKV)}
     report = [
         (KERNEL, max(max_err, train_err[KERNEL], prop_err[KERNEL],
@@ -4127,7 +4427,7 @@ def main():
         'fp32_train_step_ms': train_ms32,
         'main_py_procedures': procedures, 'serving': serving,
         'main_py_options': options, 'unimodal': unimodal,
-        'export_dp': export_dp,
+        'export_dp': export_dp, 'sharding': sharding,
         'phase_started_s': started,
         'script_s': round(time.perf_counter() - t_main, 1)}))
     print(json.dumps({'ok': True, 'device': {

@@ -164,16 +164,32 @@ def test_stage_selection_and_md5(tmp_path):
 
 
 def test_data_parallel_decode_raises_naming_its_item(tmp_path):
-    '''The parallelism that is not ported (--sp_devices, --fsdp) raises
-    in the decode assembly, naming the parallelism item, as the trainers'
-    option check does.'''
+    '''--sp_devices and --fsdp have no effect on the decode assembly (the
+    JAX package's evaluation is data-parallel only): with either, the
+    decode gives the tokens of the decode without them; only tensor
+    parallelism still raises, naming the parallelism item.'''
+    from bmt_tpu_torch.data.captioning import CaptioningDataset
+    from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
+    from bmt_tpu_torch.parallel import DataParallel
     (tmp_path / 'tree').mkdir()
     tree = mini_tree(tmp_path / 'tree')
-    for flag in ({'sp_devices': 2}, {'fsdp': None}):
-        cfg = Config(build_parser().parse_args(
-            mini_argv(tree, tmp_path, 'evaluate', dp_devices=2, **flag)))
-        with pytest.raises(NotImplementedError, match='item 11'):
-            acceptance._decode_assembly(cfg, None, None, cfg)
+    cfgs = [Config(build_parser().parse_args(mini_argv(
+        tree, tmp_path, 'evaluate', **flag)))
+        for flag in ({}, {'sp_devices': 2}, {'fsdp': None})]
+    ds = CaptioningDataset(cfgs[0], 'val_1')
+    dims = CapModelDims.from_config(cfgs[0], ds.trg_voc_size)
+    model = BiModalTransformer(
+        dims, device='cpu', generator=torch.Generator().manual_seed(1)).eval()
+    src = next(iter(ds.batches(epoch=0, shuffle=False)))['src']
+    decoded = []
+    for cfg in cfgs:
+        cfg.device = 'cpu'
+        decode_fn, _ = acceptance._decode_assembly(cfg, dims, ds, cfg)
+        decoded.append(decode_fn(model, src).numpy())
+    for got in decoded[1:]:
+        np.testing.assert_array_equal(got, decoded[0])
+    with pytest.raises(NotImplementedError, match='item 11'):
+        DataParallel(1, 'cpu', mp=2)
 
 
 def test_dp_decode_assembly_splits_over_replicas(tmp_path):

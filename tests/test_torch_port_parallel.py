@@ -6,8 +6,8 @@ single-process steps on that global batch (fp32, dropout 0: the losses
 within rtol 2e-5 and the parameters within 2e-6, the single-process parity
 tests' tolerances); ``local_rows`` is the JAX package's row block; a seeded
 sampler over the two ranks, and the serving engine over two replicas,
-greedy and sampling, give one process's tokens exactly; and the
-parallelism that is not ported still raises.'''
+greedy and sampling, give one process's tokens exactly; and tensor
+parallelism, which is not ported, still raises.'''
 import pickle
 import threading
 import types
@@ -231,13 +231,21 @@ def test_dp_devices_above_the_cards_raises_naming_both(tmp_path):
 @pytest.mark.parametrize('flag', [{'fsdp': None}, {'ep_devices': 2},
                                   {'sp_devices': 2}])
 def test_other_parallelism_still_raises_naming_item_11(tmp_path, flag):
-    cfg = Config(build_parser().parse_args(
-        mini_argv(tmp_path, tmp_path, 'train_cap', **flag)))
-    with pytest.raises(NotImplementedError, match='item 11'):
-        check_ported(cfg)
+    '''--fsdp, --ep_devices and --sp_devices pass the option check in
+    both trainers, and DataParallel takes them (more than one rank needs a
+    process group); tensor parallelism (mp) still raises, naming item
+    11.'''
+    for procedure in ('train_cap', 'train_prop'):
+        check_ported(Config(build_parser().parse_args(
+            mini_argv(tmp_path, tmp_path, procedure, **flag))))
     kw = {'fsdp': True} if 'fsdp' in flag else {k[:2]: 2 for k in flag}
+    if 'fsdp' in flag:
+        assert DataParallel(1, 'cpu', **kw).fsdp
+    else:
+        with pytest.raises(RuntimeError, match='one process a rank'):
+            DataParallel(1, 'cpu', **kw)
     with pytest.raises(NotImplementedError, match='item 11'):
-        DataParallel(1, 'cpu', **kw)
+        DataParallel(1, 'cpu', mp=2, **kw)
 
 
 def test_replica_threads_build_a_kernel_library_once(tmp_path, monkeypatch):
@@ -284,7 +292,7 @@ def test_train_loop_polls_the_ranks_only_with_a_guard():
     from bmt_tpu_torch.train.loops import _stop
 
     class Ranks:
-        n_dp = 2
+        n_dp = size = 2
 
         def __init__(self, answer):
             self.answer, self.asked = answer, 0

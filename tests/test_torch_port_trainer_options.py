@@ -142,22 +142,32 @@ def test_lora_optimizer_keeps_state_for_the_adapters_only():
 
 
 @pytest.mark.parametrize('flags,what', [
-    ({'sp_devices': 2}, 'item 11'), ({'fsdp': None}, 'item 11'),
+    ({'sp_devices': 2, 'fsdp': None, 'modality': 'audio_video'}, None),
+    ({'fsdp': None, 'ep_devices': 2}, None),
     ({'ckpt_format': 'orbax'}, 'item 12')])
 def test_only_unimodal_parallelism_and_orbax_still_raise(tree, tmp_path,
                                                          flags, what):
     '''The options this port runs pass ``check_ported``, the uni-modal
-    models and data parallelism among them; the other parallelism and orbax
-    raise, naming their ROADMAP item.'''
+    models and the data, sequence and expert parallelism and --fsdp among
+    them, alone and together (--fsdp with the procedure's sequence or
+    expert axis); orbax raises, naming its ROADMAP item.'''
     from bmt_tpu_torch.train.options import check_ported
     ported = dict(lora_rank=2, moe_experts=4, kv_cache_int8=None,
                   weights_int8=None, decode_strategy='beam',
-                  optim_mu_dtype='bfloat16', modality='audio', dp_devices=2)
+                  optim_mu_dtype='bfloat16', modality='audio', dp_devices=2,
+                  ep_devices=2, sp_devices=2)
     check_ported(Config(build_parser().parse_args(
         mini_argv(tree, tmp_path, 'train_cap', **ported))))
-    with pytest.raises(NotImplementedError, match=what):
-        check_ported(Config(build_parser().parse_args(
-            mini_argv(tree, tmp_path, 'train_cap', **flags))))
+    check_ported(Config(build_parser().parse_args(
+        mini_argv(tree, tmp_path, 'train_prop', fsdp=None, dp_devices=2))))
+    procedure = 'train_prop' if 'sp_devices' in flags else 'train_cap'
+    cfg = Config(build_parser().parse_args(
+        mini_argv(tree, tmp_path, procedure, **flags)))
+    if what is None:
+        check_ported(cfg)
+    else:
+        with pytest.raises(NotImplementedError, match=what):
+            check_ported(cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -87,3 +87,52 @@ def assert_tree_close(model_or_named, tree, atol):
         if path[-1] == 'w' and path[-2] != 'router':
             got = got.T       # a Linear's or Conv1d's weight: axes reversed
         np.testing.assert_allclose(got, want, atol=atol, err_msg=str(path))
+
+
+def jax_sharded_steps(make_step, params, cfg, frozen, batches, mesh_dp,
+                      place=False):
+    '''The JAX package's train steps over ``mesh_dp`` (its
+    ``DataParallel``): ``make_step(optimizer, frozen_mask)`` gives the step;
+    ``place``: the parameters placed by ``place_params`` (fsdp with
+    ``fsdp_min_elems=0``, the experts over ep), else replicated. Returns
+    (losses by step, the parameters after the last step as numpy).'''
+    from bmt_tpu.parallel import place_params
+    from bmt_tpu.train import optim as joptim
+    from bmt_tpu.train import steps as jsteps
+    mask = joptim.freeze_mask(params, frozen)
+    opt = joptim.build_optimizer(cfg, frozen_mask=mask)
+    if place:
+        params = place_params(params, mesh_dp.mesh, fsdp=mesh_dp.fsdp,
+                              fsdp_min_elems=0)
+    state = jsteps.init_train_state(params, opt)
+    if place:
+        state = mesh_dp.complete_on_mesh(state)
+    else:
+        state = state._replace(
+            params=mesh_dp.replicate_tree(state.params),
+            opt_state=mesh_dp.replicate_tree(state.opt_state))
+    step = mesh_dp.jit_step(make_step(opt, mask))
+    losses = []
+    for batch in batches:
+        state, m = step(state, mesh_dp.shard(batch))
+        losses.append({k: float(v) for k, v in m.items()})
+    return losses, jax.tree.map(np.asarray, state.params)
+
+
+def assert_losses_close(got, want, rtol=2e-5):
+    '''Every step's metrics of the JAX run within ``rtol`` of the port's.'''
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            np.testing.assert_allclose(g[k], v, rtol=rtol, err_msg=k)
+
+
+def assert_jax_trees_close(got, want, atol=2e-6):
+    '''Two trees in the JAX layout (the port's ``to_jax_tree`` and JAX's
+    parameters), leaf for leaf.'''
+    g = jax.tree_util.tree_flatten_with_path(got)[0]
+    w = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [p for p, _ in g] == [p for p, _ in w]
+    for (path, a), (_, b) in zip(g, w):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=atol,
+                                   err_msg=str(path))
