@@ -7,7 +7,9 @@ embedder, ``emb_A``/``emb_V``. ``UniModalTransformer`` (``--modality audio``
 or ``video``, the reference's ablations) holds ``trg_emb``, ``encoder``,
 ``decoder``, ``generator`` and, with a linear feature embedder, ``src_emb``;
 its captions live in the modality's width, not ``d_model_C``. The generator
-head (Linear -> log_softmax) is folded in, as in the JAX package.
+head (Linear -> log_softmax) is folded in, as in the JAX package; under
+tensor parallelism it is column-parallel over the vocabulary, its blocks
+gathered before the log-softmax (``parallel.tensor``).
 '''
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from bmt_tpu_torch.ops.layers import (Dropout, FeatureEmbedder,
                                       VocabularyEmbedder, positional_encode,
                                       positional_encoding_table)
 from bmt_tpu_torch.params import init_params
+from bmt_tpu_torch.parallel.tensor import ColumnParallelLinear
 
 POS_ENC_LEN = 3660  # rows of the positional table, as in the reference
 
@@ -123,8 +126,8 @@ class BiModalTransformer(nn.Module):
                                       dims.d_ff_C, dims.N, dims.H,
                                       dims.dout_p, device, dims.moe_experts,
                                       dims.moe_cf)
-        self.generator = nn.Linear(dims.d_model_C, dims.voc_size,
-                                   device=device)
+        self.generator = ColumnParallelLinear(dims.d_model_C, dims.voc_size,
+                                              device=device, gather=True)
         if dims.use_linear_embedder:
             self.emb_A = FeatureEmbedder(dims.d_aud, dims.d_model_A, device)
             self.emb_V = FeatureEmbedder(dims.d_vid, dims.d_model_V, device)
@@ -213,7 +216,8 @@ class UniModalTransformer(nn.Module):
                                device, dims.moe_experts, dims.moe_cf)
         self.decoder = Decoder(d_model, d_ff, dims.N, dims.H, dims.dout_p,
                                device, dims.moe_experts, dims.moe_cf)
-        self.generator = nn.Linear(d_model, dims.voc_size, device=device)
+        self.generator = ColumnParallelLinear(d_model, dims.voc_size,
+                                              device=device, gather=True)
         if dims.use_linear_embedder:
             self.src_emb = FeatureEmbedder(dims.d_vid if video else dims.d_aud,
                                            d_model, device)

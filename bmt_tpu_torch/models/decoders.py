@@ -66,8 +66,8 @@ class DecoderLayer(nn.Module):
 def _decode_caches(mha: MultiheadAttention, like: torch.Tensor, B: int,
                    max_len: int) -> dict:
     '''Empty self-attention caches (B, H, max_len, d_k) in ``like``'s
-    dtype.'''
-    shape = (B, mha.H, max_len, mha.k2d.out_features // mha.H)
+    dtype, H the heads ``mha`` runs on this rank.'''
+    shape = (B, mha.heads, max_len, mha.k2d.out_features // mha.H)
     return {'cache_k': like.new_zeros(shape), 'cache_v': like.new_zeros(shape)}
 
 

@@ -19,6 +19,13 @@ The decode steps' cross-attention K/V can be stored int8
 beams (``cross_attention_step`` folds the beams into query positions).
 Their logits are fp32, as JAX's ``preferred_element_type=float32``: the
 operands are upcast before the product, as ``scaled_dot_attention`` does.
+
+Tensor parallelism (``parallel.tensor``): ``q2d``/``k2d``/``v2d`` are
+column-parallel and ``d2q`` row-parallel, so a rank whose projections hold
+its mp block runs ``heads`` = H/mp of the heads, the kernels among them, and
+the decode steps keep K/V caches (int8 ones too, their scales per channel)
+of those heads only. ``parallel.sharding_rules`` cuts them only when H
+divides over mp: a head is not split.
 '''
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ from torch import nn
 from bmt_tpu_torch.ops.flash_attention import flash_attention
 from bmt_tpu_torch.ops.layers import Dropout
 from bmt_tpu_torch.ops.quant import per_127
+from bmt_tpu_torch.parallel import tensor
+from bmt_tpu_torch.parallel.tensor import (ColumnParallelLinear,
+                                           RowParallelLinear)
 
 ATTENTION_IMPLS = ('torch', 'kernel')
 
@@ -71,20 +81,27 @@ class MultiheadAttention(nn.Module):
         super().__init__()
         d_model = d_model or d_model_Q
         self.H = H
-        self.q2d = nn.Linear(d_model_Q, d_model, device=device)
-        self.k2d = nn.Linear(d_model_K, d_model, device=device)
-        self.v2d = nn.Linear(d_model_V, d_model, device=device)
-        self.d2q = nn.Linear(d_model, d_model_Q, device=device)
+        self.q2d = ColumnParallelLinear(d_model_Q, d_model, device=device)
+        self.k2d = ColumnParallelLinear(d_model_K, d_model, device=device)
+        self.v2d = ColumnParallelLinear(d_model_V, d_model, device=device)
+        self.d2q = RowParallelLinear(d_model, d_model_Q, device=device)
         self.dropout = Dropout(dout_p)
+
+    @property
+    def heads(self) -> int:
+        '''The heads this module runs: H, or H/mp when its projections hold
+        this rank's mp block.'''
+        return self.H // tensor.shards(self.q2d)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask: torch.Tensor | None,
                 attention_impl: str = 'torch') -> torch.Tensor:
         '''q (B, Sq, Dq), k (B, Sk, Dk), v (B, Sk, Dv); mask (B, 1, Sk)
         padding, (B, Sq, Sk) causal+padding, or None. Returns (B, Sq, Dq).'''
-        qp = split_heads(self.q2d(q), self.H)
-        kp = split_heads(self.k2d(k), self.H)
-        vp = split_heads(self.v2d(v), self.H)
+        H = self.heads
+        qp = split_heads(self.q2d(q), H)
+        kp = split_heads(self.k2d(k), H)
+        vp = split_heads(self.v2d(v), H)
         if mask is not None:
             mask = mask[:, None]           # one mask for every head
         if attention_impl == 'kernel':
@@ -95,7 +112,8 @@ class MultiheadAttention(nn.Module):
         else:
             raise ValueError(f'attention_impl {attention_impl!r} is not one '
                              f'of {ATTENTION_IMPLS}')
-        return self.d2q(merge_heads(self.dropout(out)))
+        out = self.dropout(out, tensor.block(self.q2d, 1))
+        return self.d2q(merge_heads(out))
 
 
 # ---------------------------------------------------------------------------
@@ -112,8 +130,8 @@ def precompute_kv(mha: MultiheadAttention, memory: torch.Tensor,
     scales (B, H, 1, d_k) fp32. ``mask`` ((B, 1, Sk) key padding, True =
     attend) matters only then: padded keys are zeroed first, so they do not
     inflate the per-channel amax.'''
-    k = split_heads(mha.k2d(memory), mha.H)
-    v = split_heads(mha.v2d(memory), mha.H)
+    k = split_heads(mha.k2d(memory), mha.heads)
+    v = split_heads(mha.v2d(memory), mha.heads)
     if not quantize:
         return k, v
     if mask is not None:
@@ -169,7 +187,7 @@ def cross_attention_step(mha: MultiheadAttention, q: torch.Tensor, kv,
     Bm-row memory, so the K/V are read once per step and never tiled.'''
     k0 = kv['k'][0] if isinstance(kv, dict) else kv[0]
     Bm = k0.shape[0]
-    qp = split_heads(mha.q2d(q), mha.H)                 # (B, H, Sq, d_k)
+    qp = split_heads(mha.q2d(q), mha.heads)             # (B, H, Sq, d_k)
     B, H, Sq, d_k = qp.shape
     folded = B != Bm
     if folded:
@@ -202,9 +220,10 @@ def self_attention_step(mha: MultiheadAttention, q: torch.Tensor,
     updated copies -- so the caches passed in are modified (beam search
     therefore reorders them into fresh tensors). Attention runs over
     positions <= step. Returns (out (B, 1, Dq), cache_k, cache_v).'''
-    qp = split_heads(mha.q2d(q), mha.H)                # (B, H, 1, d_k)
-    cache_k[:, :, step] = split_heads(mha.k2d(q), mha.H)[:, :, 0]
-    cache_v[:, :, step] = split_heads(mha.v2d(q), mha.H)[:, :, 0]
+    H = mha.heads
+    qp = split_heads(mha.q2d(q), H)                    # (B, H, 1, d_k)
+    cache_k[:, :, step] = split_heads(mha.k2d(q), H)[:, :, 0]
+    cache_v[:, :, step] = split_heads(mha.v2d(q), H)[:, :, 0]
     T_max = cache_k.shape[2]
     valid = torch.arange(T_max, device=q.device) <= step   # (T_max,)
     out = scaled_dot_attention(qp, cache_k, cache_v, valid)

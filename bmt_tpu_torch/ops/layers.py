@@ -24,6 +24,10 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from bmt_tpu_torch.parallel import tensor
+from bmt_tpu_torch.parallel.tensor import (ColumnParallelLinear,
+                                           RowParallelLinear)
+
 _generator: torch.Generator | None = None
 
 
@@ -45,17 +49,31 @@ class Dropout(nn.Module):
     The mask comes from the generator of ``dropout_generator``, or from
     torch's default generator outside one. It is drawn and scaled in x's
     dtype, so in bf16 the scale rounds to bf16, as the JAX package's
-    ``x / keep`` rounds ``keep``.'''
+    ``x / keep`` rounds ``keep``.
+
+    ``block`` = (dim, i, n): x is the i-th of n equal slices along ``dim``
+    of a tensor split over the mp ranks (``parallel.tensor.block``); the
+    mask is drawn for the whole tensor and sliced, so a rank drops what one
+    process would drop there.'''
 
     def __init__(self, p: float = 0.0):
         super().__init__()
         self.p = p
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, block: tuple | None = None
+                ) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=_generator)
+        if block is None:
+            keep = torch.empty_like(x)
+        else:
+            dim, i, n = block
+            shape = list(x.shape)
+            shape[dim] *= n
+            keep = x.new_empty(shape)
+        keep.bernoulli_(1.0 - self.p, generator=_generator)
+        if block is not None:
+            keep = keep.narrow(dim, i * x.shape[dim], x.shape[dim])
         return x * keep.div_(1.0 - self.p)
 
     def extra_repr(self) -> str:
@@ -112,17 +130,20 @@ class LayerNorm(nn.Module):
 
 
 class FeedForward(nn.Module):
-    '''Linear -> ReLU -> dropout -> Linear (the dense ``ffn_apply`` path).'''
+    '''Linear -> ReLU -> dropout -> Linear (the dense ``ffn_apply`` path);
+    under tensor parallelism ``fc1`` is column-parallel and ``fc2``
+    row-parallel over the hidden width (``parallel.tensor``).'''
 
     def __init__(self, d_model: int, d_ff: int, dout_p: float = 0.0,
                  device=None):
         super().__init__()
-        self.fc1 = nn.Linear(d_model, d_ff, device=device)
-        self.fc2 = nn.Linear(d_ff, d_model, device=device)
+        self.fc1 = ColumnParallelLinear(d_model, d_ff, device=device)
+        self.fc2 = RowParallelLinear(d_ff, d_model, device=device)
         self.dropout = Dropout(dout_p)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.dropout(F.relu(self.fc1(x))))
+        h = self.dropout(F.relu(self.fc1(x)), tensor.block(self.fc1, -1))
+        return self.fc2(h)
 
 
 def residual(norm: LayerNorm, x: torch.Tensor, sublayer,

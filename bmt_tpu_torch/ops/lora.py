@@ -23,7 +23,11 @@ base product. Two ways to carry adapters:
   base weight is copied.
 
 The delta is computed in the adapter's dtype (x is upcast to it, as JAX
-promotes a bf16 x against fp32 leaves) and cast to the output's. The JAX
+promotes a bf16 x against fp32 leaves) and cast to the output's. On a
+tensor-parallel linear (``parallel.tensor``) the adapter follows the JAX
+layout: ``lora_b`` holds this rank's columns at a column site, ``lora_a``
+its rows at a row site, and the linear's ``adapter_delta`` adds the
+collectives (``site_delta``). The JAX
 package joins the A-side products of linears that share an input
 (``shared_lora_deltas``, a TPU-lane optimisation); the hooks here apply
 each site's delta alone, which is the same sum per column.
@@ -56,8 +60,17 @@ def has_lora(module: nn.Module) -> bool:
     return 'lora_a' in module._parameters
 
 
+def site_delta(linear: nn.Module, x: torch.Tensor, a, b, s) -> torch.Tensor:
+    '''The delta of the adapter (A, B, s) on ``linear`` for its input
+    ``x``: ``lora_delta``, or on a tensor-parallel linear its
+    ``adapter_delta`` (``parallel.tensor``: A and B may be this rank's
+    blocks, joined by the linear's collectives).'''
+    delta = getattr(linear, 'adapter_delta', None)
+    return lora_delta(x, a, b, s) if delta is None else delta(x, a, b, s)
+
+
 def _own_lora_hook(module, inputs, out):
-    return out + lora_delta(inputs[0], module.lora_a, module.lora_b,
+    return out + site_delta(module, inputs[0], module.lora_a, module.lora_b,
                             module.lora_s).to(out.dtype)
 
 
@@ -194,7 +207,7 @@ def apply_adapter(sites: dict | None):
         for linear, site in (sites or {}).items():
             handles.append(linear.register_forward_hook(
                 lambda module, inputs, out, site=site:
-                out + lora_delta(inputs[0], *site).to(out.dtype)))
+                out + site_delta(module, inputs[0], *site).to(out.dtype)))
         yield
     finally:
         for handle in handles:

@@ -35,6 +35,15 @@ the gates enter the experts through ``CopyToGroup``, whose backward sums
 the ranks' partial gradients, so every rank holds the whole dL/dx and the
 router's whole gradient; the load-balance loss comes from the whole router
 outside that sum, once.
+
+Tensor parallelism (``mp``, the JAX rules' ``P('ep', None, 'mp')``): a rank
+may also hold only its block of each expert's hidden width (``w1``'s and
+``b1``'s columns, ``w2``'s rows; ``b2`` and the router whole). The input and
+the gates then enter the hidden products through ``CopyToGroup`` over the
+mp ranks, the partial ``h w2`` terms are summed over them
+(``ReduceFromGroup``), and ``b2``'s term, the same on every mp rank, is
+added after that sum; the hidden dropout draws the whole width's mask and
+keeps this rank's slice.
 '''
 from __future__ import annotations
 
@@ -72,7 +81,9 @@ class MoEFeedForward(nn.Module):
                                w2=((E, Fd, D), device), b2=((E, D), device))
         self.dropout = Dropout(dout_p)
         self.capacity_factor = capacity_factor
+        self.d_ff = d_ff
         self.ep = None          # the ep ranks' group when experts are cut
+        self.mp = None          # the mp ranks' group when d_ff is cut
 
     @torch.no_grad()
     def init_from(self, generator: torch.Generator) -> None:
@@ -123,12 +134,24 @@ class MoEFeedForward(nn.Module):
             gate = CopyToGroup.apply(gate, self.ep)
         mine = slice(first, first + n_local)
         w1, b1, w2, b2 = (t.to(dt) for t in (ex.w1, ex.b1, ex.w2, ex.b2))
+        mp = self.mp if ex.w1.shape[2] != self.d_ff else None
+        # the input and gates of the hidden products: under mp their
+        # gradients are partial on each rank and sum through CopyToGroup
+        xm, gm = ((CopyToGroup.apply(x, mp), CopyToGroup.apply(gate, mp))
+                  if mp is not None else (x, gate))
         if deterministic:
             y = torch.zeros_like(x)
+            yb = torch.zeros_like(x) if mp is not None else None
             for i in range(n_local):
-                h = F.relu(x @ w1[i] + b1[i])
-                sel = (onehot[..., first + i] * gate).to(dt)[..., None]
-                y = y + sel * (h @ w2[i] + b2[i])
+                h = F.relu(xm @ w1[i] + b1[i])
+                if mp is None:
+                    sel = (onehot[..., first + i] * gate).to(dt)[..., None]
+                    y = y + sel * (h @ w2[i] + b2[i])
+                else:
+                    sel = (onehot[..., first + i] * gm).to(dt)[..., None]
+                    y = y + sel * (h @ w2[i])
+                    sel = (onehot[..., first + i] * gate).to(dt)[..., None]
+                    yb = yb + sel * b2[i]
         else:
             C = max(1, min(S, math.ceil(S / E * self.capacity_factor)))
             # a token's slot in its expert's queue; a slot of -1 (not
@@ -137,14 +160,24 @@ class MoEFeedForward(nn.Module):
             slots = (pos[..., None] == torch.arange(
                 C, device=x.device, dtype=pos.dtype)).float()     # (B,S,E,C)
             dispatch = (onehot[..., None] * slots)[:, :, mine]
-            xin = torch.einsum('bsec,bsd->ebcd', dispatch.to(dt), x)
+            xin = torch.einsum('bsec,bsd->ebcd', dispatch.to(dt), xm)
             h = F.relu(torch.einsum('ebcd,edf->ebcf', xin, w1)
                        + b1[:, None, None, :])
-            h = self.dropout(h)
-            out = (torch.einsum('ebcf,efd->ebcd', h, w2)
-                   + b2[:, None, None, :])
-            combine = (dispatch * gate[..., None, None]).to(dt)
-            y = torch.einsum('bsec,ebcd->bsd', combine, out)
+            h = self.dropout(h, None if mp is None
+                             else (-1, mp.rank, mp.size))
+            if mp is None:
+                out = (torch.einsum('ebcf,efd->ebcd', h, w2)
+                       + b2[:, None, None, :])
+                combine = (dispatch * gate[..., None, None]).to(dt)
+                y = torch.einsum('bsec,ebcd->bsd', combine, out)
+            else:
+                out = torch.einsum('ebcf,efd->ebcd', h, w2)
+                combine = (dispatch * gm[..., None, None]).to(dt)
+                y = torch.einsum('bsec,ebcd->bsd', combine, out)
+                combine = (dispatch * gate[..., None, None]).to(dt)
+                yb = torch.einsum('bsec,ed->bsd', combine, b2)
+        if mp is not None:
+            y = ReduceFromGroup.apply(y.float(), mp).to(dt) + yb
         if n_local < E:
             y = ReduceFromGroup.apply(y, self.ep)
         return y[0] if squeeze else y

@@ -1,27 +1,30 @@
-'''Data, sequence and expert parallelism, and ZeRO-3 (counterpart of
-``bmt_tpu.parallel.mesh``; the reference wraps its models in
+'''Data, sequence, expert and tensor parallelism, and ZeRO-3 (counterpart
+of ``bmt_tpu.parallel.mesh``; the reference wraps its models in
 ``nn.DataParallel``, scripts/train_captioning_module.py:61).
 
 Two forms, as the JAX package has one mesh for both:
 
 - ``DataParallel``: one process per card in a ``torch.distributed`` group
   (``maybe_init_distributed``), for the trainers and the evaluation. The
-  ranks form a grid of ``dp x sp x ep`` in the JAX mesh's axis order
-  (``dp``, ``sp``, ``ep``; ``mp`` is not ported), rank r at coordinates
-  ``unravel(r, (dp, sp, ep))``. The global batch (``Config.train_batch_size
-  = B * dp_devices``) is split into contiguous row blocks by the **dp**
-  coordinate (``local_rows``, the datasets' per-process hook; ``shard``), so
-  the ranks of one sp or ep group see the same rows, as under JAX's
-  ``P('dp')``. Under sp, ``shard`` also takes the rank's block of each
-  ``(B, S, D)`` feature leaf whose S divides sp (``parallel.seq``). The
-  train steps sum the ranks' gradients over the ranks that share the ep
-  coordinate (``data`` group: dp x sp) with one all-reduce of a flat buffer
-  a step (summed, not averaged: the losses are already divided by the global
+  ranks form a grid of ``dp x sp x ep x mp`` in the JAX mesh's axis order,
+  rank r at coordinates ``unravel(r, (dp, sp, ep, mp))``. The global batch
+  (``Config.train_batch_size = B * dp_devices``) is split into contiguous
+  row blocks by the **dp** coordinate (``local_rows``, the datasets'
+  per-process hook; ``shard``), so the ranks of one sp, ep or mp group see
+  the same rows, as under JAX's ``P('dp')``. Under sp, ``shard`` also
+  takes the rank's block of each ``(B, S, D)`` feature leaf whose S
+  divides sp (``parallel.seq``). The train steps sum the ranks' gradients
+  over the ranks that share the ep and mp coordinates (``data`` group:
+  dp x sp) with one all-reduce of a flat buffer a step (summed, not
+  averaged: the losses are already divided by the global
   token and cell counts, which are all-reduced first), and decode outputs
   are gathered in row order over dp (``decode``). ``--fsdp`` shards the
   large parameters and their optimizer state over dp
   (``parallel.sharding_rules.ParamShards``), ``--ep_devices`` the MoE
-  experts over ep (``ops.moe``).
+  experts over ep (``ops.moe``), and ``mp`` (``DataParallel(mp=)``, a
+  library argument as in the JAX package; main.py has no flag for it) the
+  attention heads, the feed-forward widths and the vocabulary over the mp
+  ranks (``parallel.tensor``).
 - ``LocalReplicas``: copies of a model on local devices in one process, for
   serving (``serve.CaptionEngine(dp=)``) and the acceptance chain: a batch's
   row blocks decode in one thread each, on a CUDA stream of their own, so one
@@ -40,11 +43,11 @@ backends.
 Where each flag acts follows the JAX package (``axes``): ``--sp_devices`` in
 train_prop, ``--ep_devices`` in train_cap, ``--fsdp`` in both; evaluate and
 the acceptance chain are data-parallel only. ``--fsdp`` composes with
-either: the dp shards are replicated over sp (their gradients summed over
-dp x sp), and under ep the experts keep their ep blocks whole over dp
-(the JAX rules split them over dp too; the results do not depend on the
-layout). Not ported (ROADMAP queue 1 item 11): the ``mp`` axis; it
-raises.
+each: the dp shards are replicated over sp (their gradients summed over
+dp x sp), under ep the experts keep their ep blocks whole over dp (the JAX
+rules split them over dp too; the results do not depend on the layout),
+and under mp a leaf's mp block is what is cut over dp. Pipeline
+parallelism is ``parallel.pipeline``, over a group of its own.
 '''
 from __future__ import annotations
 
@@ -59,21 +62,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-NOT_PORTED = 'not ported yet (ROADMAP queue 1 item 11)'
-
-
 def default_backend(device_type: str) -> str:
     '''NCCL on the card, gloo on the CPU.'''
     return 'nccl' if device_type == 'cuda' else 'gloo'
 
 
-def maybe_init_distributed(device_type: str = 'cuda') -> bool:
+def maybe_init_distributed(device_type: str = 'cuda',
+                           backend: Optional[str] = None) -> bool:
     '''Join a ``torch.distributed`` group when the environment names one:
     torchrun's ``RANK``, ``WORLD_SIZE`` (with ``MASTER_ADDR`` and
     ``MASTER_PORT``), or the JAX package's ``JAX_COORDINATOR_ADDRESS``
     (host:port), ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``. Returns
     whether a group is up; does nothing when neither is set. The backend
-    is ``default_backend(device_type)``.'''
+    is ``backend``, or ``default_backend(device_type)``.'''
     if dist.is_initialized():
         return True
     env = os.environ
@@ -84,8 +85,8 @@ def maybe_init_distributed(device_type: str = 'cuda') -> bool:
         rank, world = int(env['JAX_PROCESS_ID']), int(env['JAX_NUM_PROCESSES'])
     else:
         return False
-    dist.init_process_group(default_backend(device_type), init_method=init,
-                            world_size=world, rank=rank)
+    dist.init_process_group(backend or default_backend(device_type),
+                            init_method=init, world_size=world, rank=rank)
     return True
 
 
@@ -106,7 +107,7 @@ def check_cards(n: int, backend: str) -> int:
     if backend == 'nccl' and n > count:
         raise ValueError(
             f'a group of {n} ranks (--dp_devices x --sp_devices x '
-            f'--ep_devices) needs {n} CUDA devices (one a rank under '
+            f'--ep_devices x mp) needs {n} CUDA devices (one a rank under '
             f'NCCL), but {count} are visible')
     if 0 < n < count:
         print(f'NOTE: data parallelism over {n} of {count} visible CUDA '
@@ -133,12 +134,6 @@ def rank_device(device, backend: str) -> torch.device:
     return torch.device('cuda', idx % count)
 
 
-def _refuse_other_axes(mp=1) -> None:
-    if (mp or 1) > 1:
-        raise NotImplementedError(f'--mp {mp} (tensor parallelism) is '
-                                  f'{NOT_PORTED}')
-
-
 PROCEDURE_AXES = {'train_cap': ('ep',), 'train_prop': ('sp',)}
 
 
@@ -156,12 +151,15 @@ def axes(cfg) -> tuple:
 class Group:
     '''A set of ranks for collectives: ``size``, this rank's index
     ``rank`` in it, the ``torch.distributed`` handle (None: the default
-    group), and whether CUDA tensors travel through host copies (gloo).
-    A copy of a module keeps the same group (``__deepcopy__``).'''
+    group), whether CUDA tensors travel through host copies (gloo), and
+    ``ranks``, the members' global ranks in group order (for point-to-point
+    sends, ``parallel.pipeline``). A copy of a module keeps the same group
+    (``__deepcopy__``).'''
 
     def __init__(self, handle=None, size: int = 1, rank: int = 0,
-                 host: bool = False):
+                 host: bool = False, ranks=None):
         self.handle, self.size, self.rank, self.host = handle, size, rank, host
+        self.ranks = list(range(size)) if ranks is None else list(ranks)
 
     def __deepcopy__(self, memo):
         return self
@@ -192,7 +190,7 @@ class Group:
         return [x.to(t.device) for x in parts]
 
 
-def _axis_groups(shape: tuple, rank: int, keep: tuple, host: bool) -> Group:
+def axis_group(shape: tuple, rank: int, keep: tuple, host: bool) -> Group:
     '''The group of the ranks that share this rank's coordinates on the
     axes not in ``keep`` (indices into ``shape``). Every rank creates every
     such group, in one order, as ``new_group`` asks.'''
@@ -206,10 +204,10 @@ def _axis_groups(shape: tuple, rank: int, keep: tuple, host: bool) -> Group:
     moved = np.moveaxis(grid, keep, range(len(shape) - len(keep), len(shape)))
     mine = None
     for ranks in moved.reshape(-1, size):
-        handle = dist.new_group([int(r) for r in ranks])
+        members = [int(r) for r in ranks]
+        handle = dist.new_group(members)
         if rank in ranks:
-            mine = Group(handle, size, int(np.where(ranks == rank)[0][0]),
-                         host)
+            mine = Group(handle, size, members.index(rank), host, members)
     return mine
 
 
@@ -228,52 +226,57 @@ def _leading(tree) -> Optional[int]:
 
 
 class DataParallel:
-    '''This process's place in the ``dp x sp x ep`` grid: ``n_dp``,
-    ``n_sp``, ``n_ep`` ranks a side (1 outside a group), its global
-    ``rank`` and coordinates ``dp_rank``, ``sp_rank``, ``ep_rank``, its
-    ``device``, and the groups of the ranks that differ only in dp
-    (``dp_group``), sp (``sp_group``), ep (``ep_group``), and in dp or sp
-    (``data_group``: the ranks that share the ep coordinate, over which
-    losses, counts and gradients sum). ``dp``, ``sp``, ``ep``: the
-    configured counts (``axes``); their product must equal the group's
+    '''This process's place in the ``dp x sp x ep x mp`` grid: ``n_dp``,
+    ``n_sp``, ``n_ep``, ``n_mp`` ranks a side (1 outside a group), its
+    global ``rank`` and coordinates ``dp_rank``, ``sp_rank``, ``ep_rank``,
+    ``mp_rank``, its ``device``, and the groups of the ranks that differ
+    only in dp (``dp_group``), sp (``sp_group``), ep (``ep_group``), mp
+    (``mp_group``), and in dp or sp (``data_group``: the ranks that share the
+    ep and mp coordinates, over which losses, counts and gradients sum).
+    ``dp``, ``sp``, ``ep``: the configured counts (``axes``), ``mp`` the
+    JAX ``DataParallel``'s argument; their product must equal the group's
     size (a group joined by ``maybe_init_distributed`` or the spawn in
-    ``__main__``). ``fsdp``: the trainers shard the large parameters over
-    dp (``shard_params``).'''
+    ``__main__``), as ``make_mesh`` asks for devices. ``fsdp``: the
+    trainers shard the large parameters over dp (``shard_params``).'''
 
     def __init__(self, dp: Optional[int] = None, device=None, sp: int = 1,
                  ep: int = 1, mp: int = 1, fsdp: bool = False):
-        _refuse_other_axes(mp)
-        dp, sp, ep = dp or 1, sp or 1, ep or 1
+        dp, sp, ep, mp = dp or 1, sp or 1, ep or 1, mp or 1
+        counts = (f'--dp_devices {dp} x --sp_devices {sp} x --ep_devices '
+                  f'{ep} x mp {mp}')
+        if min(dp, sp, ep, mp) < 1:
+            raise ValueError(f'{counts}: every count must be at least 1')
         self.fsdp = bool(fsdp)
         self.device = torch.device(device or 'cuda')
         self.shards = None
-        want = dp * sp * ep
+        want = dp * sp * ep * mp
         if dist.is_initialized():
             world = dist.get_world_size()
             if want != world:
                 raise ValueError(
-                    f'--dp_devices {dp} x --sp_devices {sp} x --ep_devices '
-                    f'{ep} = {want} ranks, but the process group has {world} '
-                    f'ranks; they must be equal')
+                    f'{counts} = {want} ranks, but the process group has '
+                    f'{world} ranks; they must be equal')
             self.rank, self.backend = dist.get_rank(), dist.get_backend()
         elif want > 1:
             raise RuntimeError(
-                f'--dp_devices {dp} x --sp_devices {sp} x --ep_devices {ep}: '
-                f'parallelism runs one process a rank; launch through '
-                f'python -m bmt_tpu_torch (it spawns them) or torchrun')
+                f'{counts}: parallelism runs one process a rank; launch '
+                f'through python -m bmt_tpu_torch (it spawns them) or '
+                f'torchrun')
         else:
             self.rank, self.backend = 0, None
-        self.n_dp, self.n_sp, self.n_ep, self.size = dp, sp, ep, want
-        self.dp_rank, self.sp_rank, self.ep_rank = (
-            int(i) for i in np.unravel_index(self.rank, (dp, sp, ep)))
+        self.n_dp, self.n_sp, self.n_ep, self.n_mp = dp, sp, ep, mp
+        self.size = want
+        self.dp_rank, self.sp_rank, self.ep_rank, self.mp_rank = (
+            int(i) for i in np.unravel_index(self.rank, (dp, sp, ep, mp)))
         host = self.backend == 'gloo' and self.device.type != 'cpu'
-        shape = (dp, sp, ep)
+        shape = (dp, sp, ep, mp)
         self.world = Group(None, want, self.rank, host) if want > 1 \
             else Group()
-        self.dp_group = _axis_groups(shape, self.rank, (0,), host)
-        self.sp_group = _axis_groups(shape, self.rank, (1,), host)
-        self.ep_group = _axis_groups(shape, self.rank, (2,), host)
-        self.data_group = _axis_groups(shape, self.rank, (0, 1), host)
+        self.dp_group = axis_group(shape, self.rank, (0,), host)
+        self.sp_group = axis_group(shape, self.rank, (1,), host)
+        self.ep_group = axis_group(shape, self.rank, (2,), host)
+        self.mp_group = axis_group(shape, self.rank, (3,), host)
+        self.data_group = axis_group(shape, self.rank, (0, 1), host)
 
     @property
     def is_main(self) -> bool:
@@ -283,8 +286,10 @@ class DataParallel:
     @property
     def seed_rank(self) -> int:
         '''The index of this rank's dropout stream (``steps.step_seed``):
-        its (dp, sp) place, so the ep ranks of one row block draw the same
-        masks and each sp rank draws for its own rows; 0 in one process.'''
+        its (dp, sp) place, so the ep and mp ranks of one row block draw
+        the same masks (an mp rank keeps its slice of a mask inside a
+        tensor-parallel block, ``ops.layers.Dropout``) and each sp rank
+        draws for its own rows; 0 in one process.'''
         return self.dp_rank * self.n_sp + self.sp_rank
 
     def local_rows(self, B: int) -> Optional[tuple]:
@@ -299,16 +304,19 @@ class DataParallel:
         n = B // self.n_dp
         return self.dp_rank * n, (self.dp_rank + 1) * n
 
-    def shard(self, batch):
+    def shard(self, batch, seq: bool = True):
         '''This rank's rows of every array leaf of a batch (a dict tree of
         (B, ...) numpy arrays or tensors), as tensors on its device; other
-        leaves as they are. Under sp, each (B, S, D) leaf whose S divides
-        sp keeps only this rank's sequence block, and the batch gains
-        ``'seq_split'``, the names of those leaves (``parallel.seq``).'''
+        leaves as they are. Under sp (unless ``seq`` is off: a model
+        without sequence parallelism then runs the rows whole on each sp
+        rank), each (B, S, D) leaf whose S divides sp keeps only this
+        rank's sequence block, and the batch gains ``'seq_split'``, the
+        names of those leaves (``parallel.seq``).'''
         B = _leading(batch)
         rows = self.local_rows(B)
         split = set()
-        if rows is None and self.n_sp == 1:
+        n_sp = self.n_sp if seq else 1
+        if rows is None and n_sp == 1:
             return batch
         lo, hi = rows if rows is not None else (0, B)
 
@@ -318,8 +326,8 @@ class DataParallel:
             if not (isinstance(x, (np.ndarray, torch.Tensor)) and x.ndim):
                 return x
             x = x[lo:hi]
-            if self.n_sp > 1 and x.ndim == 3 and x.shape[1] % self.n_sp == 0:
-                n = x.shape[1] // self.n_sp
+            if n_sp > 1 and x.ndim == 3 and x.shape[1] % n_sp == 0:
+                n = x.shape[1] // n_sp
                 x = x[:, self.sp_rank * n:(self.sp_rank + 1) * n]
                 split.add(key)
             return torch.as_tensor(x).to(self.device)
@@ -403,13 +411,15 @@ class DataParallel:
 
     def shard_params(self, state, min_elems: Optional[int] = None):
         '''Shard ``state``'s model, optimizer state and EMA as the grid
-        asks (``--fsdp`` over dp, the MoE experts over ep): returns the
-        ``ParamShards`` (kept as ``self.shards``, which the train steps
-        read), or None when nothing shards.'''
+        asks (``--fsdp`` over dp, the MoE experts over ep, the tensor-
+        parallel leaves over mp): returns the ``ParamShards`` (kept as
+        ``self.shards``, which the train steps read), or None when nothing
+        shards.'''
         from bmt_tpu_torch.parallel.sharding_rules import (FSDP_MIN_ELEMS,
                                                            ParamShards)
         self.shards = None
-        if not ((self.fsdp and self.n_dp > 1) or self.n_ep > 1):
+        if not ((self.fsdp and self.n_dp > 1) or self.n_ep > 1
+                or self.n_mp > 1):
             return None
         self.shards = ParamShards(
             state, self, self.fsdp,
@@ -417,11 +427,12 @@ class DataParallel:
         return self.shards
 
     def whole(self, everything: bool = False):
-        '''A context in which the ``--fsdp`` leaves and the EMA are whole
-        on every rank (for validation), and with ``everything`` the MoE
-        experts and the optimizer's moments too (for checkpoints and
-        resumes); on exit each rank keeps its shards again. A no-op when
-        nothing is sharded. A collective: every rank enters it.'''
+        '''A context in which the ``--fsdp`` leaves, the mp blocks and the
+        EMA are whole on every rank (for validation), and with
+        ``everything`` the MoE experts and the optimizer's moments too (for
+        checkpoints and resumes); on exit each rank keeps its shards again.
+        A no-op when nothing is sharded. A collective: every rank enters
+        it.'''
         if self.shards is None:
             return contextlib.nullcontext()
         return self.shards.whole(everything)

@@ -245,13 +245,34 @@ when it fails:
     phase 17's tree at build_parser widths, bf16, pallas, one epoch:
     train_cap --fsdp --dp_devices 2 --B 16, train_prop --fsdp --dp_devices
     2 --B 8, train_cap --moe_experts 4 --ep_devices 2, train_prop
-    --sp_devices 2, spawned as python -m bmt_tpu_torch spawns them; each
-    run directory loads in one process (best_* through the app's loader;
-    a captioner's last_* with its optimizer too) and each captioner is
-    scored by evaluate in one process; the seconds by stage; (22c) the kernels against their
-    plain versions at every 22a-22b launch shape, and their times at the
+    --sp_devices 2, spawned as python -m bmt_tpu_torch spawns them, all
+    four side by side; each run directory loads in one process (best_*
+    through the app's loader; a captioner's last_* with its optimizer too)
+    and each captioner is scored by evaluate in one process; the seconds
+    by stage; (22c) the kernels against their plain versions at every 22a-22b launch shape, and their times at the
     sp shapes (B=16: 400x800, 150x300, 400x300, 150x800) beside the plain
-    versions, the library and the bound.
+    versions, the library and the bound;
+23. tensor and pipeline parallelism, two gloo ranks sharing the card, in
+    one spawn: (23a) fp32, 3 Adam steps, dropout 0, under mp 2 (each rank
+    2 of the 4 heads, half of each feed-forward's width and of the
+    vocabulary): the train cell, the proposal cell and the train cell's
+    captioner with rank-8 LoRA adapters (only they move), held to one
+    process (22a's runs for the first two) within STEP_TOL and
+    PROP_STEP_TOL, each rank's memory_allocated after init and after the
+    steps beside one process's and beside the share of the leaves it holds
+    (``mp_share``); (23b) the decode cell with mp-2 parameters in fp32
+    (its step log-probs along one process's trajectory within
+    LOGPROB_TOL) and bf16 (its tokens one process's, or a near-tie within
+    BF16_GAP_TOL), captions/s beside one process's; (23c) the flagship
+    bi-modal encoder pipelined over pp 2 (a layer a stage, B=32 in 4
+    microbatches) in fp32 and bf16, its outputs and each layer's gradient
+    against the sequential stack in one process within PP_TOL, ms a
+    forward + backward beside the stack's; (23d) python -m
+    bmt_tpu_torch.scripts.dryrun_multichip --n_devices 4 --backend gloo
+    (its dryrun_multichip, run here so its four ranks report their
+    launches and shapes); (23e) the kernels against their plain versions at every
+    23a-23d launch shape, and their times at H = 2 at the train and
+    proposal cells' longest calls, bf16 and fp32.
 
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. The report's `launches` are the captioning
@@ -260,9 +281,11 @@ trainer's (phase 9); `launches_by_path` gives those of each main path's run
 evaluate, phase 18's requests as `serve`, phase 19's runs, phase 20's
 as `unimodal` (20a's four runs) and `acceptance`, and phase 21's:
 `export_replay`, `moments ...`, `dp_*` summed over the ranks,
-`engine_replicas`; and phase 22's `22a ...` and `22b ...`, summed over the
-ranks), `serving` phase 18's numbers, `main_py_options` phase 19's,
+`engine_replicas`; and phase 22's `22a ...` and `22b ...`, and phase 23's
+`23a ...`, `23b decode`, `23c pp ...` and `23d dryrun ranks`, summed over
+the ranks), `serving` phase 18's numbers, `main_py_options` phase 19's,
 `unimodal` phase 20's, `export_dp` phase 21's, `sharding` phase 22's,
+`tensor_pipeline` phase 23's,
 `main_py_procedures` phase 17's seconds, step and prefetch-wait
 times, scores, the checks at its launch shapes and busy share, `proposal_800x800` each kernel's times at the
 proposal cell's 800x800 call, `fp32_train_256x256` its fp32 times at the
@@ -314,13 +337,16 @@ from bmt_tpu_torch.ops.flash_attention import (
     reset_launch_counts, row_dot)
 from bmt_tpu_torch.models import (MultimodalProposalGenerator, PropModelDims,
                                   captioner_class, proposal_class)
-from bmt_tpu_torch.params import (load_jax_params, load_params_npz,
-                                  save_params_npz, to_jax_tree)
+from bmt_tpu_torch.params import (init_params, load_jax_params,
+                                  load_params_npz, save_params_npz,
+                                  to_jax_tree)
+from bmt_tpu_torch.models.encoders import BiModalEncoder
 from bmt_tpu_torch.data import (AUDIO_BUCKETS, VIDEO_BUCKETS, Vocab,
                                 bucket_len, build_vocab_from_meta)
 from bmt_tpu_torch.ops.masks import make_masks
 from bmt_tpu_torch.scripts import single_video_prediction as app
-from bmt_tpu_torch.ops.lora import add_lora, apply_adapter, has_lora
+from bmt_tpu_torch.ops.lora import (add_lora, apply_adapter, has_lora,
+                                    lora_frozen_predicate)
 from bmt_tpu_torch.ops.attention import _quantize_per_channel
 from bmt_tpu_torch.ops.quant import (quantize_linear_int8, quantize_rows_int8,
                                      quantize_tree_int8)
@@ -332,6 +358,9 @@ from bmt_tpu_torch.serve import (SHORTEST_SEGMENT, CaptionEngine,
                                  load_exported_decode)
 from bmt_tpu_torch.parallel import DataParallel, replica_devices
 from bmt_tpu_torch.parallel.launch import spawn
+from bmt_tpu_torch.parallel.pipeline import (
+    pipelined_bimodal_encoder_forward, stack_layer_params, stage_group)
+from bmt_tpu_torch.parallel.sharding_rules import mp_plan
 from bmt_tpu_torch.train import (build_optimizer, init_train_state,
                                  make_cap_train_step,
                                  make_prop_inference_step,
@@ -3581,15 +3610,25 @@ def dp_cells():
 
 
 def dp_cell(kind, cell, dev, dp=None):
-    '''(state, step, host batches) of a ``dp_cells`` cell on ``dev``; the
-    step over ``dp``'s group when given, the state's shards cut as the
-    group asks (``--fsdp`` at FSDP_MIN_ELEMS, the experts over ep).'''
+    '''(state, step, host batches) of a ``dp_cells`` cell on ``dev`` (a
+    captioner cell with ``'lora'``: rank-LORA_RANK adapters on its
+    attention and feed-forward linears, trained alone); the step over
+    ``dp``'s group when given, the state's shards cut as the group asks
+    (``--fsdp`` at FSDP_MIN_ELEMS, the experts over ep, the tensor-parallel
+    leaves over mp).'''
     dims = cell['dims']
     if kind == 'captioner':
         model = BiModalTransformer(
             dims, device=dev,
             generator=torch.Generator(device=dev).manual_seed(0))
-        state = init_train_state(model, build_optimizer(cell['cfg'], model))
+        frozen = None
+        if cell.get('lora'):
+            add_lora(model, LORA_RANK,
+                     torch.Generator(device=dev).manual_seed(8),
+                     targets='attn_ffn')
+            frozen = lora_frozen_predicate
+        state = init_train_state(model, build_optimizer(cell['cfg'], model,
+                                                        frozen=frozen))
         step = make_cap_train_step(dims, SMOOTHING, PAD, 'kernel', dp=dp)
         batches = [train_batch(seed, cell['b'], *cell['shape'], dims)
                    for seed in cell['seeds']]
@@ -3632,15 +3671,17 @@ def allocated(device) -> int:
 
 
 def shard_step_worker(cells, grid, fsdp, out_dir, device):
-    '''One rank of 22a's step parity (a spawned process) on the (dp, sp,
-    ep) ``grid`` with ``--fsdp`` as asked: for each (name, (kind, cell)) of
+    '''One rank of 22a's (or 23a's) step parity (a spawned process) on the
+    (dp, sp, ep[, mp]) ``grid`` with ``--fsdp`` as asked: for each (name,
+    (kind, cell)) of
     ``cells``, its metrics, launches and launch shapes, its bytes
     (``memory_allocated`` after init and after the steps, the moments made;
     ``ParamShards.bytes``), and rank 0's whole parameters saved under
     ``out_dir``.'''
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dp = DataParallel(grid[0], device, sp=grid[1], ep=grid[2], fsdp=fsdp)
+    dp = DataParallel(grid[0], device, sp=grid[1], ep=grid[2],
+                      mp=grid[3] if len(grid) > 3 else 1, fsdp=fsdp)
     out = {'rank': dp.rank, 'cells': {}}
     for name, (kind, cell) in cells:
         # the last cell's state: ParamShards and its optimizer refer to
@@ -3831,8 +3872,9 @@ def phase_engine_replicas(dev, smi, cap_dir):
 # --fsdp, expert and sequence parallelism
 # ---------------------------------------------------------------------------
 
-# 22a's spawns: (label, (dp, sp, ep), --fsdp, the cells it runs), each
-# against one process's steps on the same global batches
+# 22a's grids: (label, (dp, sp, ep), --fsdp, the cells it runs), each
+# against one process's steps on the same global batches; one spawn runs
+# them all, and 23a-23c after them
 SHARD_SPAWNS = (('fsdp', (DP, 1, 1), True, ('captioner', 'proposal')),
                 ('ep', (1, 1, DP), False, ('moe',)),
                 ('sp', (1, DP, 1), False, ('proposal',)))
@@ -3865,43 +3907,79 @@ def step_errors(ranks_cell, single, got, want):
                          for n, w in want.items())}
 
 
+def single_run(kind, cell, dev):
+    '''One process's run of a ``dp_cells`` cell: its metrics, ms, bytes
+    after init and after the steps, and its parameters after them (on the
+    host).'''
+    gc.collect()
+    sync()
+    base = allocated(dev)              # what earlier phases still hold
+    state, step, batches = dp_cell(kind, cell, dev)
+    sync()
+    init_bytes = allocated(dev) - base
+    metrics, ms = dp_steps(state, step, batches)
+    state.optimizer.zero_grad()
+    gc.collect()
+    sync()
+    out = {'metrics': metrics, 'ms': ms, 'init_bytes': init_bytes,
+           'step_bytes': allocated(dev) - base,
+           'want': {n: p.detach().cpu()
+                    for n, p in state.model.named_parameters()}}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_tensor_worker(jobs, spec, out_dir, device):
+    '''22a's and 23a-23c's ranks in one spawn (each spawn costs ~20 s of
+    start-up on the card): each (label, grid, fsdp, cells) job as
+    ``shard_step_worker`` (rank 0's whole parameters saved under
+    ``out_dir/label``), then 23b and 23c (``tensor_pipeline_part``).'''
+    out = {'jobs': {}}
+    for label, grid, fsdp, cells in jobs:
+        path = os.path.join(out_dir, label)
+        os.makedirs(path, exist_ok=True)
+        t0 = time.perf_counter()
+        out['jobs'][label] = shard_step_worker(cells, grid, fsdp, path,
+                                               device)
+        out['jobs'][label]['s'] = time.perf_counter() - t0
+    out.update(tensor_pipeline_part(spec, out_dir, device))
+    return out
+
+
 def phase_shard_steps(dev, smi, tmp, seen):
     '''22a: fp32 train-step parity of two gloo ranks sharing the card
     under --fsdp (the captioner and the proposal generator), expert
     parallelism (the MoE captioner) and sequence parallelism (the proposal
     generator), DP_STEPS steps each against one process; each rank's
-    bytes beside one process's. Returns ({run: launches}, numbers).'''
+    bytes beside one process's. The same spawn runs 23a-23c (their
+    one-process references made first, ``mp_references``). Returns ({run:
+    launches}, numbers, what phase 23 reports from: the ranks' results,
+    the one-process runs and references).'''
     cells = dp_cells()
-    single, launches, report = {}, {}, {}
-    for name in ('captioner', 'moe', 'proposal'):
-        kind, cell = cells[name]
-        gc.collect()
-        sync()
-        base = allocated(dev)          # what earlier phases still hold
-        state, step, batches = dp_cell(kind, cell, dev)
-        sync()
-        init_bytes = allocated(dev) - base
-        metrics, ms = dp_steps(state, step, batches)
-        state.optimizer.zero_grad()
-        gc.collect()
-        sync()
-        single[name] = {
-            'metrics': metrics, 'ms': ms, 'init_bytes': init_bytes,
-            'step_bytes': allocated(dev) - base,
-            'want': {n: p.detach().cpu()
-                     for n, p in state.model.named_parameters()}}
-        del state, step
-        gc.collect()
-        torch.cuda.empty_cache()
+    launches, report = {}, {}
+    single = {name: single_run(*cells[name], dev)
+              for name in ('captioner', 'moe', 'proposal')}
+    ref_dir = os.path.join(tmp, 'mp_ref')
+    os.makedirs(ref_dir, exist_ok=True)
+    refs23 = mp_references(dev, ref_dir)
+    mp = mp_cells()
+    jobs = [(label, grid, fsdp, [(n, cells[n]) for n in names])
+            for label, grid, fsdp, names in SHARD_SPAWNS]
+    jobs.append(('mp', (1, 1, 1, MP), False,
+                 [(n, mp[n]) for n in ('captioner', 'proposal', 'lora')]))
+    t0 = time.perf_counter()
+    spawned = spawn(shard_tensor_worker, (jobs, refs23['spec'], ref_dir),
+                    DP, dev, DP_BACKEND)
+    secs = time.perf_counter() - t0
+    print(f'      one spawn of {DP} ranks for 22a and 23a-23c: {secs:.1f} s')
     for label, grid, fsdp, names in SHARD_SPAWNS:
-        t0 = time.perf_counter()
-        ranks = spawn(shard_step_worker,
-                      ([(n, cells[n]) for n in names], grid, fsdp, tmp),
-                      int(np.prod(grid)), dev, DP_BACKEND)
-        secs = time.perf_counter() - t0
+        ranks = [r['jobs'][label] for r in spawned]
         for name in names:
-            got = torch.load(os.path.join(tmp, f'{name}.pt'))
-            os.remove(os.path.join(tmp, f'{name}.pt'))
+            path = os.path.join(ref_dir, label, f'{name}.pt')
+            got = torch.load(path)
+            os.remove(path)
             one = single[name]
             mine = [r['cells'][name] for r in ranks]
             errs = step_errors(mine[0], one['metrics'], got, one['want'])
@@ -3923,6 +4001,7 @@ def phase_shard_steps(dev, smi, tmp, seen):
             mib = 2 ** 20
             report[key] = {
                 'errors': errs, 'spawn_s': secs,
+                'job_s': ranks[0]['s'],
                 'ms': statistics.median(mine[0]['ms'][1:]),
                 'single_ms': statistics.median(one['ms'][1:]),
                 'rank_init_MiB': [r['init_bytes'] / mib for r in mine],
@@ -3945,20 +4024,24 @@ def phase_shard_steps(dev, smi, tmp, seen):
                   f'{[round(x, 1) for x in rep["rank_step_MiB"]]}, one '
                   f'process {rep["single_step_MiB"]:.1f}; a rank\'s '
                   f'sharded / whole leaves (parameters, moments) MiB '
-                  f'{rep["rank_held_MiB"]} ({smi}); spawn {secs:.1f} s; '
-                  f'launches {launches[key]}')
+                  f'{rep["rank_held_MiB"]} ({smi}); {rep["job_s"]:.1f} s '
+                  f'of the spawn; launches {launches[key]}')
+    refs23['single'].update({k: single[k]
+                             for k in ('captioner', 'proposal')})
     del single
     torch.cuda.empty_cache()
-    return launches, report
+    return launches, report, {'ranks': spawned, 'spawn_s': secs,
+                              'ref_dir': ref_dir, **refs23}
 
 
 def phase_shard_procedures(dev, smi, tmp, tree, cap_dir, seen):
     '''22b: the procedures under each flag on phase 17's tree, one epoch,
     build_parser widths, bf16, pallas, the ranks spawned as python -m
-    bmt_tpu_torch spawns them (gloo: two ranks share the card); the two
-    train_cap runs side by side, then the two train_prop runs (four ranks
-    on the card and the host at once: their seconds are a cost of that,
-    not the procedures' own); each run directory loads in one process
+    bmt_tpu_torch spawns them (gloo: two ranks share the card); the four
+    runs side by side (eight ranks on the card and the host at once: their
+    seconds are a cost of that, not the procedures' own; train_prop starts
+    from phase 17's captioner, so no run waits for another); each run
+    directory loads in one process
     (best_* through the app's loader; a captioner's last_* with its
     optimizer too), and each captioner is scored by evaluate in one
     process. Returns ({run: launches}, numbers).'''
@@ -3983,11 +4066,11 @@ def phase_shard_procedures(dev, smi, tmp, tree, cap_dir, seen):
         ranks = spawn(dp_procedure_worker, (cfg,), n, dev, DP_BACKEND)
         return n, time.perf_counter() - t0, ranks
 
+    with ThreadPoolExecutor(len(SHARD_RUNS)) as pool:
+        done = list(pool.map(spawned, SHARD_RUNS))
     for procedure in ('train_cap', 'train_prop'):
-        runs = [r for r in SHARD_RUNS if r[1] == procedure]
-        with ThreadPoolExecutor(len(runs)) as pool:
-            done = list(pool.map(spawned, runs))
-        for (label, _, flags), (n, secs, ranks) in zip(runs, done):
+        runs = [(r, d) for r, d in zip(SHARD_RUNS, done) if r[1] == procedure]
+        for (label, _, flags), (n, secs, ranks) in runs:
             argv = argv_of(label, procedure, flags)
             kind = 'cap' if procedure == 'train_cap' else 'prop'
             run_dir = os.path.join(log, procedure, label)
@@ -4021,7 +4104,7 @@ def phase_shard_procedures(dev, smi, tmp, tree, cap_dir, seen):
                 del model
             load_s = time.perf_counter() - t0
             print(f'      {procedure} {" ".join(flags)}: {n} ranks, '
-                  f'{secs:.2f} s beside the other {procedure} run, result '
+                  f'{secs:.2f} s beside the other three runs, result '
                   f'{ranks[0]["result"]}, {meta["step"]} steps; loads in '
                   f'one process in {load_s:.2f} s ({params} parameters, '
                   f'{loaded}); rank 0: ' + '; '.join(ranks[0]['lines']))
@@ -4053,6 +4136,484 @@ def phase_sp_kernel_times(dev, smi):
                           f'{v["plain"]:.4f}, library {v["library"]:.4f}, '
                           f'bound {v["bound"]:.4f} by {v["bound_by"]})'
                           for k, v in t.items()) + f' ({smi})')
+    return out
+
+# ---------------------------------------------------------------------------
+# tensor and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+MP = 2                                  # phase 23's mp ranks and pp stages
+PP_B, PP_MICRO = TB, 4                  # 23c: the train cell's rows
+PP_REPS = 3                             # 23c: timed forward + backward
+MP_DECODE_ROUNDS = 3                    # 23b: timed decodes a path
+DRYRUN_N = 4                            # 23d's ranks (sp 2 x mp 2)
+# 23c, relative L2 against the sequential stack in one process: (the
+# outputs, each layer's gradient as one vector). fp32: the microbatches'
+# products (8 rows, where the fp32 forward also splits its key loop at
+# Sq = 96) and the weight gradients' sums over them run in another order;
+# the outputs move ~6e-7, and a ReLU pre-activation within that of 0 falls
+# on either side (STEP_TOL's ties): a random-weighted loss gives every
+# token an O(1) gradient, and 23c's layers read 2.3e-4 on an H100 (the
+# feed-forwards' leaves 2.7e-4, the rest 1.2e-4; printed apart). A
+# schedule fault (a microbatch dropped, doubled or out of order) moves
+# them by O(1). bf16: both paths round to 8 mantissa bits (2^-7 relative
+# an ulp), as BWD_TOL's bf16 rtol
+PP_TOL = {torch.float32: (1e-5, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+# 23e's timed H/mp calls: the train and proposal cells' longest ones at
+# H = 4 / MP heads
+MP_TIME_CASES = [('mp2 enc self-attn audio', TB, 4 // MP, SA, SA, 256,
+                  False),
+                 ('mp2 prop self-attn audio', PB, 4 // MP, PSA, PSA, 256,
+                  False)]
+
+
+def mp_spec():
+    """What phase 23's ranks build, passed to them (a spawned rank
+    re-imports this script): the decode cell's dims, rows, lengths and
+    steps, 23c's encoder dims, rows, microbatches and repetitions."""
+    return types.SimpleNamespace(
+        dims=CapModelDims(voc_size=VOC), b=B, sa=SA, sv=SV, steps=STEPS,
+        rounds=MP_DECODE_ROUNDS, pp_b=PP_B, pp_micro=PP_MICRO,
+        pp_reps=PP_REPS)
+
+
+def mp_cells():
+    """23a's cells: 22a's fp32 captioner and proposal cells, and the
+    captioner with rank-LORA_RANK adapters on its attention and
+    feed-forward linears (only they train)."""
+    cells = dp_cells()
+    kind, cap = cells['captioner']
+    return {'captioner': cells['captioner'], 'proposal': cells['proposal'],
+            'lora': (kind, {**cap, 'lora': True})}
+
+
+def mp_share(model, n_mp: int = MP) -> float:
+    """The share of a model's parameter bytes an mp rank holds, from the
+    leaf shapes and ``parallel.sharding_rules.mp_plan`` (the split leaves
+    a 1/n_mp block, the rest whole)."""
+    split = set(mp_plan(model, n_mp)[0])
+    total = sum(p.numel() for p in model.parameters())
+    held = sum(p.numel() / (n_mp if id(p) in split else 1)
+               for p in model.parameters())
+    return held / total
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def pp_encoder(dev, dtype, spec):
+    """The flagship bi-modal encoder (``spec.dims``, CapModelDims(): N = 2,
+    H = 4, d_model 1024, A 128 and V 1024 wide) drawn from a seed in
+    ``dtype``, its inputs at the train cell (PP_B rows, SA audio and SV
+    video, padded tails) and the loss weights: loss = sum(Av wA) +
+    sum(Va wV)."""
+    dims, n, sa, sv = spec.dims, spec.pp_b, spec.sa, spec.sv
+    enc = BiModalEncoder(dims.d_model_A, dims.d_model_V, dims.d_model,
+                         dims.d_ff_A, dims.d_ff_V, dims.N, dims.H, 0.0, dev)
+    init_params(enc, torch.Generator(device=dev).manual_seed(31))
+    enc = enc.to(dtype).eval()
+    g = torch.Generator(device=dev).manual_seed(32)
+    A = torch.randn(n, sa, dims.d_model_A, generator=g, device=dev)
+    V = torch.randn(n, sv, dims.d_model_V, generator=g, device=dev)
+    la = torch.randint(sa // 2, sa + 1, (n,), generator=g, device=dev)
+    lv = torch.randint(sv // 2, sv + 1, (n,), generator=g, device=dev)
+    Am = (torch.arange(sa, device=dev)[None] < la[:, None])[:, None]
+    Vm = (torch.arange(sv, device=dev)[None] < lv[:, None])[:, None]
+    w = (torch.randn(A.shape, generator=g, device=dev),
+         torch.randn(V.shape, generator=g, device=dev))
+    return enc, (A.to(dtype), V.to(dtype), Am, Vm), w
+
+
+def pp_loss(Av, Va, w):
+    return (Av.float() * w[0]).sum() + (Va.float() * w[1]).sum()
+
+
+def pp_reference(dev, dtype, path, spec):
+    """23c's sequential stack in this process: its (Av, Va) and every
+    layer's gradient saved to ``path``; returns its median ms of forward +
+    backward."""
+    enc, (A, V, Am, Vm), w = pp_encoder(dev, dtype, spec)
+    ms = []
+    for _ in range(1 + spec.pp_reps):
+        enc.zero_grad(set_to_none=True)
+        sync()
+        t0 = time.perf_counter()
+        Av, Va = enc(A, V, Am, Vm, 'kernel')
+        pp_loss(Av, Va, w).backward()
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    torch.save({'out': (Av.detach().cpu(), Va.detach().cpu()),
+                'grads': {f'{i}.{n}': p.grad.cpu()
+                          for i, layer in enumerate(enc.layers)
+                          for n, p in layer.named_parameters()}}, path)
+    del enc
+    return statistics.median(ms[1:])
+
+
+def pp_rank(dev, dtype, path, seen, spec):
+    """23c on this rank: its stage of the flagship encoder pipelined over
+    the two ranks (PP_MICRO microbatches), timed; its outputs and each of
+    its layers' gradients (one vector a layer) against the sequential
+    stack's (``pp_reference``) as relative L2 errors, and the launches of
+    the first run."""
+    enc, (A, V, Am, Vm), w = pp_encoder(dev, dtype, spec)
+    group = stage_group(dev)
+    stage = stack_layer_params(enc.layers, group.size, group.rank)
+    ms, launches = [], None
+    reset_launch_counts()
+    with launch_shapes(seen):
+        for _ in range(1 + spec.pp_reps):
+            stage.zero_grad(set_to_none=True)
+            sync()
+            t0 = time.perf_counter()
+            Av, Va = pipelined_bimodal_encoder_forward(
+                stage, A, V, Am, Vm, group, spec.pp_micro,
+                attention_impl='kernel')
+            pp_loss(Av, Va, w).backward()
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            launches = launches or launch_counts()
+    ref = torch.load(path)
+    per = len(enc.layers) // group.size
+    # each layer's gradient as one vector (a key projection's bias has a
+    # gradient of exactly 0, so a leaf alone has no scale to be read in)
+    layers = {group.rank * per + j: layer for j, layer in enumerate(stage)}
+
+    def err(keep):
+        def one(i, layer):
+            names = [n for n, _ in layer.named_parameters() if keep(n)]
+            got = dict(layer.named_parameters())
+            return rel_l2(
+                torch.cat([got[n].grad.float().reshape(-1) for n in names]),
+                torch.cat([ref['grads'][f'{i}.{n}'].float().reshape(-1)
+                           for n in names]).to(dev))
+        return max(one(i, layer) for i, layer in layers.items())
+    out = {'ms': ms[1:], 'launches': launches,
+           'out_err': max(rel_l2(a, b.to(dev))
+                          for a, b in zip((Av, Va), ref['out'])),
+           'grad_err': err(lambda n: True),
+           'ffn_err': err(lambda n: n.startswith('ff_')),
+           'rest_err': err(lambda n: not n.startswith('ff_')),
+           'layers': sorted(layers)}
+    del enc, stage, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_input(dev, spec, dtype=torch.float32):
+    """The decode cell's features (B rows, SV video, SA audio), seeded."""
+    return features(torch.Generator(device=dev).manual_seed(23), spec.b,
+                    spec.sv, spec.sa, spec.dims, dev, dtype)
+
+
+def decoded(model, x, spec, seen=None):
+    """(the greedy tokens at the decode cell, end_idx -1: every step runs,
+    the ms of MP_DECODE_ROUNDS timed decodes after a warm one)."""
+    ms = []
+    with launch_shapes(seen if seen is not None
+                       else collections.Counter()):
+        for _ in range(1 + spec.rounds):
+            sync()
+            t0 = time.perf_counter()
+            tokens = greedy_decode_bimodal(model, x, spec.steps, START, -1,
+                                           PAD, 'kernel')
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    return tokens, ms[1:]
+
+
+@torch.inference_mode()
+def step_logprobs(model, x, tokens, steps):
+    """The decode's step log-probs (steps, B, VOC) teacher-forced along
+    ``tokens``, on the host."""
+    state, step_fn, _ = bimodal_step_setup(model, x, PAD, steps, 'kernel')
+    out = []
+    for s in range(steps):
+        lp, state = step_fn(state, tokens[:, s:s + 1], s)
+        out.append(lp.float().cpu())
+    return torch.stack(out)
+
+
+def mp_decode_rank(dp, dev, path, seen, spec):
+    """23b on this rank: the flagship captioner (seed 0) with its mp-2
+    parameters decodes the decode cell in fp32, then in bf16; the fp32 step
+    log-probs along one process's trajectory (``path``) against one
+    process's, as the largest absolute error."""
+    model = BiModalTransformer(
+        spec.dims, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    state = init_train_state(model, build_optimizer(TRAIN_CFG, model))
+    dp.shard_params(state)
+    model.eval()
+    ref = torch.load(path)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model.to(dtype)
+        x = decode_input(dev, spec, dtype)
+        tokens, ms = decoded(model, x, spec, seen)
+        out[str(dtype)] = {'tokens': tokens.cpu(), 'ms': ms}
+        if dtype == torch.float32:
+            lp = step_logprobs(model, x, ref['tokens'].to(dev), spec.steps)
+            out[str(dtype)]['lp_err'] = (lp - ref['lp']).abs().max().item()
+    dp.shards = None
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_pipeline_part(spec, ref_dir, device):
+    """23b and 23c on one of the two gloo ranks (after 23a's steps, in
+    ``shard_tensor_worker``): the decode cell with mp-2 parameters, and the
+    flagship encoder pipelined over the two ranks in fp32 and bf16, each
+    part's launches and launch shapes."""
+    out = {}
+    dp = DataParallel(1, device, mp=MP)
+    seen = collections.Counter()
+    reset_launch_counts()
+    out['decode'] = mp_decode_rank(
+        dp, device, os.path.join(ref_dir, 'decode.pt'), seen, spec)
+    out['decode_launches'] = launch_counts()
+    out['pp'] = {str(dtype): pp_rank(device, dtype, os.path.join(
+        ref_dir, f'pp_{str(dtype)[6:]}.pt'), seen, spec)
+        for dtype in (torch.float32, torch.bfloat16)}
+    out['shapes23'] = dict(seen)
+    return out
+
+
+def phase_dryrun(dev, smi, seen):
+    """23d: python -m bmt_tpu_torch.scripts.dryrun_multichip --n_devices
+    DRYRUN_N --backend gloo, through its ``dryrun_multichip`` (run here, so
+    that its ranks, spawned from this process, report their launches and
+    their launch shapes through ``launch_shapes``). Returns (the ranks'
+    launches summed, numbers)."""
+    from bmt_tpu_torch.scripts.dryrun_multichip import dryrun_multichip
+    t0 = time.perf_counter()
+    with launch_shapes(seen):          # its one-process references, here
+        line, ranks = dryrun_multichip(DRYRUN_N, 'cuda', DP_BACKEND,
+                                       record=launch_shapes)
+    secs = time.perf_counter() - t0
+    print(f'      {line}')
+    check(line.startswith(f'dryrun_multichip({DRYRUN_N}) OK'),
+          f'dryrun_multichip: {line}')
+    check(len(ranks) == DRYRUN_N and all(r['launches'][KERNEL]
+                                         for r in ranks),
+          f'a dry-run rank launched no forward kernel: '
+          f'{[r["launches"] for r in ranks]}')
+    for r in ranks:
+        seen.update(r['launch_shapes'])
+    launches = summed(ranks)
+    print(f'      {secs:.1f} s ({smi}); the ranks\' launches {launches}')
+    return launches, {'line': line, 's': secs, 'launches': launches}
+
+
+def mp_references(dev, ref_dir):
+    """Phase 23's one-process references, made before 22a's spawn: the
+    LoRA captioner's steps, the decode cell's tokens in fp32 and bf16 and
+    the fp32 step log-probs along its trajectory (saved for the ranks),
+    23c's sequential stack (saved), and the share of each model's bytes
+    an mp rank should hold (``mp_share``)."""
+    spec = mp_spec()
+    kind, cell = mp_cells()['lora']
+    single = {'lora': single_run(kind, cell, dev)}
+    model = BiModalTransformer(
+        spec.dims, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0)).eval()
+    share = {'captioner': mp_share(model), 'proposal': mp_share(
+        MultimodalProposalGenerator(PropModelDims(), device='meta'))}
+    x = decode_input(dev, spec)
+    tokens32, ms32 = decoded(model, x, spec)
+    torch.save({'tokens': tokens32,
+                'lp': step_logprobs(model, x, tokens32, spec.steps)},
+               os.path.join(ref_dir, 'decode.pt'))
+    model16 = model.to(torch.bfloat16)
+    x16 = decode_input(dev, spec, torch.bfloat16)
+    tokens16, ms16 = decoded(model16, x16, spec)
+    pp_ms = {str(dtype): pp_reference(dev, dtype, os.path.join(
+        ref_dir, f'pp_{str(dtype)[6:]}.pt'), spec)
+        for dtype in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    return {'spec': spec, 'single': single, 'share': share,
+            'tokens32': tokens32, 'ms32': ms32, 'tokens16': tokens16,
+            'ms16': ms16, 'model16': model16, 'x16': x16, 'pp_ms': pp_ms}
+
+
+def phase_tensor_pipeline(dev, smi, ctx, seen):
+    """23a-23c, from 22a's spawn (``ctx``: ``phase_shard_steps``'s third
+    result), its MP gloo ranks sharing the card (NCCL refuses two ranks on
+    one device), against one process: 23a the fp32 steps of the captioner
+    and proposal cells (22a's one-process runs) and of the LoRA captioner
+    under mp 2, each rank's bytes beside one process's and beside the
+    predicted share; 23b the decode cell with mp-2 parameters, fp32 and
+    bf16, beside one process's tokens and captions/s; 23c the flagship
+    encoder pipelined over pp 2 (one layer a stage, PP_MICRO
+    microbatches) against the sequential stack, fp32 and bf16, its ms
+    beside the stack's. Returns ({run: launches summed over the ranks},
+    numbers)."""
+    spec, single, share = ctx['spec'], ctx['single'], ctx['share']
+    tokens32, ms32 = ctx['tokens32'], ctx['ms32']
+    tokens16, ms16 = ctx['tokens16'], ctx['ms16']
+    model16, x16, pp_ms = ctx['model16'], ctx['x16'], ctx['pp_ms']
+    ranks = ctx['ranks']
+    launches, report = {}, {'spawn_s': ctx['spawn_s'],
+                            'share_predicted': share}
+    mib = 2 ** 20
+    # 23a
+    for name in ('captioner', 'proposal', 'lora'):
+        got = torch.load(os.path.join(ctx['ref_dir'], 'mp', f'{name}.pt'))
+        one = single[name]
+        mine = [r['jobs']['mp']['cells'][name] for r in ranks]
+        errs = step_errors(mine[0], one['metrics'], got, one['want'])
+        tol = PROP_STEP_TOL if name == 'proposal' else STEP_TOL
+        for key, e in errs.items():
+            check(e <= tol[key], f'23a mp {name} steps: {key} error {e} '
+                  f'(tol {tol[key]})')
+        for r in mine:
+            check(all(r['launches'].values()), f'23a mp {name}: a rank '
+                  f'launched {r["launches"]}')
+            seen.update(r['shapes'])
+            check(any(sh[2] == 4 // MP for sh in r['shapes']),
+                  f'23a mp {name}: no launch at H = {4 // MP}')
+        if name == 'lora':
+            base = {n: w for n, w in one['want'].items() if 'lora' not in n}
+            moved = [n for n in base if not torch.equal(got[n], base[n])]
+            check(not moved, f'23a mp lora: base leaves moved: {moved[:3]}')
+            check(any(got[n].abs().sum() > 0 for n in got
+                      if n.endswith('lora_b')), '23a mp lora: no adapter '
+                  'moved')
+        launches[f'23a {name}'] = {k: sum(r['launches'][k] for r in mine)
+                                   for k in (KERNEL, KERNEL_DQ, KERNEL_DKV)}
+        rep = report[name] = {
+            'errors': errs, 'ms': statistics.median(mine[0]['ms'][1:]),
+            'single_ms': statistics.median(one['ms'][1:]),
+            'rank_init_MiB': [r['init_bytes'] / mib for r in mine],
+            'rank_step_MiB': [r['step_bytes'] / mib for r in mine],
+            'rank_held_MiB': [{k: v / mib for k, v in r['held'].items()}
+                              for r in mine],
+            'single_init_MiB': one['init_bytes'] / mib,
+            'single_step_MiB': one['step_bytes'] / mib,
+            'init_share': mine[0]['init_bytes'] / max(one['init_bytes'], 1)}
+        predicted = (f', predicted {share[name]:.3f} of the parameters'
+                     if name in share else '')
+        print(f'      [23a] {name} fp32 under mp {MP}, {DP_STEPS} Adam '
+              f'steps: errors {errs} (tolerances {tol}); ms a step (median '
+              f'of steps 2-{DP_STEPS}): {MP} ranks sharing one card '
+              f'{rep["ms"]:.2f}, one process {rep["single_ms"]:.2f}; MiB '
+              f'allocated after init a rank '
+              f'{[round(v, 1) for v in rep["rank_init_MiB"]]}, one process '
+              f'{rep["single_init_MiB"]:.1f} (share {rep["init_share"]:.3f}'
+              f'{predicted}); after the steps '
+              f'{[round(v, 1) for v in rep["rank_step_MiB"]]}, one process '
+              f'{rep["single_step_MiB"]:.1f}; a rank\'s sharded / whole '
+              f'leaves (parameters, moments) MiB {rep["rank_held_MiB"]} '
+              f'({smi}); launches {launches[f"23a {name}"]}')
+    # 23b
+    dec = {}
+    for dtype, want, ms1 in ((torch.float32, tokens32, ms32),
+                             (torch.bfloat16, tokens16, ms16)):
+        mine = ranks[0]['decode'][str(dtype)]
+        for r in ranks[1:]:
+            check(torch.equal(r['decode'][str(dtype)]['tokens'],
+                              mine['tokens']), f'23b {dtype}: the mp ranks '
+                  f'decoded different tokens')
+        got, want = mine['tokens'], want.cpu()
+        rows = [i for i in range(spec.b)
+                if not torch.equal(got[i], want[i])]
+        worst = 0.0
+        if dtype == torch.float32:
+            lp_err = max(r['decode'][str(dtype)]['lp_err'] for r in ranks)
+            check(lp_err <= LOGPROB_TOL, f'23b fp32: step log-probs along '
+                  f'one process\'s trajectory off by {lp_err}')
+        else:
+            lp_err = None
+            for i in rows:
+                step = next(c for c in range(1, spec.steps + 1)
+                            if got[i, c] != want[i, c]) - 1
+                worst = max(worst, trajectory_gap(model16, x16,
+                                                  want.to(dev), 'kernel',
+                                                  i, step))
+            check(worst <= BF16_GAP_TOL, f'23b bf16: mp-2 tokens part from '
+                  f'one process\'s at a top-2 gap of {worst}')
+        cps = spec.b / (statistics.median(mine['ms']) / 1e3)
+        cps1 = spec.b / (statistics.median(ms1) / 1e3)
+        dec[str(dtype)[6:]] = {'rows_differ': len(rows), 'lp_err': lp_err,
+                               'worst_gap': worst, 'captions_per_s': cps,
+                               'single_captions_per_s': cps1}
+        print(f'      [23b] decode cell (B={spec.b}, Sa={spec.sa}, '
+              f'Sv={spec.sv}, {spec.steps} steps) {str(dtype)[6:]} with '
+              f'mp-{MP} parameters: {spec.b - len(rows)} of {spec.b} rows '
+              f'equal one process\'s'
+              + (f', step log-probs along its trajectory within {lp_err:.3e}'
+                 f' (tol {LOGPROB_TOL})' if lp_err is not None else
+                 f' (the rest near-ties, top-2 gap <= {worst:.3e}, tol '
+                 f'{BF16_GAP_TOL})')
+              + f'; captions/s {MP} ranks sharing one card {cps:.1f}, one '
+                f'process {cps1:.1f} ({smi})')
+    report['decode'] = dec
+    launches['23b decode'] = summed([{'launches': r['decode_launches']}
+                                     for r in ranks])
+    check(launches['23b decode'][KERNEL] > 0, '23b: no forward launch')
+    del model16, ctx['model16']
+    # 23c
+    pp = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        mine = [r['pp'][str(dtype)] for r in ranks]
+        out_err = max(m['out_err'] for m in mine)
+        grad_err = max(m['grad_err'] for m in mine)
+        tol = PP_TOL[dtype]
+        check(out_err <= tol[0] and grad_err <= tol[1],
+              f'23c pp {dtype}: outputs {out_err}, gradients {grad_err} '
+              f'(tol {tol})')
+        check(sorted(sum((m['layers'] for m in mine), [])) == sorted(
+            set(sum((m['layers'] for m in mine), []))), '23c: a layer on '
+            'both stages')
+        key = f'23c pp {str(dtype)[6:]}'
+        launches[key] = {k: sum(m['launches'][k] for m in mine)
+                         for k in (KERNEL, KERNEL_DQ, KERNEL_DKV)}
+        check(all(launches[key].values()), f'{key}: launches '
+              f'{launches[key]}')
+        ms = statistics.median(mine[0]['ms'])
+        bubble = (MP - 1) / (spec.pp_micro + MP - 1)
+        parts = {k: max(m[k] for m in mine) for k in ('ffn_err',
+                                                      'rest_err')}
+        pp[str(dtype)[6:]] = {'out_err': out_err, 'grad_err': grad_err,
+                              **parts, 'ms': ms,
+                              'sequential_ms': pp_ms[str(dtype)],
+                              'bubble': bubble}
+        print(f'      [23c] flagship encoder (N=2, B={spec.pp_b}, '
+              f'Sa={spec.sa}, Sv={spec.sv}) {str(dtype)[6:]} over pp {MP} '
+              f'({spec.pp_micro} microbatches, bubble {bubble:.2f}): '
+              f'outputs rel L2 '
+              f'{out_err:.2e}, gradients {grad_err:.2e} (the feed-forwards '
+              f'{parts["ffn_err"]:.2e}, the rest {parts["rest_err"]:.2e}; '
+              f'tol {tol}); ms a '
+              f'forward + backward {ms:.2f} pipelined ({MP} ranks sharing '
+              f'one card), {pp_ms[str(dtype)]:.2f} sequential in one '
+              f'process ({smi}); launches {launches[key]}')
+    report['pipeline'] = pp
+    for r in ranks:
+        seen.update(r['shapes23'])
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def phase_mp_kernel_times(dev, smi):
+    """23e's times: the three kernels at MP_TIME_CASES in bf16 and fp32,
+    beside their plain versions, the library call and their bound."""
+    out = {}
+    for case in MP_TIME_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            t = kernel_times(case, dev, dtype=dtype)
+            out[f'{case[0]} {str(dtype)[6:]}'] = t
+            print(f'      {case[0]:26s} B={case[1]} H={case[2]} '
+                  f'Sq={case[3]} Sk={case[4]} {str(dtype)[6:]}: '
+                  + '; '.join(f'{k} {v["kernel"]:.4f} ms (plain '
+                              f'{v["plain"]:.4f}, library '
+                              f'{v["library"]:.4f}, bound {v["bound"]:.4f} '
+                              f'by {v["bound_by"]})'
+                              for k, v in t.items()) + f' ({smi})')
     return out
 
 
@@ -4346,8 +4907,8 @@ def main():
         seen22 = collections.Counter()
         print(f'    [22a] fp32 train-step parity against one process '
               f'({DP_STEPS} Adam steps, dropout 0, eps {PARITY_CFG.eps}):')
-        shard_step_launches, shard_steps = phase_shard_steps(dev, smi, tmp,
-                                                             seen22)
+        shard_step_launches, shard_steps, ctx23 = phase_shard_steps(
+            dev, smi, tmp, seen22)
         print('    [22b] the procedures under each flag (build_parser '
               'widths, bf16, --attention_impl pallas, one epoch) on phase '
               '17\'s tree:')
@@ -4376,6 +4937,40 @@ def main():
                                 for k, v in shard_step_launches.items()},
                             **{f'22b {k}': v
                                for k, v in shard_run_launches.items()}}
+        started[23] = round(time.perf_counter() - t_main, 1)
+        print(f'[23] tensor and pipeline parallelism ({MP} gloo ranks '
+              f'sharing the card; not a scaling number):')
+        seen23 = collections.Counter()
+        print(f'    [23a-c] (run in 22a\'s spawn) fp32 steps under mp {MP} '
+              f'against one process ({DP_STEPS} Adam steps, dropout 0, eps '
+              f'{PARITY_CFG.eps}), the decode cell with mp-{MP} parameters, '
+              f'the flagship encoder over pp {MP}:')
+        tp_launches, tensor_pipeline = phase_tensor_pipeline(
+            dev, smi, ctx23, seen23)
+        del ctx23
+        print(f'    [23d] bmt_tpu_torch.scripts.dryrun_multichip '
+              f'--n_devices {DRYRUN_N} --backend {DP_BACKEND} (its '
+              f'dryrun_multichip, in this process; four ranks share the '
+              f'card):')
+        tp_launches['23d dryrun ranks'], tensor_pipeline['dryrun'] = \
+            phase_dryrun(dev, smi, seen23)
+        print(f'    [23e] the kernels against their plain versions at every '
+              f'shape 23a-23d launched them, in that dtype and in fp32 '
+              f'({len(seen23)} launch shapes, the ranks\' among them; those '
+              f'17e, 21e or 22c checked are not checked again), and their '
+              f'times at H = {4 // MP}:')
+        err23, worst23, checks23 = check_path_shapes(collections.Counter({
+            k: v for k, v in seen23.items()
+            if k not in seen17 and k not in seen21 and k not in seen22}),
+            dev)
+        print(f'      checks by dtype {checks23} all within TOL, LSE_TOL and '
+              f'BWD_TOL; max_abs_err by kernel ' + ', '.join(
+                  f'{n} {err23[n]:.3e} ({worst23.get(n, "no new shape")})'
+                  for n in err23))
+        tensor_pipeline['kernel_ms'] = phase_mp_kernel_times(dev, smi)
+        tensor_pipeline['path_shapes'] = {
+            'launch_shapes': len(seen23), 'checks': checks23,
+            'max_abs_err': err23, 'at': worst23}
 
     # times at the train cell's encoder 256x256 call (forward with lse), and
     # at the proposal cell's 800x800 call; launches of each main path's run
@@ -4387,11 +4982,12 @@ def main():
              'train_epoch_prop': prop_launches,
              'single_video_app': app_launches, **proc_launches,
              'serve': serve_launches, **option_launches,
-             **unimodal_launches, **phase21_launches, **phase22_launches}
+             **unimodal_launches, **phase21_launches, **phase22_launches,
+             **tp_launches}
     path_err = {k: max(procedures['path_shapes']['max_abs_err'][k],
                        options['path_shapes']['max_abs_err'][k],
                        unimodal['path_shapes']['max_abs_err'][k], err21[k],
-                       err22[k])
+                       err22[k], err23[k])
                 for k in (KERNEL, KERNEL_DQ, KERNEL_DKV)}
     report = [
         (KERNEL, max(max_err, train_err[KERNEL], prop_err[KERNEL],
@@ -4428,6 +5024,7 @@ def main():
         'main_py_procedures': procedures, 'serving': serving,
         'main_py_options': options, 'unimodal': unimodal,
         'export_dp': export_dp, 'sharding': sharding,
+        'tensor_pipeline': tensor_pipeline,
         'phase_started_s': started,
         'script_s': round(time.perf_counter() - t_main, 1)}))
     print(json.dumps({'ok': True, 'device': {

@@ -166,8 +166,9 @@ def test_stage_selection_and_md5(tmp_path):
 def test_data_parallel_decode_raises_naming_its_item(tmp_path):
     '''--sp_devices and --fsdp have no effect on the decode assembly (the
     JAX package's evaluation is data-parallel only): with either, the
-    decode gives the tokens of the decode without them; only tensor
-    parallelism still raises, naming the parallelism item.'''
+    decode gives the tokens of the decode without them; tensor parallelism
+    (mp) no longer raises NotImplementedError: DataParallel takes it, and
+    more than one rank asks for a process group.'''
     from bmt_tpu_torch.data.captioning import CaptioningDataset
     from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
     from bmt_tpu_torch.parallel import DataParallel
@@ -188,7 +189,7 @@ def test_data_parallel_decode_raises_naming_its_item(tmp_path):
         decoded.append(decode_fn(model, src).numpy())
     for got in decoded[1:]:
         np.testing.assert_array_equal(got, decoded[0])
-    with pytest.raises(NotImplementedError, match='item 11'):
+    with pytest.raises(RuntimeError, match='one process a rank'):
         DataParallel(1, 'cpu', mp=2)
 
 

@@ -177,6 +177,30 @@ def test_tensor_core_kernels_match_plain_on_card(cuda, dtype, shape, kind):
     _check_training_kernels(*_inputs(cuda, dtype, shape, kind), dtype)
 
 
+# the tensor-parallel shapes: the flagship's H = 4 heads over mp 2 (H = 2)
+# and mp 4 (H = 1) at d = 256 (the train cell B = 32: 256 audio, 96 video
+# rows, 22 caption tokens; the proposal cell B = 16: 800 and 300 rows), and
+# the pipeline's microbatches of 8 rows (B = 32 over n_micro 4)
+MP_CASES = [
+    ((32, 2, 256, 256, 256), 'padding'), ((32, 2, 96, 256, 256), 'padding'),
+    ((32, 2, 22, 22, 256), 'causal'), ((32, 2, 22, 96, 256), 'padding'),
+    ((16, 2, 800, 800, 256), 'padding'), ((16, 2, 300, 300, 256), 'padding'),
+    ((16, 2, 800, 300, 256), 'padding'), ((16, 2, 300, 800, 256), 'padding'),
+    ((32, 1, 256, 256, 256), 'padding'), ((32, 1, 22, 22, 256), 'causal'),
+    ((8, 4, 256, 96, 256), 'padding'), ((8, 4, 96, 96, 256), 'padding')]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,kind', MP_CASES)
+def test_kernels_at_tensor_and_pipeline_parallel_shapes_on_card(
+        cuda, dtype, shape, kind):
+    """The three kernels at H/mp heads (2 and 1) and at the pipeline's
+    8-row microbatches against their plain versions: fewer heads halve the
+    blocks of a launch, and the fp32 forward splits its key loop when they
+    no longer fill the card (``fp32_key_splits``)."""
+    _check_training_kernels(*_inputs(cuda, dtype, shape, kind), dtype)
+
+
 def _app_key_mask(cuda, B, Sk, seed):
     '''B=1: every key valid (the proposal forward of a video as long as the
     pad). B>1: ragged valid lengths, as a caption batch's crops have.'''

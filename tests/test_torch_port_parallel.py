@@ -233,8 +233,9 @@ def test_dp_devices_above_the_cards_raises_naming_both(tmp_path):
 def test_other_parallelism_still_raises_naming_item_11(tmp_path, flag):
     '''--fsdp, --ep_devices and --sp_devices pass the option check in
     both trainers, and DataParallel takes them (more than one rank needs a
-    process group); tensor parallelism (mp) still raises, naming item
-    11.'''
+    process group); so does tensor parallelism (mp), which no longer
+    raises NotImplementedError: with more than one rank it too asks for a
+    process group.'''
     for procedure in ('train_cap', 'train_prop'):
         check_ported(Config(build_parser().parse_args(
             mini_argv(tmp_path, tmp_path, procedure, **flag))))
@@ -244,7 +245,7 @@ def test_other_parallelism_still_raises_naming_item_11(tmp_path, flag):
     else:
         with pytest.raises(RuntimeError, match='one process a rank'):
             DataParallel(1, 'cpu', **kw)
-    with pytest.raises(NotImplementedError, match='item 11'):
+    with pytest.raises(RuntimeError, match='one process a rank'):
         DataParallel(1, 'cpu', mp=2, **kw)
 
 

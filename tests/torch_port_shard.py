@@ -1,8 +1,8 @@
 '''Work for the ranks of a sharded group in the port's CPU tests
 (``parallel.launch.spawn`` runs it in each spawned process; nothing here
 imports JAX, so the workers start fast): train steps under ``--fsdp``,
-expert and sequence parallelism, what each rank holds, and the whole state
-written and read back under ``DataParallel.whole``.'''
+expert, sequence and tensor parallelism, what each rank holds, and the
+whole state written and read back under ``DataParallel.whole``.'''
 import copy
 import os
 import pickle
@@ -56,25 +56,50 @@ def _bytes(model) -> int:
 def shard_steps(job_path, device):
     '''Each run of the job (a captioner or a proposal generator from a JAX
     tree, its optimizer config, frozen predicate and global batches) on the
-    job's (dp, sp, ep) grid with ``--fsdp`` as asked. Returns, from every
-    rank, its coordinates, its bytes and experts, the encoder's output
-    rows; from rank 0, the losses by step, the whole parameters (JAX
-    layout) and optimizer state after the last step, the decode or the
-    predictions asked for, and the step after a resume of an unsharded
-    run's directory.'''
+    job's (dp, sp, ep[, mp]) grid with ``--fsdp`` as asked. Returns, from
+    every rank, its coordinates, its bytes and experts, the encoder's output
+    rows and its leaves' shapes (JAX layout); from rank 0, the losses by
+    step, the whole parameters (JAX layout) and optimizer state after the
+    last step, the decode or the predictions asked for, and the step after
+    a resume of an unsharded run's directory.'''
+    torch.set_num_threads(1)
+    with open(job_path, 'rb') as f:
+        job = pickle.load(f)
+    return run_job(job, device)
+
+
+def shard_grids(jobs_path, device):
+    '''``shard_steps`` for each job of a list (one group, a grid a job):
+    {job's 'label': its result}.'''
+    torch.set_num_threads(1)
+    with open(jobs_path, 'rb') as f:
+        jobs = pickle.load(f)
+    return {job['label']: run_job(job, device) for job in jobs}
+
+
+def local_shapes(model) -> dict:
+    '''{JAX path: the shape this rank holds, in the JAX layout}.'''
+    from bmt_tpu_torch.params import jax_weight_axes, named_jax_parameters
+    axes = jax_weight_axes(model)
+    return {'/'.join(map(str, path)): tuple(
+        p.shape[i] for i in axes.get(id(p), range(p.dim())))
+        for path, p in named_jax_parameters(model)}
+
+
+def run_job(job, device):
     from bmt_tpu_torch.models.encoders import BiModalEncoder, Encoder
     from bmt_tpu_torch.ops.moe import MoEFeedForward
     from bmt_tpu_torch.parallel import DataParallel
     from bmt_tpu_torch.params import to_jax_tree
     from bmt_tpu_torch.train import checkpoint, steps
 
-    torch.set_num_threads(1)
-    with open(job_path, 'rb') as f:
-        job = pickle.load(f)
-    n_dp, n_sp, n_ep = job['grid']
-    dp = DataParallel(n_dp, device, sp=n_sp, ep=n_ep, fsdp=job['fsdp'])
+    n_dp, n_sp, n_ep, *more = job['grid']
+    n_mp = more[0] if more else 1
+    dp = DataParallel(n_dp, device, sp=n_sp, ep=n_ep, mp=n_mp,
+                      fsdp=job['fsdp'])
     out = {'rank': dp.rank, 'backend': dp.backend,
-           'coords': (dp.dp_rank, dp.sp_rank, dp.ep_rank)}
+           'coords': (dp.dp_rank, dp.sp_rank, dp.ep_rank)
+           + ((dp.mp_rank,) if more else ())}
     if n_ep > 1:
         out['ep_sum'] = ep_sum_gradients(dp.ep_group)
     for run in job['runs']:
@@ -98,6 +123,8 @@ def shard_steps(job_path, device):
                 'experts': [m.experts.w1.shape[0] for m in model.modules()
                             if isinstance(m, MoEFeedForward)],
                 'encoder_rows': rows[0]}
+        if run.get('shapes'):
+            mine['shapes'] = local_shapes(model)
         res = {}
         if 'predict' in run:
             infer = steps.make_prop_inference_step(dims, PAD, dp=dp)
@@ -112,6 +139,10 @@ def shard_steps(job_path, device):
             model.eval()
             with dp.whole():
                 res['decode'] = dp.decode(greedy, model, stacks).numpy()
+            if n_mp > 1:        # with this rank's mp blocks
+                res['decode_mp'] = dp.decode(greedy, model, stacks).numpy()
+                res['logprobs_mp'] = step_logprobs(model, stacks,
+                                                   res['decode'])
         with dp.whole(everything=True):
             if dp.is_main:
                 res.update(losses=losses, tree=to_jax_tree(model),
@@ -195,3 +226,86 @@ def as_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return [as_numpy(v) for v in tree]
     return np.asarray(tree)
+
+
+@torch.inference_mode()
+def step_logprobs(model, stacks, tokens, steps: int = 3):
+    """The KV-cached decode's step log-probs teacher-forced along
+    ``tokens`` (the first ``steps`` steps)."""
+    from bmt_tpu_torch.decode.greedy import bimodal_step_setup
+    state, step_fn, _ = bimodal_step_setup(model, stacks, PAD, 6)
+    tokens = torch.as_tensor(tokens)
+    out = []
+    for s in range(steps):
+        lp, state = step_fn(state, tokens[:, s:s + 1], s)
+        out.append(lp.numpy())
+    return np.stack(out)
+
+
+def pipeline_work(job_path, device):
+    '''The pipeline cases of the job on a pp group of every rank
+    (``parallel.pipeline``), then its tensor-parallel ``jobs`` (as
+    ``shard_grids``). For each encoder case (a JAX encoder tree, its
+    layer count, microbatch counts, inputs): the pipelined (Av, Va) at
+    each count and, at the first, the gradients of sum(Av^2) + sum(Va^2)
+    w.r.t. this rank's layers (JAX layout, keyed by the global layer) and
+    the inputs; the same encoder in train mode with dropout 0.3 and a
+    generator; and a generic stack of linear maps carrying an int
+    constant.'''
+    from bmt_tpu_torch.models.encoders import BiModalEncoder
+    from bmt_tpu_torch.parallel.pipeline import (
+        pipeline_layer_stack, pipelined_bimodal_encoder_forward,
+        stack_layer_params, stage_group)
+    from bmt_tpu_torch.params import (jax_weight_axes, load_jax_params,
+                                      named_jax_parameters)
+    torch.set_num_threads(1)
+    with open(job_path, 'rb') as f:
+        job = pickle.load(f)
+    group = stage_group(device)
+    out = {'rank': group.rank, 'pp': group.size, 'cases': []}
+    for case in job['pipeline']:
+        n = case['n_layers']
+        enc = BiModalEncoder(8, 8, 16, 16, 16, n, 2, device='cpu',
+                             dout_p=case.get('dout_p', 0.0))
+        load_jax_params(enc, case['tree'])
+        enc.eval()                      # deterministic, but the dropout run
+        stage = stack_layer_params(enc.layers, group.size, group.rank)
+        A, V, Am, Vm = (torch.from_numpy(x) for x in case['data'])
+        res = {'outs': {}}
+        for i, m in enumerate(case['n_micro']):
+            a = A.clone().requires_grad_(i == 0)
+            Av, Va = pipelined_bimodal_encoder_forward(stage, a, V, Am, Vm,
+                                                       group, m)
+            res['outs'][m] = (Av.detach().numpy(), Va.detach().numpy())
+            if i == 0:
+                ((Av ** 2).sum() + (Va ** 2).sum()).backward()
+                axes = jax_weight_axes(stage)
+                per = n // group.size
+                res['grads'] = {
+                    '/'.join(map(str, (group.rank * per + path[0],)
+                                 + path[1:])):
+                    p.grad.permute(*axes[id(p)]).numpy()
+                    if id(p) in axes else p.grad.numpy()
+                    for path, p in named_jax_parameters(stage)}
+                res['input_grad'] = a.grad.numpy()
+        if case.get('dout_p'):
+            enc.train()
+            with torch.no_grad():
+                res['dropout'] = pipelined_bimodal_encoder_forward(
+                    stage, A, V, Am, Vm, group, 2,
+                    generator=torch.Generator().manual_seed(7))[0].numpy()
+        out['cases'].append(res)
+    W = torch.from_numpy(job['generic']['W'])            # (4, 3, 3)
+    x = torch.from_numpy(job['generic']['x'])
+    flag = torch.arange(x.shape[0], dtype=torch.int32)
+    layers = torch.nn.ModuleList(
+        torch.nn.Linear(3, 3, bias=False) for _ in range(W.shape[0]))
+    with torch.no_grad():
+        for lin, w in zip(layers, W):
+            lin.weight.copy_(w.T)
+    y, f = pipeline_layer_stack(
+        stack_layer_params(layers, group.size, group.rank), (x, flag),
+        lambda layer, carry: (layer(carry[0]), carry[1]), group, 2)
+    out['generic'] = (y.detach().numpy(), f.numpy())
+    out['jobs'] = {j['label']: run_job(j, device) for j in job['jobs']}
+    return out
