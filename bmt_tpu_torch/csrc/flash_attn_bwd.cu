@@ -4,10 +4,10 @@
 // Replaces the two Pallas backward kernels of bmt_tpu/ops/pallas_attention.py,
 // both launched by `_flash_attention_tiled_bwd`:
 //   tf32::flash_attn_bwd_dq_tf32_kernel (fp32),
-//   tc::flash_attn_bwd_dq_bf16_kernel (bf16)
+//   wg::flash_attn_bwd_dq_sm90_kernel (bf16)
 //       <- `_dq_kernel`  (:351-389, pallas_call :473)
 //   tf32::flash_attn_bwd_dkv_tf32_kernel (fp32),
-//   tc::flash_attn_bwd_dkv_bf16_kernel (bf16)
+//   wg::flash_attn_bwd_dkv_sm90_kernel (bf16)
 //       <- `_dkv_kernel` (:392-431, pallas_call :498)
 // and the XLA recompute of the single-block custom VJP (`_fa_bwd`, :558-581),
 // which computes the same gradient.
@@ -39,18 +39,19 @@
 //   before the key tile starts are skipped. The sequential grid axis that
 //   carried the Pallas accumulators in VMEM becomes this in-block loop;
 //   nothing crosses blocks.
-// Both run every product on tensor cores by mma.sync: 3xTF32 m16n8k8 for
-// float32 (below), bf16 m16n8k16 for bfloat16 (further below); the head dim
-// is padded to DP = 64 or 256 (a template parameter; the padded columns load
-// as 0 and are not stored), so d need only be a multiple of 8. Ragged edges:
-// key rows >= Sk load as 0 and are masked, query rows >= Sq load as 0 and
-// get P = 0 (not relying on dO = 0 there), and gradient rows past Sq or Sk
-// are not stored. Tiles arrive by 16-byte cp.async copies in a ring of two
+// Both run every product on tensor cores: 3xTF32 mma.sync for float32
+// (below), bf16 wgmma for bfloat16 (further below). The head dim is padded
+// to DP (a template parameter: 64 or 256 in fp32, 32, 64 or 256 in bf16;
+// the padded columns load as 0 and are not stored), so d need only be a
+// multiple of 8. Ragged edges: key rows >= Sk load as 0 and are masked,
+// query rows >= Sq load as 0 and get P = 0 (not relying on dO = 0 there),
+// and gradient rows past Sq or Sk are not stored. Tiles arrive in a ring of
 // stages, so tile t + 1 loads while tile t computes.
 //
 // fp32 (the fp32 train steps: make_cap_train_step's and
 // make_prop_train_step's default compute dtype, and the parity checks):
-// tensor cores in TF32, three products per product (csrc/mma_tf32.cuh), so
+// tiles by 16-byte cp.async copies in a ring of two stages, tensor cores in
+// TF32 by mma.sync m16n8k8, three products per product (csrc/mma_tf32.cuh), so
 // the gradients are as accurate as fp32 FMA; one TF32 product misses the
 // fp32 tolerances (tests/test_torch_port_tf32.py). What bounds them on this
 // card: three m16n8k8 products per fp32 product make the peak 495 / 3 = 165
@@ -90,41 +91,63 @@
 //   (dK/dV, with the query tiles' lse and D), one block an SM. Registers
 //   from ptxas -v are in PERF.md.
 //
-// bf16 (the bf16 train and serving paths): tensor cores in bf16, with
-// mma.sync m16n8k16 (bf16 in, fp32 accumulators) for every product,
-// fragments by ldmatrix from tiles with 16-byte row padding (no bank
-// conflicts, mma_bf16.cuh). Their calls move 128-170 FLOP per byte at
-// d = 256, under the H100's 295, so HBM bounds them (dQ 84.2 MB, 0.0251 ms;
-// dK/dV 101.0 MB, 0.0301 ms at the train cell's B=32, S=256 call), but
-// mma.sync feeds the tensor cores through registers, so shared-memory
-// fragment traffic and issue slots are what they spend their time on.
-// Measured in PERF.md.
-// - dQ in bf16: a block owns DQ_BQ = 128 query rows and loops over key
-//   tiles of DQ_BK = 32 rows, which arrive with their key validity by
-//   cp.async into a ring of two stages; Q and dO are loaded once. Its 16
-//   warps each own 16 query rows with a partner warp; per key tile a warp
-//   computes S = Q K^T and dP = dO V^T for half of the tile's key columns,
-//   writes dS (bf16, the Pallas cast point) to a 128 x 32 shared tile, and
-//   after a barrier dQ += dS K for half of the head dim, with dS read by
-//   ldmatrix and K by ldmatrix .trans (K as stored: rows = keys = the
-//   product's k). The 128 x DP fp32 accumulator is spread at DP / 4 a
-//   thread (64 at DP = 256). ptxas -v: 128 registers at DP = 256 (98 at
-//   64), no spills; 213,248 bytes of dynamic shared memory (Q, dO, two
-//   stages of K and V, dS), one block of 16 warps per SM. The 16 warps hide
-//   more of the ldmatrix -> mma latency, which is what the mma.sync kernels
-//   here wait on, than 8 warps over 64 x 64 tiles (178 registers) did:
-//   PERF.md.
-// - dK/dV in bf16, the same roles with keys and queries swapped: a block
-//   owns BK = 64 key rows and loops over query tiles of BQ = 64 rows, which
-//   arrive with their lse and D in a two-stage cp.async ring (K and V are
-//   loaded once); its 8 warps each own 16 key rows and compute
-//   S^T = K Q^T and dP^T = V dO^T for half of the tile's query columns,
-//   write P^T and dS^T (bf16) to shared memory, and then dV += P^T dO and
-//   dK += dS^T Q for half of the head dim (dO and Q by ldmatrix .trans), so
-//   the 2 x 64 x DP fp32 accumulators are spread at DP / 2 a thread (128 at
-//   DP = 256). ptxas -v: 240 registers at DP = 256 (150 at 64), no spills;
-//   222,464 bytes of dynamic shared memory (K, V, two stages of Q and dO,
-//   P^T, dS^T), one block per SM.
+// bf16 (the bf16 train and serving paths): every product by wgmma.mma_async
+// (bf16 in, fp32 accumulators) on tiles that TMA brings into shared memory
+// (csrc/sm90.cuh). What bounds them: the train cell's 256x256 calls move
+// 128-170 FLOP per byte at d = 256, under the H100's 295, so HBM bounds
+// them (dQ 84.2 MB, 0.0251 ms; dK/dV 101.0 MB, 0.0301 ms); the proposal
+// cell's 800x800 calls do 62.9 and 83.9 GFLOP, and the tensor cores bound
+// them (0.0636 and 0.0848 ms). Before either come the tiles of the other
+// side, which every block reads again from L2 (64 KB a 64-row tile at
+// d = 256, for 64 rows of its own), and the per-element steps between the
+// products. The design, alike in both kernels ("rows" are the block's keys
+// in dK/dV and its queries in dQ, "columns" those of the loop's tiles):
+// - 384 threads: warpgroups 0 and 1 compute, warp 8 (of warpgroup 2)
+//   loads; setmaxnreg moves registers from the loading warpgroup to the
+//   computing ones.
+// - The loading warp brings the block's own 64-row tiles (K and V, or Q
+//   and dO) once and each 64-row tile of the loop into a ring of stages (2
+//   at DP = 256, 3 or 4 below) by TMA from rank-3 tensor maps (d, S, B H)
+//   encoded at each launch: regions of 64 columns with the 128-byte
+//   swizzle (32 and the 64-byte one at DP = 32); rows past S and columns
+//   past d arrive as zeros. With a tile come its lse and D (dK/dV) or key
+//   validity (dQ) by cp.async, zero past Sq or Sk; the stage's full
+//   mbarrier waits for both, and its empty mbarrier for all 256 computing
+//   threads to be done with it.
+// - Warpgroup 0 computes S^T = K Q^T (dK/dV) or S = Q K^T (dQ), 64 rows by
+//   64 columns over the head dim (both operands K-major from shared
+//   memory), and P = valid ? exp(..) : 0. It hands P (fp32) to warpgroup 1
+//   through a 16 KB shared buffer (named barriers P_READY and P_FREE):
+//   thread t of either warpgroup holds the same elements, so nothing is
+//   transposed. In dK/dV it then runs dV += P^T dO, P^T rounded to bf16 as
+//   the register A operand and dO read MN-major from its tile (bf16 allows
+//   the transposed B, TF32 does not).
+// - Warpgroup 1 computes dP^T = V dO^T (dP = dO V^T), dS from P, and
+//   dK += dS^T Q (dQ += dS K) the same way, dS rounded to bf16 in registers.
+//   The products are split by warpgroup, not by rows, because one 64 x DP
+//   fp32 accumulator takes 128 registers a thread at DP = 256: a
+//   warpgroup holds one (dV or dK; in dQ warpgroup 1 holds dQ).
+// - A tile's gradient product runs on while the next tile's S or dP is
+//   issued; the tile's stage is released when it has finished.
+// - The roles branch on the warpgroup index read through a shuffle, which
+//   the compiler knows to be uniform over a warp. Read from threadIdx
+//   directly, it made ptxas serialise dQ's products (C7518: a wait after
+//   each wgmma), and the pair ran 1.11x slower at 800x800 (PERF.md).
+// - dQ's block is 64 query rows: Q and dO take 64 KB at DP = 256, two
+//   stages of 64-key K and V tiles 128 KB, so S and dP are m64n64k16
+//   products. A block of 128 rows (Q and dO 128 KB) left room only for
+//   32-key tiles, whose m64n32k16 products each read their 2 KB A operand
+//   for half the work, and ran 1.2x slower at 800x800 (PERF.md).
+// - At DP = 32 two blocks share an SM (80 registers a thread at launch,
+//   104 for a computing one): there a tile's products are small and the
+//   per-element steps and waits set the pace, which a second block hides.
+// ptxas -v (sm_90a, CUDA 12.8): 168 registers at DP = 64 and 256 (the
+// launch bound of 384 threads; setmaxnreg 40 and 232), 80 at DP = 32 (32
+// and 104), no spills; dynamic shared memory at DP = 256: dK/dV 215,080
+// bytes, dQ 214,568 (one block an SM). Grids: dK/dV ceil(Sk / 64) x H x B,
+// dQ ceil(Sq / 64) x H x B (512 blocks each at the train cell, 3.9 waves on
+// 132 SMs; 832 at 800x800, B = 16); no persistent tile loop. Times in
+// PERF.md.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v (bmt_tpu_torch/ops/_build.py). No
@@ -137,6 +160,7 @@
 
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -597,225 +621,585 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }  // namespace tf32
 
 // ---------------------------------------------------------------------------
-// dK/dV in bf16: tensor cores (mma.sync m16n8k16, fp32 accumulators),
-// cp.async tiles
+// bf16: TMA tiles, a producer warp and two consumer warpgroups on wgmma
 // ---------------------------------------------------------------------------
 
-namespace tc {
+namespace wg {
 
-using namespace mma_bf16;
+using namespace sm90;
+using mma_bf16::cp_async4;
+typedef __nv_bfloat16 bf16;
 
-constexpr int BK = 64;               // key rows per block
-constexpr int BQ = 64;               // query rows per tile
-constexpr int THREADS = 256;         // 8 warps: 4 key-row groups x 2 halves
-constexpr int LP = pad_row(BQ);      // row stride of the P^T and dS^T tiles
+constexpr int CONSUMERS = 256;       // two consumer warpgroups
+constexpr int THREADS = 384;         // and the producer warpgroup
+// blocks an SM and, by setmaxnreg, the registers of a producer and of a
+// consumer thread: the producer warpgroup gives registers to the
+// consumers. One block of 168 registers a thread (128 x 40 + 256 x 232 =
+// 384 x 168), or at DP = 32, where a tile's work is small and its
+// per-element steps set the pace, two of 80 (128 x 32 + 256 x 104)
+template <int DP> struct Occupancy {
+  static constexpr int BLOCKS = DP == 32 ? 2 : 1;
+  static constexpr int PRODUCER_REGS = DP == 32 ? 32 : 40;
+  static constexpr int CONSUMER_REGS = DP == 32 ? 104 : 232;
+};
 constexpr float LOG2E = 1.44269504088896341f;
-// dQ: query rows per block, key rows per tile, and two warps for every 16
-// query rows (each takes half of the key tile and half of the head dim);
-// the fastest of the tile shapes measured (PERF.md)
-constexpr int DQ_BQ = 128;
-constexpr int DQ_BK = 32;
-constexpr int DQ_THREADS = DQ_BQ / 16 * 2 * 32;
-constexpr int LS = pad_row(DQ_BK);   // row stride of dQ's dS tile
+// named barriers of the P (dQ) and P^T (dK/dV) hand-over (0 is
+// __syncthreads)
+constexpr int P_READY = 1, P_FREE = 2;
 
-// K and V tiles, two stages of Q and dO tiles (head dim padded to DP), the
-// P^T and dS^T tiles, two stages of the query tile's lse and D, and the
-// block's key validity
-template <int DP> constexpr size_t dkv_smem_bytes() {
-  return (size_t)(2 * BK + 4 * BQ) * pad_row(DP) * sizeof(bf16) +
-         2 * BK * LP * sizeof(bf16) + (4 * BQ + BK) * sizeof(float);
+// the shared-memory layout of a tile of the head dim padded to DP
+// (sm90.cuh): regions of COLS columns, rows of SW bytes
+template <int DP> struct HeadDim {
+  static constexpr int SW = DP >= 64 ? 128 : 64;      // swizzle span, bytes
+  static constexpr int COLS = SW / 2;
+  static constexpr int REGIONS = DP / COLS;
+  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;
+  static constexpr uint32_t ATOM = 8 * SW;            // bytes of 8 rows
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+
+  // K-major operand: rows [row0, row0 + 64) (A) or all N rows (B) of a tile
+  // of `rows` rows at `tile`, k-step kk (head-dim columns 16 kk ..)
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows,
+                                                    int row0, int kk) {
+    const int col = 16 * kk;
+    return smem_desc(tile + (col / COLS) * rows * SW + row0 * SW +
+                         (col % COLS) * 2,
+                     16, ATOM, LAYOUT);
+  }
+  // MN-major B operand: the tile's rows are the product's k (k-step kk:
+  // rows 16 kk ..), its head-dim columns the product's N
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows,
+                                                     int kk) {
+    return smem_desc(tile + 16 * kk * SW, rows * SW, ATOM, LAYOUT);
+  }
+};
+
+// the A operand fragments of the k-steps of a 64 x N accumulator, rounded
+// to bf16: a[kk] covers its columns 16 kk .. 16 kk + 15
+template <int N>
+__device__ __forceinline__ void to_a_fragments(const float (&c)[N / 2],
+                                               uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
 }
 
-// DP: the head dim the tiles are padded to (a multiple of 64, >= d); the
-// padded columns load as 0 and are not stored
+// a 64 x DP accumulator of bf16 gradients to rows row(hf) (< S) of `out`
+// (row stride d), columns < d
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                               const bf16* __restrict__ k,
-                               const bf16* __restrict__ v,
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2],
+                                           bf16* out, const int (&row)[2],
+                                           int S, int d, int tig) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (row[hf] >= S) continue;
+    bf16* o = out + (size_t)row[hf] * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * tig;
+      if (c < d)
+        *reinterpret_cast<uint32_t*>(o + c) =
+            pack_bf16(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+    }
+  }
+}
+
+// the thread's warpgroup and warp, read through a shuffle so that the
+// compiler knows them to be uniform over a warp: a branch on them is not
+// divergent, and the wgmma products inside it are not serialised
+__device__ __forceinline__ int warpgroup(int tid) {
+  return __shfl_sync(0xffffffffu, tid >> 7, 0);
+}
+__device__ __forceinline__ int warp_of(int tid) {
+  return __shfl_sync(0xffffffffu, tid >> 5, 0);
+}
+
+__device__ __forceinline__ uint32_t aligned_base(const unsigned char* raw) {
+  return (smem_u32(raw) + 1023) & ~1023u;
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV
+// ---------------------------------------------------------------------------
+
+template <int DP> struct Dkv {
+  static constexpr int BK = 64;          // key rows a block
+  static constexpr int BQ = 64;          // query rows a tile
+  static constexpr int STAGES = DP == 256 ? 2 : 3;
+  static constexpr uint32_t KV_TILE = BK * DP * 2;
+  static constexpr uint32_t Q_TILE = BQ * DP * 2;
+  // byte offsets from the 1024-aligned base: K, V, then STAGES of Q, of
+  // dO, of lse and of D, the P^T hand-over (128 threads x BQ / 2 floats),
+  // the barriers kv_full, full[STAGES], empty[STAGES]
+  static constexpr uint32_t K_OFF = 0, V_OFF = KV_TILE;
+  static constexpr uint32_t Q_OFF = 2 * KV_TILE;
+  static constexpr uint32_t DO_OFF = Q_OFF + STAGES * Q_TILE;
+  static constexpr uint32_t LSE_OFF = DO_OFF + STAGES * Q_TILE;
+  static constexpr uint32_t D_OFF = LSE_OFF + STAGES * BQ * 4;
+  static constexpr uint32_t XCH_OFF = D_OFF + STAGES * BQ * 4;
+  static constexpr uint32_t BAR_OFF = XCH_OFF + 128 * (BQ / 2) * 4;
+  static constexpr size_t SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
+  static_assert(SMEM <= 232448, "dK/dV: shared memory");
+};
+
+// Block (x, y, z): key rows [64 x, 64 x + 64) of head y, batch z; query
+// tiles of BQ rows in order. Warpgroup 0 computes S^T = K Q^T and P^T and
+// holds dV; warpgroup 1 computes dP^T = V dO^T and dS^T and holds dK;
+// warp 8 (the first of warpgroup 2) loads the tiles
+template <int DP>
+__global__ void __launch_bounds__(THREADS, Occupancy<DP>::BLOCKS)
+flash_attn_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
                                const int32_t* __restrict__ key_mask,
-                               const bf16* __restrict__ dout,
                                const float* __restrict__ lse,
                                const float* __restrict__ drow,
                                bf16* __restrict__ dk, bf16* __restrict__ dv,
                                int H, int Sq, int Sk, int d, int causal,
                                float scale) {
-  constexpr int LD = pad_row(DP);
-  constexpr int NH = DP / 16;        // 8-wide column tiles in half of DP
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // BK x LD
-  bf16* Vs = Ks + BK * LD;                        // BK x LD
-  bf16* Qs = Vs + BK * LD;                        // 2 x BQ x LD
-  bf16* dOs = Qs + 2 * BQ * LD;                   // 2 x BQ x LD
-  bf16* Ps = dOs + 2 * BQ * LD;                   // BK x LP: P^T
-  bf16* dSs = Ps + BK * LP;                       // BK x LP: dS^T
-  float* lse_s = reinterpret_cast<float*>(dSs + BK * LP);   // 2 x BQ
-  float* D_s = lse_s + 2 * BQ;                              // 2 x BQ
-  int32_t* valid_s = reinterpret_cast<int32_t*>(D_s + 2 * BQ);  // BK
+  using C = Dkv<DP>;
+  using T = HeadDim<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = aligned_base(smem_raw);
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t kv_full = base + C::BAR_OFF;
+  const uint32_t full0 = kv_full + 8, empty0 = full0 + 8 * C::STAGES;
+  float* lse_s = reinterpret_cast<float*>(smem + C::LSE_OFF);
+  float* d_s = reinterpret_cast<float*>(smem + C::D_OFF);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int group = lane >> 2, tig = lane & 3;
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const bf16* qb = q + bh * Sq * d;
-  const bf16* ob = dout + bh * Sq * d;
-  const float* lb = lse + bh * Sq;
-  const float* db = drow + bh * Sq;
-  const int32_t* mb = key_mask + (size_t)b * Sk;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int k0 = blockIdx.x * C::BK, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const int n_tiles = (Sq + C::BQ - 1) / C::BQ;
+  // causal: query tile t ends at row t BQ + BQ - 1, before k0 for
+  // t < k0 / BQ; with Sq < Sk a block may see no tile at all
+  const int first = causal ? min(k0 / C::BQ, n_tiles) : 0;
+  const int count = n_tiles - first;
 
-  load_rows_async<DP, THREADS>(Ks, k + bh * Sk * d, k0, BK, Sk, d, tid);
-  load_rows_async<DP, THREADS>(Vs, v + bh * Sk * d, k0, BK, Sk, d, tid);
-  if (tid < BK) {
-    const bool in = k0 + tid < Sk;
-    cp_async4(valid_s + tid, in ? mb + k0 + tid : mb, in);   // 0 past Sk
-  }
-  // query tile t into stage st: Q, dO rows (0 past Sq), lse and D
-  auto load_q = [&](int t, int st) {
-    const int q0 = t * BQ;
-    load_rows_async<DP, THREADS>(Qs + st * BQ * LD, qb, q0, BQ, Sq, d, tid);
-    load_rows_async<DP, THREADS>(dOs + st * BQ * LD, ob, q0, BQ, Sq, d, tid);
-    if (tid < BQ) {
-      const bool in = q0 + tid < Sq;
-      cp_async4(lse_s + st * BQ + tid, in ? lb + q0 + tid : lb, in);
-      cp_async4(D_s + st * BQ + tid, in ? db + q0 + tid : db, in);
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS);
     }
-  };
-  const int n_tiles = (Sq + BQ - 1) / BQ;
-  // causal: tile t ends at row t BQ + BQ - 1, before k0 for t < k0 / BQ
-  const int first = causal ? k0 / BQ : 0;
-  if (first < n_tiles) load_q(first, 0);
-  cp_async_commit();
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  // warp roles: key rows km..km+15 of the block throughout; query columns
-  // qn..qn+31 of the tile for S^T and dP^T; head-dim columns dn..dn+DP/2-1
-  // for dK and dV (each thread holds 2 x NH x 4 = DP/2 fp32 accumulators)
-  const int km = (warp & 3) * 16;
-  const int qn = (warp >> 2) * 32;
-  const int dn = (warp >> 2) * (DP / 2);
-  const float scale2 = scale * LOG2E;
-  float dk_acc[NH][4], dv_acc[NH][4];
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  for (int t = first; t < n_tiles; ++t) {
-    const int st = (t - first) & 1;
-    if (t + 1 < n_tiles) load_q(t + 1, st ^ 1);   // overlaps this tile
-    cp_async_commit();
-    cp_async_wait<1>();                           // K, V and tile t landed
-    __syncthreads();
-    const int q0 = t * BQ;
-    const bf16* Qt = Qs + st * BQ * LD;
-    const bf16* dOt = dOs + st * BQ * LD;
-    const float* lt = lse_s + st * BQ;
-    const float* Dt = D_s + st * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 key rows x 32 query columns. Warp-
-    // uniform skip when the columns all lie past Sq or (causal) every key
-    // row lies after every query column; P and dS are then 0
-    const bool live =
-        q0 + qn < Sq && !(causal && k0 + km > q0 + qn + 31);
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    if (live) {
-      // every fragment of step kk is loaded before its products, so only
-      // the first mma of a step can wait on an ldmatrix (in-order issue)
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        uint32_t ak[4], av[4], bq[2][4], bo[2][4];
-        ldmatrix_x4(ak, frag_a(Ks, LD, km, kk, lane));
-        ldmatrix_x4(av, frag_a(Vs, LD, km, kk, lane));
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          ldmatrix_x4(bq[j], frag_b_nk(Qt, LD, qn + j * 16, kk, lane));
-          ldmatrix_x4(bo[j], frag_b_nk(dOt, LD, qn + j * 16, kk, lane));
+  const int wgi = warpgroup(tid);
+  if (wgi == 2) {
+    // the producer warp: K and V once, then each query tile's Q and dO (by
+    // TMA) and its lse and D (by cp.async, 0 past Sq) into the ring as
+    // soon as the tile's stage is free; the full barrier waits for both
+    setmaxnreg_dec<Occupancy<DP>::PRODUCER_REGS>();
+    if (warp_of(tid) == 8 && count > 0) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * C::KV_TILE);
+        for (int r = 0; r < T::REGIONS; ++r) {
+          tma_load_3d(base + C::K_OFF + r * C::BK * T::SW, &tm_k, kv_full,
+                      r * T::COLS, k0, bh);
+          tma_load_3d(base + C::V_OFF + r * C::BK * T::SW, &tm_v, kv_full,
+                      r * T::COLS, k0, bh);
         }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma(s[2 * j], ak, bq[j][0], bq[j][1]);
-          mma(s[2 * j + 1], ak, bq[j][2], bq[j][3]);
-          mma(dp[2 * j], av, bo[j][0], bo[j][1]);
-          mma(dp[2 * j + 1], av, bo[j][2], bo[j][3]);
+      }
+      const float* lse_g = lse + (size_t)bh * Sq;
+      const float* d_g = drow + (size_t)bh * Sq;
+      for (int i = 0; i < count; ++i) {
+        const int st = i % C::STAGES, q0 = (first + i) * C::BQ;
+        const uint32_t full = full0 + 8 * st;
+        if (i >= C::STAGES)
+          mbar_wait(empty0 + 8 * st, (i / C::STAGES - 1) & 1);
+        for (int r = lane; r < C::BQ; r += 32) {
+          const bool in = q0 + r < Sq;
+          cp_async4(lse_s + st * C::BQ + r, in ? lse_g + q0 + r : lse_g, in);
+          cp_async4(d_s + st * C::BQ + r, in ? d_g + q0 + r : d_g, in);
+        }
+        cp_async_mbar_arrive(full);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full, 2 * C::Q_TILE);
+          for (int r = 0; r < T::REGIONS; ++r) {
+            const uint32_t off = st * C::Q_TILE + r * C::BQ * T::SW;
+            tma_load_3d(base + C::Q_OFF + off, &tm_q, full, r * T::COLS, q0,
+                        bh);
+            tma_load_3d(base + C::DO_OFF + off, &tm_do, full, r * T::COLS,
+                        q0, bh);
+          }
         }
       }
     }
-    // P^T = valid ? exp(S^T scale - lse) : 0 (never exp then mask), as
-    // 2^(S^T scale log2(e) - lse log2(e)) with one exp2f, and
-    // dS^T = P^T (dP^T - D) scale, rounded to bf16 into shared memory:
-    // element e of s[j] is key row km + group + 8 (e / 2), query column
-    // qn + j 8 + 2 tig + e % 2
+  } else {
+    setmaxnreg_inc<Occupancy<DP>::CONSUMER_REGS>();
+    const int t = tid & 127, warp = t >> 5;
+    const int tig = lane & 3;
+    // the thread's two key rows (those of its accumulator fragments)
+    int kr[2];
+    bool key_ok[2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int hf = 0; hf < 2; ++hf) {
+      kr[hf] = k0 + 16 * warp + (lane >> 2) + 8 * hf;
+      key_ok[hf] = kr[hf] < Sk && key_mask[(size_t)b * Sk + kr[hf]] != 0;
+    }
+    const float scale2 = scale * LOG2E;
+    float* xch = reinterpret_cast<float*>(smem + C::XCH_OFF);
+    // K and V (warpgroup 0: S^T's A operand K, dV's B dO; 1: V and Q)
+    const uint32_t a_tile = base + (wgi == 0 ? C::K_OFF : C::V_OFF);
+    float acc[DP / 2];                   // dV (warpgroup 0) or dK (1)
+    float s[C::BQ / 2];                  // S^T (0) or dP^T (1)
+    uint32_t a[C::BQ / 16][4];           // P^T (0) or dS^T (1) in bf16
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int kl = km + group + 8 * hf;
-        const int ql = qn + j * 8 + 2 * tig;
-        float p[2], ds[2];
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int qi = q0 + ql + u;
-          const bool ok = live && valid_s[kl] != 0 && qi < Sq &&
-                          (!causal || k0 + kl <= qi);
-          p[u] = ok ? exp2f(s[j][2 * hf + u] * scale2 - lt[ql + u] * LOG2E)
-                    : 0.f;
-          ds[u] = ok ? p[u] * (dp[j][2 * hf + u] - Dt[ql + u]) * scale : 0.f;
+    for (int i = 0; i < C::BQ / 2; ++i) s[i] = 0.f;
+    if (count > 0) mbar_wait(kv_full, 0);
+
+    // each tile's gradient product runs on while the next tile's S^T or
+    // dP^T is issued; the tile's stage is released once it has finished
+    int prev = -1;                       // the stage of the product in flight
+    for (int i = 0; i < count; ++i) {
+      const int st = i % C::STAGES, q0 = (first + i) * C::BQ;
+      const uint32_t q_tile = base + C::Q_OFF + st * C::Q_TILE;
+      const uint32_t do_tile = base + C::DO_OFF + st * C::Q_TILE;
+      mbar_wait(full0 + 8 * st, (i / C::STAGES) & 1);
+
+      // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1): 64 keys x BQ
+      // queries over the head dim; A = K or V, B = Q or dO, both K-major
+      const uint32_t b_tile = wgi == 0 ? q_tile : do_tile;
+      fence_operands(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        Wgmma<C::BQ>::template ss<0>(
+            s, T::kmajor(a_tile, C::BK, 0, kk),
+            T::kmajor(b_tile, C::BQ, 0, kk), kk > 0);
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();                 // the previous tile's dV or dK
+        keep_live(a);
+        mbar_arrive(empty0 + 8 * prev);
+      }
+      wgmma_wait<0>();
+      fence_operands(s);
+
+      const float* rows = (wgi == 0 ? lse_s : d_s) + st * C::BQ;
+      if (wgi == 0) {
+        // P^T = valid ? exp(S^T scale - lse) : 0 (never exp then mask), as
+        // 2^(S^T scale log2(e) - lse log2(e)): element 4 j + e is key row
+        // kr[e / 2], query column 8 j + 2 tig + e % 2
+#pragma unroll
+        for (int j = 0; j < C::BQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ql = 8 * j + 2 * tig + (e & 1), qi = q0 + ql;
+            const bool ok = key_ok[e >> 1] && qi < Sq &&
+                            (!causal || kr[e >> 1] <= qi);
+            s[4 * j + e] =
+                ok ? exp2f(s[4 * j + e] * scale2 - rows[ql] * LOG2E) : 0.f;
+          }
         }
-        *reinterpret_cast<uint32_t*>(Ps + kl * LP + ql) = pack(p[0], p[1]);
-        *reinterpret_cast<uint32_t*>(dSs + kl * LP + ql) = pack(ds[0], ds[1]);
+        // hand P^T (fp32) to warpgroup 1, whose thread t holds dP^T at the
+        // same places, once it has read the previous tile's
+        if (i > 0) bar_sync(P_FREE, CONSUMERS);
+#pragma unroll
+        for (int e = 0; e < C::BQ / 2; ++e) xch[e * 128 + t] = s[e];
+        bar_arrive(P_READY, CONSUMERS);
+      } else {
+        bar_sync(P_READY, CONSUMERS);
+        // dS^T = P^T (dP^T - D) scale; P^T is 0 wherever it is masked
+#pragma unroll
+        for (int e = 0; e < C::BQ / 2; ++e) {
+          const int ql = 8 * (e >> 2) + 2 * tig + (e & 1);
+          s[e] = xch[e * 128 + t] * (s[e] - rows[ql]) * scale;
+        }
+        if (i + 1 < count) bar_arrive(P_FREE, CONSUMERS);
+      }
+      // P^T and dS^T rounded to bf16 (the Pallas cast points) as the
+      // register A operand of dV += P^T dO and dK += dS^T Q: 64 keys x DP
+      // over the tile's BQ queries, B = dO or Q read MN-major
+      to_a_fragments<C::BQ>(s, a);
+      const uint32_t g_tile = wgi == 0 ? do_tile : q_tile;
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::BQ / 16; ++kk)
+        Wgmma<DP>::template rs<1>(acc, a[kk], T::mnmajor(g_tile, C::BQ, kk),
+                                  1);
+      wgmma_commit();
+      prev = st;
+    }
+    wgmma_wait<0>();                     // (nothing in flight: no wait)
+    keep_live(a);
+    if (prev >= 0) mbar_arrive(empty0 + 8 * prev);
+    fence_operands(acc);
+    store_rows<DP>(acc, (wgi == 0 ? dv : dk) + (size_t)bh * Sk * d, kr, Sk, d,
+                   tig);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ
+// ---------------------------------------------------------------------------
+
+template <int DP> struct Dq {
+  static constexpr int BQ = 64;          // query rows a block
+  static constexpr int BK = 64;          // key rows a tile
+  static constexpr int STAGES = DP == 256 ? 2 : 4;
+  static constexpr uint32_t Q_TILE = BQ * DP * 2;
+  static constexpr uint32_t KV_TILE = BK * DP * 2;
+  // byte offsets from the 1024-aligned base: Q, dO, then STAGES of K, of V
+  // and of the key mask, the P hand-over (128 threads x BK / 2 floats), the
+  // barriers qdo_full, full[STAGES], empty[STAGES]
+  static constexpr uint32_t Q_OFF = 0, DO_OFF = Q_TILE;
+  static constexpr uint32_t K_OFF = 2 * Q_TILE;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * KV_TILE;
+  static constexpr uint32_t MASK_OFF = V_OFF + STAGES * KV_TILE;
+  static constexpr uint32_t XCH_OFF = MASK_OFF + STAGES * BK * 4;
+  static constexpr uint32_t BAR_OFF = XCH_OFF + 128 * (BK / 2) * 4;
+  static constexpr size_t SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
+  static_assert(SMEM <= 232448, "dQ: shared memory");
+};
+
+// Block (x, y, z): query rows [64 x, 64 x + 64) of head y, batch z; key
+// tiles of BK rows in order. Warpgroup 0 computes S = Q K^T and P;
+// warpgroup 1 computes dP = dO V^T and dS and holds dQ; warp 8 (the first
+// of warpgroup 2) loads the tiles
+template <int DP>
+__global__ void __launch_bounds__(THREADS, Occupancy<DP>::BLOCKS)
+flash_attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const int32_t* __restrict__ key_mask,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ drow,
+                              bf16* __restrict__ dq, int H, int Sq, int Sk,
+                              int d, int causal, float scale) {
+  using C = Dq<DP>;
+  using T = HeadDim<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = aligned_base(smem_raw);
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t qdo_full = base + C::BAR_OFF;
+  const uint32_t full0 = qdo_full + 8, empty0 = full0 + 8 * C::STAGES;
+  int32_t* mask_s = reinterpret_cast<int32_t*>(smem + C::MASK_OFF);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int q0 = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  int n_tiles = (Sk + C::BK - 1) / C::BK;
+  // causal: the block's last valid row sees keys up to itself
+  if (causal) n_tiles = min(n_tiles, (min(q0 + C::BQ, Sq) - 1) / C::BK + 1);
+
+  if (tid == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = warpgroup(tid);
+  if (wgi == 2) {
+    // the producer warp: Q and dO once, then each key tile's K and V (by
+    // TMA) and its key validity (by cp.async, 0 past Sk)
+    setmaxnreg_dec<Occupancy<DP>::PRODUCER_REGS>();
+    if (warp_of(tid) == 8) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(qdo_full, 2 * C::Q_TILE);
+        for (int r = 0; r < T::REGIONS; ++r) {
+          tma_load_3d(base + C::Q_OFF + r * C::BQ * T::SW, &tm_q, qdo_full,
+                      r * T::COLS, q0, bh);
+          tma_load_3d(base + C::DO_OFF + r * C::BQ * T::SW, &tm_do,
+                      qdo_full, r * T::COLS, q0, bh);
+        }
+      }
+      const int32_t* mask_g = key_mask + (size_t)b * Sk;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % C::STAGES, k0 = i * C::BK;
+        const uint32_t full = full0 + 8 * st;
+        if (i >= C::STAGES)
+          mbar_wait(empty0 + 8 * st, (i / C::STAGES - 1) & 1);
+        for (int r = lane; r < C::BK; r += 32) {
+          const bool in = k0 + r < Sk;
+          cp_async4(mask_s + st * C::BK + r, in ? mask_g + k0 + r : mask_g,
+                    in);
+        }
+        cp_async_mbar_arrive(full);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full, 2 * C::KV_TILE);
+          for (int r = 0; r < T::REGIONS; ++r) {
+            const uint32_t off = st * C::KV_TILE + r * C::BK * T::SW;
+            tma_load_3d(base + C::K_OFF + off, &tm_k, full, r * T::COLS, k0,
+                        bh);
+            tma_load_3d(base + C::V_OFF + off, &tm_v, full, r * T::COLS, k0,
+                        bh);
+          }
+        }
       }
     }
-    __syncthreads();
+  } else {
+    setmaxnreg_inc<Occupancy<DP>::CONSUMER_REGS>();
+    const int t = tid & 127, warp = t >> 5;
+    const int tig = lane & 3;
+    // the thread's two query rows (those of its accumulator fragments) and
+    // their lse in base-2 units (warpgroup 0) or D (1); rows past Sq read
+    // nothing and are masked
+    int row[2];
+    float row_in[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      row[hf] = q0 + 16 * warp + (lane >> 2) + 8 * hf;
+      const size_t at = (size_t)bh * Sq + row[hf];
+      row_in[hf] = row[hf] >= Sq ? 0.f
+                   : wgi == 0    ? lse[at] * LOG2E
+                                 : drow[at];
+    }
+    const float scale2 = scale * LOG2E;
+    float* xch = reinterpret_cast<float*>(smem + C::XCH_OFF);
+    // Q (warpgroup 0: S's A operand) or dO (1: dP's)
+    const uint32_t a_tile = base + (wgi == 0 ? C::Q_OFF : C::DO_OFF);
+    float acc[DP / 2];                   // dQ (warpgroup 1)
+    float s[C::BK / 2];                  // S (0) or dP (1)
+    uint32_t a[C::BK / 16][4];           // dS in bf16 (1)
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < C::BK / 2; ++i) s[i] = 0.f;
+    mbar_wait(qdo_full, 0);
 
-    // dV += P^T dO and dK += dS^T Q: 16 key rows x DP/2 columns; the dO
-    // and Q fragments are loaded one column pair ahead of their products
-    constexpr int NP = NH / 2;             // column-tile pairs
-    uint32_t fo[2][4], fq[2][4];
-    ldmatrix_x4_trans(fo[0], frag_b_kn(dOt, LD, dn, 0, lane));
-    ldmatrix_x4_trans(fq[0], frag_b_kn(Qt, LD, dn, 0, lane));
+    // warpgroup 1's dQ product of a tile runs on while the next tile's dP
+    // is issued; the tile's stage is released once it has finished
+    int prev = -1;                       // the stage of the product in flight
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % C::STAGES, k0 = i * C::BK;
+      const uint32_t k_tile = base + C::K_OFF + st * C::KV_TILE;
+      const uint32_t v_tile = base + C::V_OFF + st * C::KV_TILE;
+      mbar_wait(full0 + 8 * st, (i / C::STAGES) & 1);
+
+      // S = Q K^T (warpgroup 0) or dP = dO V^T (1): 64 rows x BK keys
+      // over the head dim; A = Q or dO, B = K or V, all K-major
+      const uint32_t b_tile = wgi == 0 ? k_tile : v_tile;
+      fence_operands(s);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BQ; kk += 16) {
-      uint32_t ap[4], as[4];
-      ldmatrix_x4(ap, frag_a(Ps, LP, km, kk, lane));
-      ldmatrix_x4(as, frag_a(dSs, LP, km, kk, lane));
+      for (int kk = 0; kk < DP / 16; ++kk)
+        Wgmma<C::BK>::template ss<0>(
+            s, T::kmajor(a_tile, C::BQ, 0, kk),
+            T::kmajor(b_tile, C::BK, 0, kk), kk > 0);
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();                 // the previous tile's dQ product
+        keep_live(a);
+        mbar_arrive(empty0 + 8 * prev);
+      }
+      wgmma_wait<0>();
+      fence_operands(s);
+
+      if (wgi == 0) {
+        // P = valid ? exp(S scale - lse) : 0 (never exp then mask), as
+        // 2^(S scale log2(e) - lse log2(e)): element 4 j + e is query row
+        // row[e / 2], key column 8 j + 2 tig + e % 2
+        const int32_t* valid = mask_s + st * C::BK;
 #pragma unroll
-      for (int np = 0; np < NP; ++np) {
-        const int i = kk / 16 * NP + np, cur = i & 1;
-        if (i + 1 < BQ / 16 * NP) {
-          const int nc = dn + (i + 1) % NP * 16, nk = (i + 1) / NP * 16;
-          ldmatrix_x4_trans(fo[cur ^ 1], frag_b_kn(dOt, LD, nc, nk, lane));
-          ldmatrix_x4_trans(fq[cur ^ 1], frag_b_kn(Qt, LD, nc, nk, lane));
+        for (int j = 0; j < C::BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kl = 8 * j + 2 * tig + (e & 1), hf = e >> 1;
+            const bool ok = valid[kl] != 0 && row[hf] < Sq &&
+                            (!causal || k0 + kl <= row[hf]);
+            s[4 * j + e] =
+                ok ? exp2f(s[4 * j + e] * scale2 - row_in[hf]) : 0.f;
+          }
         }
-        mma(dv_acc[2 * np], ap, fo[cur][0], fo[cur][1]);
-        mma(dv_acc[2 * np + 1], ap, fo[cur][2], fo[cur][3]);
-        mma(dk_acc[2 * np], as, fq[cur][0], fq[cur][1]);
-        mma(dk_acc[2 * np + 1], as, fq[cur][2], fq[cur][3]);
+        // hand P (fp32) to warpgroup 1, whose thread t holds dP at the
+        // same places, once it has read the previous tile's; K, V and the
+        // mask of this stage are then no longer read here
+        if (i > 0) bar_sync(P_FREE, CONSUMERS);
+#pragma unroll
+        for (int e = 0; e < C::BK / 2; ++e) xch[e * 128 + t] = s[e];
+        bar_arrive(P_READY, CONSUMERS);
+        mbar_arrive(empty0 + 8 * st);
+      } else {
+        bar_sync(P_READY, CONSUMERS);
+        // dS = P (dP - D) scale; P is 0 wherever it is masked
+#pragma unroll
+        for (int e = 0; e < C::BK / 2; ++e)
+          s[e] = xch[e * 128 + t] * (s[e] - row_in[e >> 1 & 1]) * scale;
+        if (i + 1 < n_tiles) bar_arrive(P_FREE, CONSUMERS);
+        // dQ += dS K: dS rounded to bf16 (the Pallas cast point) as the
+        // register A operand, K read MN-major (rows = keys = the
+        // product's k)
+        to_a_fragments<C::BK>(s, a);
+        fence_operands(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < C::BK / 16; ++kk)
+          Wgmma<DP>::template rs<1>(acc, a[kk],
+                                    T::mnmajor(k_tile, C::BK, kk), 1);
+        wgmma_commit();
+        prev = st;
       }
     }
-    __syncthreads();   // every read of this stage is done before its refill
+    wgmma_wait<0>();                     // (nothing in flight: no wait)
+    keep_live(a);
+    if (prev >= 0) mbar_arrive(empty0 + 8 * prev);
+    fence_operands(acc);
+    if (wgi == 1) store_rows<DP>(acc, dq + (size_t)bh * Sq * d, row, Sq, d,
+                                 tig);
   }
-  cp_async_wait<0>();  // nothing left in flight (no query tile at all)
+}
 
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int kr = k0 + km + group + 8 * hf;
-    if (kr >= Sk) continue;
-    bf16* gk = dk + (bh * Sk + kr) * d;
-    bf16* gv = dv + (bh * Sk + kr) * d;
-#pragma unroll
-    for (int n = 0; n < NH; ++n) {
-      const int c = dn + n * 8 + 2 * tig;
-      if (c >= d) continue;
-      *reinterpret_cast<uint32_t*>(gk + c) =
-          pack(dk_acc[n][2 * hf], dk_acc[n][2 * hf + 1]);
-      *reinterpret_cast<uint32_t*>(gv + c) =
-          pack(dv_acc[n][2 * hf], dv_acc[n][2 * hf + 1]);
-    }
-  }
+// ---------------------------------------------------------------------------
+// launches: the tensor maps are encoded on the host at each launch
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime's
+// entry-point query (no link against libcuda); null where it is missing
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) != cudaSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a (BH, S, d) bf16 tensor as a rank-3 map (d, S, BH) read in boxes of
+// (COLS, rows, 1) with the swizzle of HeadDim<DP>; outside the tensor the
+// box fills with zeros
+template <int DP>
+bool tile_map(CUtensorMap* map, const void* ptr, int d, int S, int BH,
+              int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)S * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)HeadDim<DP>::COLS, (cuuint32_t)rows,
+                             1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, HeadDim<DP>::SWIZZLE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DP>
@@ -824,227 +1208,24 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* lse, const void* drow, void* dk, void* dv,
                        int B, int H, int Sq, int Sk, int d, int causal,
                        cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<DP>();
+  using C = Dkv<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tile_map<DP>(&tq, q, d, Sq, B * H, C::BQ) ||
+      !tile_map<DP>(&tdo, dout, d, Sq, B * H, C::BQ) ||
+      !tile_map<DP>(&tk, k, d, Sk, B * H, C::BK) ||
+      !tile_map<DP>(&tv, v, d, Sk, B * H, C::BK))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_bwd_dkv_bf16_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attn_bwd_dkv_sm90_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + BK - 1) / BK, H, B);
-  flash_attn_bwd_dkv_bf16_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int32_t*>(key_mask),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(drow), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Sq, Sk, d, causal, 1.0f / sqrtf((float)d));
+  const dim3 grid((Sk + C::BK - 1) / C::BK, H, B);
+  flash_attn_bwd_dkv_sm90_kernel<DP><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, static_cast<const int32_t*>(key_mask),
+      static_cast<const float*>(lse), static_cast<const float*>(drow),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk, d, causal,
+      1.0f / sqrtf((float)d));
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// dQ in bf16: tensor cores, the same building blocks
-// ---------------------------------------------------------------------------
-
-// Q and dO tiles (loaded once), two stages of K and V tiles and of their key
-// validity, and the dS tile
-template <int DP> constexpr size_t dq_smem_bytes() {
-  return (size_t)(2 * DQ_BQ + 4 * DQ_BK) * pad_row(DP) * sizeof(bf16) +
-         DQ_BQ * LS * sizeof(bf16) + 2 * DQ_BK * sizeof(int32_t);
-}
-
-// DP: the head dim the tiles are padded to (64 or 256, >= d); the padded
-// columns load as 0 and are not stored
-template <int DP>
-__global__ void __launch_bounds__(DQ_THREADS, 1)
-flash_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                              const bf16* __restrict__ k,
-                              const bf16* __restrict__ v,
-                              const int32_t* __restrict__ key_mask,
-                              const bf16* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ drow,
-                              bf16* __restrict__ dq, int H, int Sq, int Sk,
-                              int d, int causal, float scale) {
-  constexpr int LD = pad_row(DP);
-  constexpr int NH = DP / 16;        // 8-wide column tiles in half of DP
-  constexpr int RG = DQ_BQ / 16;     // 16-row groups of the query tile
-  constexpr int NJ = DQ_BK / 32;     // 16-key column pairs a warp takes
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // DQ_BQ x LD
-  bf16* dOs = Qs + DQ_BQ * LD;                    // DQ_BQ x LD
-  bf16* Ks = dOs + DQ_BQ * LD;                    // 2 x DQ_BK x LD
-  bf16* Vs = Ks + 2 * DQ_BK * LD;                 // 2 x DQ_BK x LD
-  bf16* dSs = Vs + 2 * DQ_BK * LD;                // DQ_BQ x LS: dS
-  int32_t* valid_s =
-      reinterpret_cast<int32_t*>(dSs + DQ_BQ * LS);   // 2 x DQ_BK
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int group = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * DQ_BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const bf16* kb = k + bh * Sk * d;
-  const bf16* vb = v + bh * Sk * d;
-  const int32_t* mb = key_mask + (size_t)b * Sk;
-
-  int n_tiles = (Sk + DQ_BK - 1) / DQ_BK;
-  // causal: the tile's last valid row sees keys up to itself
-  if (causal) n_tiles = min(n_tiles, (min(q0 + DQ_BQ, Sq) - 1) / DQ_BK + 1);
-
-  // key tile t into stage t & 1: K, V rows (0 past Sk) and key validity
-  auto load_kv = [&](int t) {
-    const int k0 = t * DQ_BK, st = t & 1;
-    load_rows_async<DP, DQ_THREADS>(Ks + st * DQ_BK * LD, kb, k0, DQ_BK, Sk,
-                                    d, tid);
-    load_rows_async<DP, DQ_THREADS>(Vs + st * DQ_BK * LD, vb, k0, DQ_BK, Sk,
-                                    d, tid);
-    if (tid < DQ_BK) {
-      const bool in = k0 + tid < Sk;
-      cp_async4(valid_s + st * DQ_BK + tid, in ? mb + k0 + tid : mb, in);
-    }
-  };
-  load_rows_async<DP, DQ_THREADS>(Qs, q + bh * Sq * d, q0, DQ_BQ, Sq, d, tid);
-  load_rows_async<DP, DQ_THREADS>(dOs, dout + bh * Sq * d, q0, DQ_BQ, Sq, d,
-                                  tid);
-  load_kv(0);
-  cp_async_commit();
-
-  // warp roles: query rows mq..mq+15 of the tile throughout; key columns
-  // kn..kn+DQ_BK/2-1 of each key tile for S and dP; head-dim columns
-  // dn..dn+DP/2-1 for dQ (each thread holds NH x 4 = DP/4 fp32 accumulators)
-  const int mq = warp % RG * 16;
-  const int kn = warp / RG * (DQ_BK / 2);
-  const int dn = warp / RG * (DP / 2);
-  const float scale2 = scale * LOG2E;
-  // this thread's two query rows (those of its C fragments), their lse in
-  // base-2 units and their D; rows past Sq read nothing and are masked
-  int row[2];
-  float lse2[2], D[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    row[hf] = q0 + mq + group + 8 * hf;
-    const bool in = row[hf] < Sq;
-    lse2[hf] = in ? lse[bh * Sq + row[hf]] * LOG2E : -INFINITY;
-    D[hf] = in ? drow[bh * Sq + row[hf]] : 0.f;
-  }
-  // warp-uniform: false when the warp's rows all lie past Sq (decoder
-  // calls have Sq = 21 in a 128-row tile); such a warp skips its products
-  // but takes part in every barrier
-  const bool rows_live = q0 + mq < Sq;
-  float acc[NH][4];
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  // two barriers a tile: after this one, tile t has landed and every warp
-  // is done with tile t - 1, so its stage (which tile t + 1 takes) and the
-  // dS tile are free
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<0>();                    // Q, dO and tile t have landed
-    __syncthreads();
-    if (t + 1 < n_tiles) load_kv(t + 1);   // overlaps this tile
-    cp_async_commit();
-    const int k0 = t * DQ_BK;
-    const bf16* Kt = Ks + (t & 1) * DQ_BK * LD;
-    const bf16* Vt = Vs + (t & 1) * DQ_BK * LD;
-    const int32_t* vt = valid_s + (t & 1) * DQ_BK;
-
-    // S = Q K^T and dP = dO V^T: 16 query rows x DQ_BK/2 key columns. Warp-
-    // uniform skip when the rows all lie past Sq or (causal) every key
-    // column lies after every row; s and dp stay 0 and the mask below
-    // gives P = dS = 0
-    const bool live =
-        rows_live && !(causal && k0 + kn > q0 + mq + 15);
-    float s[2 * NJ][4], dp[2 * NJ][4];
-#pragma unroll
-    for (int j = 0; j < 2 * NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    if (live) {
-      // every fragment of step kk is loaded before its products, so only
-      // the first mma of a step can wait on an ldmatrix (in-order issue)
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        uint32_t aq[4], ao[4], bk[NJ][4], bv[NJ][4];
-        ldmatrix_x4(aq, frag_a(Qs, LD, mq, kk, lane));
-        ldmatrix_x4(ao, frag_a(dOs, LD, mq, kk, lane));
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          ldmatrix_x4(bk[j], frag_b_nk(Kt, LD, kn + j * 16, kk, lane));
-          ldmatrix_x4(bv[j], frag_b_nk(Vt, LD, kn + j * 16, kk, lane));
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          mma(s[2 * j], aq, bk[j][0], bk[j][1]);
-          mma(s[2 * j + 1], aq, bk[j][2], bk[j][3]);
-          mma(dp[2 * j], ao, bv[j][0], bv[j][1]);
-          mma(dp[2 * j + 1], ao, bv[j][2], bv[j][3]);
-        }
-      }
-    }
-    // P = valid ? exp(S scale - lse) : 0 (never exp then mask), as
-    // 2^(S scale log2(e) - lse log2(e)) with one exp2f, and
-    // dS = P (dP - D) scale, rounded to bf16 into shared memory (the Pallas
-    // cast point): element e of s[j] is query row mq + group + 8 (e / 2),
-    // key column kn + j 8 + 2 tig + e % 2
-#pragma unroll
-    for (int j = 0; j < 2 * NJ; ++j) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int ql = mq + group + 8 * hf;
-        const int kl = kn + j * 8 + 2 * tig;
-        float ds[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const bool ok = live && vt[kl + u] != 0 && row[hf] < Sq &&
-                          (!causal || k0 + kl + u <= row[hf]);
-          const float p =
-              ok ? exp2f(s[j][2 * hf + u] * scale2 - lse2[hf]) : 0.f;
-          ds[u] = ok ? p * (dp[j][2 * hf + u] - D[hf]) * scale : 0.f;
-        }
-        *reinterpret_cast<uint32_t*>(dSs + ql * LS + kl) = pack(ds[0], ds[1]);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K: 16 query rows x DP/2 columns, K read as it is stored
-    // (rows = keys, the product's k) by ldmatrix .trans; its fragments are
-    // loaded one column pair ahead of their products. Warp-uniform skip
-    // when (causal) every key of the tile lies after the warp's rows: their
-    // dS is 0
-    if (rows_live && !(causal && k0 > q0 + mq + 15)) {
-      constexpr int NP = NH / 2;           // column-tile pairs
-      uint32_t fk[2][4];
-      ldmatrix_x4_trans(fk[0], frag_b_kn(Kt, LD, dn, 0, lane));
-#pragma unroll
-      for (int kk = 0; kk < DQ_BK; kk += 16) {
-        uint32_t a[4];
-        ldmatrix_x4(a, frag_a(dSs, LS, mq, kk, lane));
-#pragma unroll
-        for (int np = 0; np < NP; ++np) {
-          const int i = kk / 16 * NP + np, cur = i & 1;
-          if (i + 1 < DQ_BK / 16 * NP) {
-            const int nc = dn + (i + 1) % NP * 16, nk = (i + 1) / NP * 16;
-            ldmatrix_x4_trans(fk[cur ^ 1], frag_b_kn(Kt, LD, nc, nk, lane));
-          }
-          mma(acc[2 * np], a, fk[cur][0], fk[cur][1]);
-          mma(acc[2 * np + 1], a, fk[cur][2], fk[cur][3]);
-        }
-      }
-    }
-  }
-
-  bf16* gq = dq + bh * Sq * d;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    if (row[hf] >= Sq) continue;
-#pragma unroll
-    for (int n = 0; n < NH; ++n) {
-      const int c = dn + n * 8 + 2 * tig;
-      if (c >= d) continue;
-      *reinterpret_cast<uint32_t*>(gq + (size_t)row[hf] * d + c) =
-          pack(acc[n][2 * hf], acc[n][2 * hf + 1]);
-    }
-  }
 }
 
 template <int DP>
@@ -1052,22 +1233,27 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* key_mask, const void* dout, const void* lse,
                       const void* drow, void* dq, int B, int H, int Sq, int Sk,
                       int d, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<DP>();
+  using C = Dq<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tile_map<DP>(&tq, q, d, Sq, B * H, C::BQ) ||
+      !tile_map<DP>(&tdo, dout, d, Sq, B * H, C::BQ) ||
+      !tile_map<DP>(&tk, k, d, Sk, B * H, C::BK) ||
+      !tile_map<DP>(&tv, v, d, Sk, B * H, C::BK))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_bwd_dq_bf16_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attn_bwd_dq_sm90_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + DQ_BQ - 1) / DQ_BQ, H, B);
-  flash_attn_bwd_dq_bf16_kernel<DP><<<grid, DQ_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int32_t*>(key_mask),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+  const dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
+  flash_attn_bwd_dq_sm90_kernel<DP><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, static_cast<const int32_t*>(key_mask),
+      static_cast<const float*>(lse),
       static_cast<const float*>(drow), static_cast<bf16*>(dq), H, Sq, Sk, d,
       causal, 1.0f / sqrtf((float)d));
   return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace wg
 
 bool bad_shape(int B, int H, int Sq, int Sk, int d) {
   return B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || d <= 0 || d > MAX_D ||
@@ -1080,9 +1266,11 @@ bool bad_shape(int B, int H, int Sq, int Sk, int d) {
 // 16-byte aligned and of one dtype (is_bf16 ? bfloat16 : float32). key_mask:
 // (B, Sk) int32, nonzero = attend. lse, drow: (B, H, Sq) float32 (the
 // forward's row log-sum-exp and rowsum(dout * out) with NaN -> 0). The dtype
-// picks the kernel, both on tensor cores with the head dim padded to 64 or
-// 256: 3xTF32 for fp32, bf16 for bf16. Each launches on `stream`, allocates
-// nothing, does not synchronise, and returns the cudaError_t of the launch
+// picks the kernel, both on tensor cores: 3xTF32 for fp32 (the head dim
+// padded to 64 or 256), wgmma for bf16 (padded to 32, 64 or 256; its tensor
+// maps are encoded here, and one that does not encode returns
+// cudaErrorInvalidValue). Each launches on `stream`, allocates nothing,
+// does not synchronise, and returns the cudaError_t of the launch
 // (0 = success).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* key_mask, const void* dout,
@@ -1098,10 +1286,13 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
     return (int)tf32::launch_dq<256>(q, k, v, key_mask, dout, lse, drow, dq,
                                      B, H, Sq, Sk, d, causal, s);
   }
-  if (d <= 64)
-    return (int)tc::launch_dq<64>(q, k, v, key_mask, dout, lse, drow, dq, B,
+  if (d <= 32)
+    return (int)wg::launch_dq<32>(q, k, v, key_mask, dout, lse, drow, dq, B,
                                   H, Sq, Sk, d, causal, s);
-  return (int)tc::launch_dq<256>(q, k, v, key_mask, dout, lse, drow, dq, B, H,
+  if (d <= 64)
+    return (int)wg::launch_dq<64>(q, k, v, key_mask, dout, lse, drow, dq, B,
+                                  H, Sq, Sk, d, causal, s);
+  return (int)wg::launch_dq<256>(q, k, v, key_mask, dout, lse, drow, dq, B, H,
                                  Sq, Sk, d, causal, s);
 }
 
@@ -1120,9 +1311,12 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
     return (int)tf32::launch_dkv<256>(q, k, v, key_mask, dout, lse, drow, dk,
                                       dv, B, H, Sq, Sk, d, causal, s);
   }
-  if (d <= 64)
-    return (int)tc::launch_dkv<64>(q, k, v, key_mask, dout, lse, drow, dk, dv,
+  if (d <= 32)
+    return (int)wg::launch_dkv<32>(q, k, v, key_mask, dout, lse, drow, dk, dv,
                                    B, H, Sq, Sk, d, causal, s);
-  return (int)tc::launch_dkv<256>(q, k, v, key_mask, dout, lse, drow, dk, dv,
+  if (d <= 64)
+    return (int)wg::launch_dkv<64>(q, k, v, key_mask, dout, lse, drow, dk, dv,
+                                   B, H, Sq, Sk, d, causal, s);
+  return (int)wg::launch_dkv<256>(q, k, v, key_mask, dout, lse, drow, dk, dv,
                                   B, H, Sq, Sk, d, causal, s);
 }

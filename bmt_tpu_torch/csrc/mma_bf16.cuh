@@ -1,7 +1,8 @@
-// Tensor-core building blocks shared by the bf16 attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu), for sm_80 and later (built for
-// sm_90a here): cp.async tile loads, ldmatrix fragment loads and the
-// m16n8k16 bf16 mma.sync with fp32 accumulators.
+// Tensor-core building blocks of the attention forward (flash_attn_fwd.cu)
+// and of the fp32 backward (flash_attn_bwd.cu, with mma_tf32.cuh), for sm_80
+// and later (built for sm_90a here): cp.async tile loads (the bf16
+// backward's small row loads too), ldmatrix fragment loads and the m16n8k16
+// bf16 mma.sync with fp32 accumulators.
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with group = lane / 4 and tig = lane % 4:

@@ -66,6 +66,16 @@ def ptxas_report(name: str) -> str:
     return log.read_text() if log.exists() else ''
 
 
+def sass(name: str) -> str:
+    '''The machine code of the current library of ``name`` as ``cuobjdump
+    -sass`` prints it (the toolkit's, beside nvcc): a ``Function :`` line
+    before each kernel's instructions. Raises if it has not been built.'''
+    cuobjdump = Path(_nvcc()).with_name('cuobjdump')
+    proc = subprocess.run([str(cuobjdump), '-sass', str(_lib_path(name))],
+                          capture_output=True, text=True, check=True)
+    return proc.stdout
+
+
 _LOCKS_LOCK = threading.Lock()
 _LOCKS: dict = {}
 

@@ -9,14 +9,17 @@ when it fails:
 
 1. the device: torch's name for it and nvidia-smi's name and power limit;
 2. build the CUDA kernels from bmt_tpu_torch/csrc/ (one nvcc per source,
-   started together; timed), all on tensor cores at head dims padded to 64
-   and 256: the forward in fp32 (flash_attn_fwd_tf32_kernel, 3xTF32, and
-   flash_attn_fwd_combine_kernel, which combines the partials of a split
-   key loop) and in bf16 (flash_attn_fwd_bf16_kernel); dQ and dK/dV in fp32
-   (flash_attn_bwd_dq_tf32_kernel, flash_attn_bwd_dkv_tf32_kernel, 3xTF32)
-   and in bf16 (flash_attn_bwd_dq_bf16_kernel,
-   flash_attn_bwd_dkv_bf16_kernel); print what ptxas reports for each and
-   fail if one is missing or any kernel spills registers; beside them, the
+   started together; each timed), all on tensor cores at head dims padded
+   to 64 and 256: the forward in fp32 (flash_attn_fwd_tf32_kernel, 3xTF32,
+   and flash_attn_fwd_combine_kernel, which combines the partials of a
+   split key loop) and in bf16 (flash_attn_fwd_bf16_kernel); dQ and dK/dV
+   in fp32 (flash_attn_bwd_dq_tf32_kernel, flash_attn_bwd_dkv_tf32_kernel,
+   3xTF32) and in bf16 (flash_attn_bwd_dq_sm90_kernel,
+   flash_attn_bwd_dkv_sm90_kernel: wgmma on TMA tiles, at 32 too); print
+   what ptxas reports for each and fail if one is missing or any kernel
+   spills registers; count HGMMA (wgmma), UTMALDG (TMA loads) and HMMA
+   (mma.sync) in each backward kernel's machine code (cuobjdump -sass) and
+   fail if a bf16 backward kernel lacks HGMMA or UTMALDG; beside them, the
    two host libraries from bmt_tpu_torch/csrc/*.cc with g++ (the feature
    loader bmt_io, the METEOR aligner meteor_align; timed), failing if
    either does not build or does not serve;
@@ -348,7 +351,7 @@ from bmt_tpu_torch.decode import (beam_search_bimodal, greedy_decode_bimodal,
 from bmt_tpu_torch.decode.greedy import bimodal_step_setup
 from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
 from bmt_tpu_torch.ops._build import (host_lib_path, load_host_library,
-                                     load_library, ptxas_report)
+                                     load_library, ptxas_report, sass)
 from bmt_tpu_torch.ops.flash_attention import (
     BWD_LIBRARY, KERNEL, KERNEL_DKV, KERNEL_DQ, attention_bound_ms,
     attention_cost, flash_attention, fp32_key_splits,
@@ -416,9 +419,14 @@ ENTRIES = {KERNEL: ('flash_attn_fwd_tf32_kernel',
                     'flash_attn_fwd_combine_kernel',
                     'flash_attn_fwd_bf16_kernel'),
            BWD_LIBRARY: ('flash_attn_bwd_dq_tf32_kernel',
-                         'flash_attn_bwd_dq_bf16_kernel',
+                         'flash_attn_bwd_dq_sm90_kernel',
                          'flash_attn_bwd_dkv_tf32_kernel',
-                         'flash_attn_bwd_dkv_bf16_kernel')}
+                         'flash_attn_bwd_dkv_sm90_kernel')}
+# the opcodes counted in the backward kernels' machine code: wgmma, the TMA
+# tile load and mma.sync; the bf16 kernels must hold the first two
+SASS_OPS = ('HGMMA', 'UTMALDG', 'HMMA')
+HOPPER_KERNELS = ('flash_attn_bwd_dq_sm90_kernel',
+                  'flash_attn_bwd_dkv_sm90_kernel')
 REPLACES = {KERNEL: 'bmt_tpu/ops/pallas_attention.py:237',  # and :278
             KERNEL_DQ: 'bmt_tpu/ops/pallas_attention.py:473',
             KERNEL_DKV: 'bmt_tpu/ops/pallas_attention.py:498'}
@@ -538,9 +546,10 @@ def device_line():
 
 
 def kernel_name(line):
-    '''The kernel and template argument of a ptxas "Compiling entry" line:
-    ..tc29flash_attn_bwd_dq_bf16_kernelILi256EEEv.. ->
-    flash_attn_bwd_dq_bf16_kernel<256>. The mangled name's length prefix
+    '''The kernel and template argument of a ptxas "Compiling entry" line
+    or a cuobjdump "Function :" line:
+    ..wg29flash_attn_bwd_dq_sm90_kernelILi256EEEv14CUtensorMap_st.. ->
+    flash_attn_bwd_dq_sm90_kernel<256>. The mangled name's length prefix
     tells the kernel from the anonymous namespace, which holds the source's
     file name.'''
     m = re.search(r'\d+(flash_attn_\w*?_kernel)(?:ILi(\d+)EE|I(f)EE)?',
@@ -549,6 +558,30 @@ def kernel_name(line):
         return line.strip()
     arg = m.group(2) or (m.group(3) and 'float')
     return f'{m.group(1)}<{arg}>' if arg else m.group(1)
+
+
+def sass_counts(lib):
+    '''{kernel<arg>: {opcode: instructions}} of SASS_OPS in the machine
+    code of the library ``lib`` (cuobjdump -sass).'''
+    counts, cur = {}, None
+    for line in sass(lib).splitlines():
+        if 'Function :' in line:
+            cur = counts.setdefault(kernel_name(line),
+                                    dict.fromkeys(SASS_OPS, 0))
+            continue
+        m = re.search(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)',
+                      line)
+        if cur is not None and m and m.group(1) in cur:
+            cur[m.group(1)] += 1
+    return counts
+
+
+def timed_load(name):
+    '''Seconds to build (nvcc, when no library of this source exists yet)
+    and load the CUDA library ``name``.'''
+    t0 = time.perf_counter()
+    load_library(name)
+    return time.perf_counter() - t0
 
 
 def cuda_ms(fn, iters):
@@ -5052,7 +5085,8 @@ def main():
     with ThreadPoolExecutor(4) as pool:
         hosts = {n: pool.submit(build_host_library, n)
                  for n in HOST_LIBRARIES}
-        list(pool.map(load_library, (KERNEL, BWD_LIBRARY)))
+        cuda_builds = dict(zip((KERNEL, BWD_LIBRARY),
+                               pool.map(timed_load, (KERNEL, BWD_LIBRARY))))
         host_builds = {n: f.result() for n, f in hosts.items()}
     check(native_io.native_available() and meteor_native.enabled(),
           'a host library does not serve: feature loader '
@@ -5060,7 +5094,9 @@ def main():
           f'{meteor_native.enabled()}')
     started[2] = round(time.perf_counter() - t_main, 1)
     print(f'[2] kernels {sorted(set(SOURCES.values()))} built and loaded in '
-          f'{time.perf_counter() - t0:.2f} s, beside the host libraries '
+          f'{time.perf_counter() - t0:.2f} s (nvcc and load: '
+          + ', '.join(f'{n} {t:.2f} s' for n, t in cuda_builds.items())
+          + '), beside the host libraries '
           + ', '.join(f'{os.path.relpath(p, REPO)} ({t:.2f} s)'
                       for t, p in host_builds.values()) + '; ptxas:')
     for lib, want in ENTRIES.items():
@@ -5077,6 +5113,14 @@ def main():
                       f'{lib}: a kernel spills registers: {line.strip()}')
         check(set(want) <= built, f'{lib}: ptxas compiled {sorted(built)}, '
               f'not all of {want}')
+    counts = sass_counts(BWD_LIBRARY)
+    print('    machine code of the backward kernels (cuobjdump -sass):')
+    for kname, c in sorted(counts.items()):
+        print(f'      {kname}: ' + ', '.join(f'{op} {n}' for op, n in c.items()))
+    for base in HOPPER_KERNELS:
+        inst = {k: c for k, c in counts.items() if k.split('<')[0] == base}
+        check(inst and all(c['HGMMA'] and c['UTMALDG'] for c in inst.values()),
+              f'{base}: no HGMMA or no UTMALDG in its machine code: {inst}')
 
     started[3] = round(time.perf_counter() - t_main, 1)
     print('[3] forward kernel vs plain PyTorch on the card:')

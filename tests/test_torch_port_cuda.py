@@ -177,6 +177,46 @@ def test_tensor_core_kernels_match_plain_on_card(cuda, dtype, shape, kind):
     _check_training_kernels(*_inputs(cuda, dtype, shape, kind), dtype)
 
 
+# the edges of the bf16 backward kernels' tiles (64 rows; regions of 64
+# head-dim columns, or 32 at d <= 32): every length of {1, 63, 65, 129, 800}
+# on the query side and on the key side at every head dim, causal with
+# Sq != Sk among them
+EDGE_LENGTHS = [(1, 800, 'padding'), (63, 65, 'causal'), (65, 63, 'padding'),
+                (129, 1, 'causal'), (800, 129, 'padding')]
+BF16_EDGE_CASES = [((2, 2, sq, sk, d), kind) for d in (8, 24, 32, 40, 64,
+                                                        72, 256)
+                   for sq, sk, kind in EDGE_LENGTHS]
+
+
+@pytest.mark.parametrize('shape,kind', BF16_EDGE_CASES)
+def test_bf16_backward_kernels_at_tile_edges_on_card(cuda, shape, kind):
+    """The bf16 dQ and dK/dV kernels (wgmma on TMA tiles) against their
+    plain versions at query and key lengths that cut the 64-row tiles or
+    fill less than one, head dims that leave part of a 32- or 64-column
+    region (or whole regions) to TMA's zero fill, causal with Sq != Sk,
+    ragged key masks and a batch row with every key masked, whose
+    gradients are exactly 0 and never NaN. The forward is the plain one,
+    so only the backward kernels are under test."""
+    q, k, v, dout, km, causal = _inputs(cuda, torch.bfloat16, shape, kind)
+    out, lse = flash_attention_lse_reference(q, k, v, km, causal)
+    drow = row_dot(out, dout)
+    args = (q, k, v, km, causal, lse, drow, dout)
+    before = (flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    got = (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    want = (flash_attention_bwd_dq_reference(*args),
+            *flash_attention_bwd_dkv_reference(*args))
+    atol, rtol = BWD_TOL[torch.bfloat16]
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and not a.isnan().any()
+        assert (a[-1] == 0).all() and (b[-1] == 0).all()
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol)
+
+
 # the tensor-parallel shapes: the flagship's H = 4 heads over mp 2 (H = 2)
 # and mp 4 (H = 1) at d = 256 (the train cell B = 32: 256 audio, 96 video
 # rows, 22 caption tokens; the proposal cell B = 16: 800 and 300 rows), and
@@ -303,13 +343,15 @@ def test_fp32_key_split_is_deterministic_on_card(cuda, monkeypatch, shape,
 @pytest.mark.parametrize('shape,kind', [
     ((2, 4, 256, 256, 256), 'padding'), ((2, 2, 129, 129, 64), 'causal'),
     ((2, 4, 256, 256, 256), 'causal'), ((4, 4, 300, 300, 32), 'padding'),
-    ((4, 4, 23, 23, 32), 'causal')])
+    ((4, 4, 23, 23, 32), 'causal'), ((16, 4, 800, 800, 256), 'padding'),
+    ((32, 4, 800, 800, 32), 'padding')])
 def test_backward_kernels_are_deterministic_on_card(cuda, dtype, shape,
                                                     kind):
     '''No atomics: one block owns a query tile (dQ) or a key tile (dK/dV)
     and sums over the other side's tiles in one fixed order, so two
     launches on the same inputs give the same bits, in fp32 (3xTF32) and in
-    bf16.'''
+    bf16 (wgmma), at the train cell's 256x256, the proposal cell's 800x800
+    and the audio models' d = 32.'''
     q, k, v, dout, km, causal = _inputs(cuda, dtype, shape, kind)
     out, lse = flash_attention_forward(q, k, v, km, causal, with_lse=True)
     drow = row_dot(out, dout)

@@ -10,7 +10,8 @@ key masked.
 Tolerances (fp32): 1e-5 absolute on outputs and lse, 2e-5 on gradients of
 O(1): the same sums in another order over at most 300 keys. The plain
 backward in bf16 is held to the tiled Pallas backward in bf16 within one
-bf16 ulp: the two round at the same points. The CUDA
+bf16 ulp, also at the edges of the bf16 kernels' tiles (``BF16_EDGES``):
+the two round at the same points. The CUDA
 kernels are held to these plain versions in test_torch_port_cuda.py and
 chip_smoke.py, which need a card.'''
 import numpy as np
@@ -47,10 +48,21 @@ def _case(kind, rng):
         pad[0, 0, 7:] = False
         causal = np.asarray(subsequent_mask(Sk))
         m = (pad[:, :, None, :] & causal[None])[:, 0][:, None]
-    else:                                      # 'empty_row'
+    elif kind == 'empty_row':
         B, H, Sq, Sk, d = 2, 1, 4, 140, 8
         m = np.ones((B, 1, 1, Sk), bool)
         m[0] = False                           # batch row 0: nothing to see
+    else:                                      # 'edge_<Sq>x<Sk>_d<d>[_causal]'
+        sq, sk = kind.split('_')[1].split('x')
+        B, H, Sq, Sk = 2, 2, int(sq), int(sk)
+        d = int(kind.split('_')[2][1:])
+        pad = np.ones((B, 1, Sk), bool)
+        pad[1, 0, Sk * 3 // 5:] = False        # a ragged key padding
+        if kind.endswith('causal'):
+            m = (pad[:, :, None, :] & np.tri(Sq, Sk, dtype=bool)[None])
+            m = m[:, 0][:, None]
+        else:
+            m = pad[:, None]
     q, k, v = (rng.normal(size=(B, H, S, d)).astype(np.float32)
                for S in (Sq, Sk, Sk))
     dout = rng.normal(size=(B, H, Sq, d)).astype(np.float32)
@@ -58,6 +70,11 @@ def _case(kind, rng):
 
 
 CASES = ['sk300_padding', 'causal_padding', 'empty_row']
+# the edges of the bf16 kernels' tiles (64 rows; head dims padded to 32, 64
+# or 256): Sq and Sk one past a tile or two, d at and past 32, causal with
+# Sq = Sk and Sq != Sk
+BF16_EDGES = ['edge_65x129_d32', 'edge_129x65_d40', 'edge_65x65_d40_causal',
+              'edge_65x129_d32_causal', 'edge_129x65_d72_causal']
 
 
 @pytest.mark.parametrize('kind', CASES)
@@ -106,7 +123,7 @@ def test_backward_matches_jax_vjp(kind, block_k):
         assert all(float(g[0].abs().max()) == 0.0 for g in got)
 
 
-@pytest.mark.parametrize('kind', CASES)
+@pytest.mark.parametrize('kind', CASES + BF16_EDGES)
 def test_bf16_backward_references_match_tiled_pallas(kind):
     '''bf16: the plain dQ and dK/dV, which the bf16 CUDA kernels are held to
     on the card, against the tiled Pallas backward in interpret mode on the
