@@ -632,62 +632,10 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int CONSUMERS = 256;       // two consumer warpgroups
 constexpr int THREADS = 384;         // and the producer warpgroup
-// blocks an SM and, by setmaxnreg, the registers of a producer and of a
-// consumer thread: the producer warpgroup gives registers to the
-// consumers. One block of 168 registers a thread (128 x 40 + 256 x 232 =
-// 384 x 168), or at DP = 32, where a tile's work is small and its
-// per-element steps set the pace, two of 80 (128 x 32 + 256 x 104)
-template <int DP> struct Occupancy {
-  static constexpr int BLOCKS = DP == 32 ? 2 : 1;
-  static constexpr int PRODUCER_REGS = DP == 32 ? 32 : 40;
-  static constexpr int CONSUMER_REGS = DP == 32 ? 104 : 232;
-};
 constexpr float LOG2E = 1.44269504088896341f;
 // named barriers of the P (dQ) and P^T (dK/dV) hand-over (0 is
 // __syncthreads)
 constexpr int P_READY = 1, P_FREE = 2;
-
-// the shared-memory layout of a tile of the head dim padded to DP
-// (sm90.cuh): regions of COLS columns, rows of SW bytes
-template <int DP> struct HeadDim {
-  static constexpr int SW = DP >= 64 ? 128 : 64;      // swizzle span, bytes
-  static constexpr int COLS = SW / 2;
-  static constexpr int REGIONS = DP / COLS;
-  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;
-  static constexpr uint32_t ATOM = 8 * SW;            // bytes of 8 rows
-  static constexpr CUtensorMapSwizzle SWIZZLE =
-      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-
-  // K-major operand: rows [row0, row0 + 64) (A) or all N rows (B) of a tile
-  // of `rows` rows at `tile`, k-step kk (head-dim columns 16 kk ..)
-  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows,
-                                                    int row0, int kk) {
-    const int col = 16 * kk;
-    return smem_desc(tile + (col / COLS) * rows * SW + row0 * SW +
-                         (col % COLS) * 2,
-                     16, ATOM, LAYOUT);
-  }
-  // MN-major B operand: the tile's rows are the product's k (k-step kk:
-  // rows 16 kk ..), its head-dim columns the product's N
-  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows,
-                                                     int kk) {
-    return smem_desc(tile + 16 * kk * SW, rows * SW, ATOM, LAYOUT);
-  }
-};
-
-// the A operand fragments of the k-steps of a 64 x N accumulator, rounded
-// to bf16: a[kk] covers its columns 16 kk .. 16 kk + 15
-template <int N>
-__device__ __forceinline__ void to_a_fragments(const float (&c)[N / 2],
-                                               uint32_t (&a)[N / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
-    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
-    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
-    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
-  }
-}
 
 // a 64 x DP accumulator of bf16 gradients to rows row(hf) (< S) of `out`
 // (row stride d), columns < d
@@ -707,20 +655,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DP / 2],
             pack_bf16(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
     }
   }
-}
-
-// the thread's warpgroup and warp, read through a shuffle so that the
-// compiler knows them to be uniform over a warp: a branch on them is not
-// divergent, and the wgmma products inside it are not serialised
-__device__ __forceinline__ int warpgroup(int tid) {
-  return __shfl_sync(0xffffffffu, tid >> 7, 0);
-}
-__device__ __forceinline__ int warp_of(int tid) {
-  return __shfl_sync(0xffffffffu, tid >> 5, 0);
-}
-
-__device__ __forceinline__ uint32_t aligned_base(const unsigned char* raw) {
-  return (smem_u32(raw) + 1023) & ~1023u;
 }
 
 // ---------------------------------------------------------------------------
@@ -1160,47 +1094,8 @@ flash_attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---------------------------------------------------------------------------
 // launches: the tensor maps are encoded on the host at each launch
+// (sm90.cuh, tile_map)
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found once through the runtime's
-// entry-point query (no link against libcuda); null where it is missing
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) != cudaSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a (BH, S, d) bf16 tensor as a rank-3 map (d, S, BH) read in boxes of
-// (COLS, rows, 1) with the swizzle of HeadDim<DP>; outside the tensor the
-// box fills with zeros
-template <int DP>
-bool tile_map(CUtensorMap* map, const void* ptr, int d, int S, int BH,
-              int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)S * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)HeadDim<DP>::COLS, (cuuint32_t)rows,
-                             1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, HeadDim<DP>::SWIZZLE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int DP>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,

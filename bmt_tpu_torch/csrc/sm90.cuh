@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the bf16 attention backward
-// (flash_attn_bwd.cu): mbarriers, TMA tile loads, shared-memory matrix
-// descriptors and the warpgroup product wgmma.mma_async (bf16 in, fp32
-// accumulators), in inline PTX.
+// Hopper (sm_90a) building blocks of the bf16 attention kernels, forward
+// (flash_attn_fwd.cu) and backward (flash_attn_bwd.cu): mbarriers, TMA tile
+// loads, shared-memory matrix descriptors and the warpgroup product
+// wgmma.mma_async (bf16 in, fp32 accumulators), in inline PTX; the layout
+// of a head-dim tile (HeadDim) and, on the host, the tensor maps that TMA
+// reads it by (tile_map), encoded at each launch.
 //
 // Tiles. A bf16 tile of R rows of the head dim padded to DP lies in shared
 // memory as DP / COLS regions, one after another, each R rows of COLS
@@ -38,6 +40,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -108,6 +111,14 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// fetches a tensor map (a __grid_constant__ parameter) ahead of its first
+// TMA load
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -317,5 +328,123 @@ template <> struct Wgmma<256> {
           "n"(TRANS_B));
   }
 };
+
+// ---------------------------------------------------------------------------
+// tiles of the head dim, the roles of a block's warpgroups
+// ---------------------------------------------------------------------------
+
+// the shared-memory layout of a tile of the head dim padded to DP (see the
+// top of this file): regions of COLS columns, rows of SW bytes
+template <int DP> struct HeadDim {
+  static constexpr int SW = DP >= 64 ? 128 : 64;      // swizzle span, bytes
+  static constexpr int COLS = SW / 2;
+  static constexpr int REGIONS = DP / COLS;
+  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;
+  static constexpr uint32_t ATOM = 8 * SW;            // bytes of 8 rows
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+
+  // K-major operand: rows [row0, row0 + 64) (A) or all N rows (B) of a tile
+  // of `rows` rows at `tile`, k-step kk (head-dim columns 16 kk ..)
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows,
+                                                    int row0, int kk) {
+    const int col = 16 * kk;
+    return smem_desc(tile + (col / COLS) * rows * SW + row0 * SW +
+                         (col % COLS) * 2,
+                     16, ATOM, LAYOUT);
+  }
+  // MN-major B operand: the tile's rows are the product's k (k-step kk:
+  // rows 16 kk ..), its head-dim columns the product's N
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows,
+                                                     int kk) {
+    return smem_desc(tile + 16 * kk * SW, rows * SW, ATOM, LAYOUT);
+  }
+};
+
+// a block of 384 threads, two consumer warpgroups and a producer one: its
+// blocks an SM and, by setmaxnreg, the registers of a producer and of a
+// consumer thread (the producer warpgroup gives registers to the
+// consumers). One block of 168 registers a thread (128 x 40 + 256 x 232 =
+// 384 x 168), or at DP = 32, where a tile's work is small and its
+// per-element steps set the pace, two of 80 (128 x 32 + 256 x 104)
+template <int DP> struct Occupancy {
+  static constexpr int BLOCKS = DP == 32 ? 2 : 1;
+  static constexpr int PRODUCER_REGS = DP == 32 ? 32 : 40;
+  static constexpr int CONSUMER_REGS = DP == 32 ? 104 : 232;
+};
+
+// the A operand fragments of the k-steps of a 64 x N accumulator, rounded
+// to bf16: a[kk] covers its columns 16 kk .. 16 kk + 15
+template <int N>
+__device__ __forceinline__ void to_a_fragments(const float (&c)[N / 2],
+                                               uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// the thread's warpgroup and warp, read through a shuffle so that the
+// compiler knows them to be uniform over a warp: a branch on them is not
+// divergent, and the wgmma products inside it are not serialised
+__device__ __forceinline__ int warpgroup(int tid) {
+  return __shfl_sync(0xffffffffu, tid >> 7, 0);
+}
+__device__ __forceinline__ int warp_of(int tid) {
+  return __shfl_sync(0xffffffffu, tid >> 5, 0);
+}
+
+// the first 1024-byte boundary of dynamic shared memory (the 128-byte
+// swizzle's atom): tiles are laid out from there
+__device__ __forceinline__ uint32_t aligned_base(const unsigned char* raw) {
+  return (smem_u32(raw) + 1023) & ~1023u;
+}
+
+// ---------------------------------------------------------------------------
+// host: the tensor maps, encoded at each launch
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime's
+// entry-point query (no link against libcuda); null where it is missing
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) != cudaSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a (BH, S, d) bf16 tensor as a rank-3 map (d, S, BH) read in boxes of
+// (COLS, rows, 1) with the swizzle of HeadDim<DP>; outside the tensor the
+// box fills with zeros. False when the map does not encode
+template <int DP>
+bool tile_map(CUtensorMap* map, const void* ptr, int d, int S, int BH,
+              int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)S * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)HeadDim<DP>::COLS, (cuuint32_t)rows,
+                             1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, HeadDim<DP>::SWIZZLE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace sm90

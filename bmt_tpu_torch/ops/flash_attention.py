@@ -13,9 +13,10 @@ Three kernels, each with a wrapper, a plain version and a launch counter:
 
 - ``flash_attn_fwd`` (``csrc/flash_attn_fwd.cu``): the output, and with
   ``with_lse`` the row log-sum-exp (B, H, Sq) fp32 that the backward reads.
-  In fp32, when the blocks of a call would not fill the card, each row's key
-  loop is split over several blocks and a second kernel combines their
-  partials (``fp32_key_splits``); that is one launch all the same;
+  When the blocks of a call would not fill the card, each row's key loop is
+  split over several blocks and a second kernel combines their partials
+  (``fp32_key_splits``, ``bf16_key_splits``; ``combine_partials`` is the
+  combine's plain version); that is one launch all the same;
 - ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkv`` (``csrc/flash_attn_bwd.cu``):
   dQ, and dK with dV, rebuilding the softmax from the lse.
 
@@ -54,8 +55,9 @@ MAX_HEAD_DIM = 256
 # fp32 accuracy (csrc/mma_tf32.cuh), as the fp32 kernels do
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 495e12 / 3}
 PEAK_BYTES_PER_S = 3.35e12
-# the fp32 forward kernel's tiles: query rows a block, keys a tile
+# the forward kernels' tiles: query rows a block, keys a tile
 FP32_BQ, FP32_BK = 64, 32
+BF16_BQ, BF16_BK = 128, 64
 
 
 def fp32_key_splits(B: int, H: int, Sq: int, Sk: int, n_sms: int) -> int:
@@ -70,6 +72,36 @@ def fp32_key_splits(B: int, H: int, Sq: int, Sk: int, n_sms: int) -> int:
         return 1
     splits = min(tiles, max(1, n_sms // blocks))
     return -(-tiles // -(-tiles // splits))
+
+
+def bf16_key_splits(B: int, H: int, Sq: int, Sk: int, d: int,
+                    n_sms: int) -> int:
+    '''How many blocks share each query tile's key loop in the bf16
+    forward: ``fp32_key_splits``'s rule with the bf16 kernel's 128-row
+    blocks and 64-key tiles, and its blocks an SM (two at d <= 32, one
+    above), so that H ceil(Sq / 128) blocks that fill one wave take 1;
+    for a launch of one batch row only (a served video's calls). A split
+    rounds each chunk's p against the chunk's own max, so a row's bits
+    would otherwise hang on how many rows share its launch, and in bf16
+    that moves a train step's gradients past what rounding explains: the
+    flagship encoder's 8-row microbatches read 2.9% (relative L2) from the
+    32-row batch's gradients with the split, 0.36% without (on an H100;
+    PERF.md, section 6).'''
+    blocks = B * H * -(-Sq // BF16_BQ)
+    tiles = -(-Sk // BF16_BK)
+    wave = n_sms * (2 if d <= 32 else 1)
+    if B > 1 or blocks >= wave:
+        return 1
+    splits = min(tiles, max(1, wave // blocks))
+    return -(-tiles // -(-tiles // splits))
+
+
+def key_splits(B: int, H: int, Sq: int, Sk: int, d: int, dtype,
+               n_sms: int) -> int:
+    '''The forward's key splits for a call of ``dtype`` on ``n_sms`` SMs.'''
+    if dtype == torch.bfloat16:
+        return bf16_key_splits(B, H, Sq, Sk, d, n_sms)
+    return fp32_key_splits(B, H, Sq, Sk, n_sms)
 
 
 def key_mask_and_causal(mask: torch.Tensor | None, B: int, Sk: int,
@@ -131,6 +163,52 @@ def flash_attention_lse_reference(q, k, v, key_mask: torch.Tensor,
     s = _masked_logits(q, k, key_mask, causal)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(v.dtype), v), torch.logsumexp(s, dim=-1)
+
+
+def split_partials(q, k, v, key_mask, causal: bool, splits: int,
+                   block_k: int):
+    '''The kernels' partials of a key loop split into ``splits`` chunks of
+    ceil(ceil(Sk / block_k) / splits) key tiles, each (m, l, O): the
+    chunk's masked scaled logits' max m, l = sum exp(s - m) and the
+    unnormalised O = exp(s - m) v in fp32, exp(s - m) cast to v's dtype for
+    the product as the kernels do. A chunk that holds no valid key (past
+    Sk, or masked) has m = -inf, l = 0, O = 0. Each is (splits, B, H, Sq[,
+    d]).'''
+    s, valid = _logits(q, k, key_mask, causal)
+    s = s.masked_fill(~valid, -math.inf)
+    Sk = k.shape[2]
+    tiles = -(-Sk // block_k)
+    chunk = -(-tiles // splits) * block_k
+    ms, ls, os_ = [], [], []
+    for c in range(splits):
+        part = s[..., c * chunk:(c + 1) * chunk]
+        m = (part.amax(-1) if part.shape[-1] else
+             s.new_full(s.shape[:-1], -math.inf))
+        m_safe = torch.where(m.isneginf(), 0.0, m)
+        p = torch.exp(part - m_safe[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        os_.append(torch.matmul(p.to(v.dtype),
+                                v[..., c * chunk:(c + 1) * chunk, :]
+                                ).to(s.dtype))
+    return torch.stack(ms), torch.stack(ls), torch.stack(os_)
+
+
+def combine_partials(m, l, o, dtype):
+    '''The split's combine kernel's plain version: out (in ``dtype``) and
+    lse from the partials of ``split_partials``, weighed by exp(m_s - max
+    m) (0 for an empty partial) and summed in split order in fp32, rounded
+    once. A row empty in every split: out NaN, lse -inf.'''
+    m_max = m.amax(0)
+    w = torch.where(m.isneginf(), 0.0,
+                    torch.exp(m - torch.where(m_max.isneginf(), 0.0,
+                                              m_max)))
+    lsum, osum = torch.zeros_like(l[0]), torch.zeros_like(o[0])
+    for s in range(m.shape[0]):
+        lsum = lsum + w[s] * l[s]
+        osum = osum + w[s][..., None] * o[s]
+    out = (osum / lsum[..., None]).to(dtype)
+    return out, m_max + torch.log(lsum)
 
 
 def _recon_p(q, k, key_mask, causal: bool, lse):
@@ -231,8 +309,8 @@ def attention_bound_ms(flops: int, nbytes: int, dtype: str):
 
 def flash_attention_forward(q, k, v, key_mask, causal: bool,
                             with_lse: bool = False):
-    '''out, or (out, lse) with ``with_lse``. In fp32 the key loop is split
-    over ``fp32_key_splits`` blocks for this card. The kernel's launches are
+    '''out, or (out, lse) with ``with_lse``. The key loop is split over
+    ``key_splits`` blocks for this card. The kernel's launches are
     counted in ``flash_attention.launches``. Runs through the custom operator
     ``torch.ops.bmt_tpu_torch.flash_attn_fwd``.'''
     if q.device.type not in ('cpu', 'cuda'):
@@ -259,20 +337,20 @@ def _flash_attn_fwd_op(q, k, v, key_mask, causal, with_lse):
                 q.new_empty(0, dtype=torch.float32))
     _check(KERNEL, q=q, k=k, v=v, mask=key_mask)
     B, H, Sq, d = q.shape
-    key_splits = (fp32_key_splits(B, H, Sq, k.shape[2], _sm_count(q.device))
-                  if q.dtype == torch.float32 else 1)
+    splits = key_splits(B, H, Sq, k.shape[2], d, q.dtype,
+                        _sm_count(q.device))
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     fwd, fwd_split = _fwd_kernels()
-    if key_splits == 1:
+    if splits == 1:
         _run(KERNEL, fwd, q, k, v, key_mask, out, lse, *_dims(q, k),
              int(causal))
     else:
-        part = torch.empty(key_splits * B * H * Sq * (d + 2),
+        part = torch.empty(splits * B * H * Sq * (d + 2),
                            dtype=torch.float32, device=q.device)
         _run(KERNEL, fwd_split, q, k, v, key_mask, out, lse, part,
-             *_dims(q, k), int(causal), key_splits)
+             *_dims(q, k), int(causal), splits)
     with _count_lock:            # replicas decode in threads of their own
         flash_attention.launches += 1
     return out, (lse if with_lse else q.new_empty(0, dtype=torch.float32))

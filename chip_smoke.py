@@ -10,16 +10,18 @@ when it fails:
 1. the device: torch's name for it and nvidia-smi's name and power limit;
 2. build the CUDA kernels from bmt_tpu_torch/csrc/ (one nvcc per source,
    started together; each timed), all on tensor cores at head dims padded
-   to 64 and 256: the forward in fp32 (flash_attn_fwd_tf32_kernel, 3xTF32,
-   and flash_attn_fwd_combine_kernel, which combines the partials of a
-   split key loop) and in bf16 (flash_attn_fwd_bf16_kernel); dQ and dK/dV
-   in fp32 (flash_attn_bwd_dq_tf32_kernel, flash_attn_bwd_dkv_tf32_kernel,
-   3xTF32) and in bf16 (flash_attn_bwd_dq_sm90_kernel,
+   to 64 and 256: the forward in fp32 (flash_attn_fwd_tf32_kernel, 3xTF32)
+   and in bf16 (flash_attn_fwd_sm90_kernel: wgmma on TMA tiles, at 32
+   too), with flash_attn_fwd_combine_kernel<float> and <bf16>, which
+   combine the partials of a split key loop; dQ and dK/dV in fp32
+   (flash_attn_bwd_dq_tf32_kernel, flash_attn_bwd_dkv_tf32_kernel, 3xTF32)
+   and in bf16 (flash_attn_bwd_dq_sm90_kernel,
    flash_attn_bwd_dkv_sm90_kernel: wgmma on TMA tiles, at 32 too); print
    what ptxas reports for each and fail if one is missing or any kernel
    spills registers; count HGMMA (wgmma), UTMALDG (TMA loads) and HMMA
-   (mma.sync) in each backward kernel's machine code (cuobjdump -sass) and
-   fail if a bf16 backward kernel lacks HGMMA or UTMALDG; beside them, the
+   (mma.sync) in each kernel's machine code (cuobjdump -sass) and fail if
+   a bf16 kernel (the forward and the backward pair) lacks HGMMA or
+   UTMALDG; beside them, the
    two host libraries from bmt_tpu_torch/csrc/*.cc with g++ (the feature
    loader bmt_io, the METEOR aligner meteor_align; timed), failing if
    either does not build or does not serve;
@@ -72,7 +74,8 @@ when it fails:
     with key masks of videos shorter than the pad (65%, 40%, 90% of the
     rows) and one batch row with every key masked; then each kernel's
     device time in bf16 beside its plain version's, the library call's and
-    its bound, at B=16 and (the serving forward) B=1, and the same in fp32
+    its bound, at B=16 and (the serving forward, whose key loops split over
+    the bf16_key_splits printed beside each) B=1, and the same in fp32
     at B=16 (the shapes of a fp32 proposal train step, which launches 8 dQ
     and 8 dK/dV);
 12. dense captioning (bf16): a flagship MultimodalProposalGenerator
@@ -353,8 +356,8 @@ from bmt_tpu_torch.models import BiModalTransformer, CapModelDims
 from bmt_tpu_torch.ops._build import (host_lib_path, load_host_library,
                                      load_library, ptxas_report, sass)
 from bmt_tpu_torch.ops.flash_attention import (
-    BWD_LIBRARY, KERNEL, KERNEL_DKV, KERNEL_DQ, attention_bound_ms,
-    attention_cost, flash_attention, fp32_key_splits,
+    BWD_LIBRARY, KERNEL, KERNEL_DKV, KERNEL_DQ, _sm_count, attention_bound_ms,
+    attention_cost, bf16_key_splits, flash_attention, fp32_key_splits,
     flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
     flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
     flash_attention_forward, flash_attention_lse_reference,
@@ -417,15 +420,16 @@ SOURCES = {KERNEL: 'bmt_tpu_torch/csrc/flash_attn_fwd.cu',
 # forward with its split's combine) and bf16
 ENTRIES = {KERNEL: ('flash_attn_fwd_tf32_kernel',
                     'flash_attn_fwd_combine_kernel',
-                    'flash_attn_fwd_bf16_kernel'),
+                    'flash_attn_fwd_sm90_kernel'),
            BWD_LIBRARY: ('flash_attn_bwd_dq_tf32_kernel',
                          'flash_attn_bwd_dq_sm90_kernel',
                          'flash_attn_bwd_dkv_tf32_kernel',
                          'flash_attn_bwd_dkv_sm90_kernel')}
-# the opcodes counted in the backward kernels' machine code: wgmma, the TMA
-# tile load and mma.sync; the bf16 kernels must hold the first two
+# the opcodes counted in the kernels' machine code: wgmma, the TMA tile load
+# and mma.sync; the bf16 kernels must hold the first two
 SASS_OPS = ('HGMMA', 'UTMALDG', 'HMMA')
-HOPPER_KERNELS = ('flash_attn_bwd_dq_sm90_kernel',
+HOPPER_KERNELS = ('flash_attn_fwd_sm90_kernel',
+                  'flash_attn_bwd_dq_sm90_kernel',
                   'flash_attn_bwd_dkv_sm90_kernel')
 REPLACES = {KERNEL: 'bmt_tpu/ops/pallas_attention.py:237',  # and :278
             KERNEL_DQ: 'bmt_tpu/ops/pallas_attention.py:473',
@@ -552,11 +556,11 @@ def kernel_name(line):
     flash_attn_bwd_dq_sm90_kernel<256>. The mangled name's length prefix
     tells the kernel from the anonymous namespace, which holds the source's
     file name.'''
-    m = re.search(r'\d+(flash_attn_\w*?_kernel)(?:ILi(\d+)EE|I(f)EE)?',
-                  line)
+    m = re.search(r'\d+(flash_attn_\w*?_kernel)'
+                  r'(?:ILi(\d+)EE|I(f)EE|I\d+(__nv_bfloat16)EE)?', line)
     if m is None:
         return line.strip()
-    arg = m.group(2) or (m.group(3) and 'float')
+    arg = m.group(2) or (m.group(3) and 'float') or (m.group(4) and 'bf16')
     return f'{m.group(1)}<{arg}>' if arg else m.group(1)
 
 
@@ -1171,8 +1175,9 @@ def phase_prop_kernels(dev, smi):
               f'{t[KERNEL_DQ]["library"]:.4f}')
         c = (case[0], 1) + case[2:]
         t = forward_times(c, dev, 500 + i, prop_key_lengths(1, case[4], dev))
-        print(f'    B=1  {case[0]:24s} Sq={case[3]:3d} Sk={case[4]:3d}: '
-              + times_line('forward (no lse)', t))
+        splits = bf16_key_splits(*c[1:6], _sm_count(dev))
+        print(f'    B=1  {case[0]:24s} Sq={case[3]:3d} Sk={case[4]:3d} key '
+              f'splits {splits}: ' + times_line('forward (no lse)', t))
     # fp32 at B=16: what a fp32 proposal train step launches (16 forward,
     # 8 dQ and 8 dK/dV calls at these four shapes)
     print(f'    device ms per call (fp32, B={PB}, H=4, d=256; library '
@@ -5113,8 +5118,8 @@ def main():
                       f'{lib}: a kernel spills registers: {line.strip()}')
         check(set(want) <= built, f'{lib}: ptxas compiled {sorted(built)}, '
               f'not all of {want}')
-    counts = sass_counts(BWD_LIBRARY)
-    print('    machine code of the backward kernels (cuobjdump -sass):')
+    counts = {**sass_counts(KERNEL), **sass_counts(BWD_LIBRARY)}
+    print('    machine code of the kernels (cuobjdump -sass):')
     for kname, c in sorted(counts.items()):
         print(f'      {kname}: ' + ', '.join(f'{op} {n}' for op, n in c.items()))
     for base in HOPPER_KERNELS:

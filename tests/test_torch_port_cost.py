@@ -2,13 +2,15 @@
 bound a chip measurement is held against) and the kernel build's cache key.
 Neither needs a card or nvcc.'''
 import pytest
+import torch
 
 from bmt_tpu_torch.ops import _build
-from bmt_tpu_torch.ops.flash_attention import (FP32_BK, FP32_BQ, KERNEL,
-                                               KERNEL_DKV, KERNEL_DQ,
-                                               attention_bound_ms,
+from bmt_tpu_torch.ops.flash_attention import (BF16_BK, BF16_BQ, FP32_BK,
+                                               FP32_BQ, KERNEL, KERNEL_DKV,
+                                               KERNEL_DQ, attention_bound_ms,
                                                attention_cost,
-                                               fp32_key_splits)
+                                               bf16_key_splits,
+                                               fp32_key_splits, key_splits)
 
 # the train cell's encoder self-attention call: B=32, H=4, S=256, d=256
 TRAIN_CALL = (32, 4, 256, 256, 256)
@@ -86,6 +88,56 @@ def test_fp32_key_splits_never_exceed_the_key_tiles():
             assert 1 <= splits <= -(-Sk // FP32_BK)
 
 
+@pytest.mark.parametrize('B,Sq,Sk,d', [
+    (1, 800, 800, 256), (1, 300, 300, 256), (1, 800, 300, 256),
+    (1, 300, 800, 256), (1, 800, 800, 32), (1, 23, 800, 32)])
+def test_bf16_key_splits_fill_at_most_one_wave(B, Sq, Sk, d):
+    '''The bf16 forward at H=4 on 132 SMs: a served video's B=1 calls (and
+    the audio models' at d = 32, two blocks an SM) split their key loops
+    over more than one block, the blocks of all splits fill at most one
+    wave, and no split is empty.'''
+    splits = bf16_key_splits(B, 4, Sq, Sk, d, 132)
+    blocks, tiles = B * 4 * -(-Sq // BF16_BQ), -(-Sk // BF16_BK)
+    wave = 132 * (2 if d <= 32 else 1)
+    chunk = -(-tiles // splits)
+    assert 1 < splits <= tiles
+    assert blocks * splits <= wave
+    assert (splits - 1) * chunk < tiles <= splits * chunk
+
+
+@pytest.mark.parametrize('B,H,Sq,Sk,d', [
+    (32, 4, 256, 256, 256), (16, 4, 800, 800, 256), (32, 4, 21, 256, 256),
+    (32, 4, 800, 800, 32), (16, 2, 800, 800, 256), (8, 4, 256, 256, 256),
+    (8, 4, 96, 96, 256), (2, 4, 300, 800, 256)])
+def test_bf16_key_splits_leave_calls_that_fill_the_card_whole(B, H, Sq, Sk,
+                                                              d):
+    '''The train cell's calls, the proposal cell's B=16 800x800, the
+    decoder's 21-row calls at B=32 (128 blocks, one a head and batch row:
+    132 // 128 = 1), the audio encoder at d = 32 and H = 2 take no split;
+    nor do launches of several batch rows that leave the card idle (the
+    pipeline's 8-row microbatches, two videos), so that a row's bits do
+    not hang on how its batch is cut.'''
+    assert bf16_key_splits(B, H, Sq, Sk, d, 132) == 1
+
+
+def test_bf16_key_splits_never_exceed_the_key_tiles():
+    for Sk in (1, 63, 64, 65, 129, 800):
+        for d in (8, 32, 64, 256):
+            for n_sms in (1, 8, 132, 1000):
+                splits = bf16_key_splits(1, 1, 1, Sk, d, n_sms)
+                tiles = -(-Sk // BF16_BK)
+                chunk = -(-tiles // splits)
+                assert 1 <= splits <= tiles
+                assert (splits - 1) * chunk < tiles <= splits * chunk
+
+
+def test_key_splits_pick_the_rule_by_dtype():
+    assert key_splits(1, 4, 800, 800, 256, torch.bfloat16, 132) == \
+        bf16_key_splits(1, 4, 800, 800, 256, 132) == 4
+    assert key_splits(1, 4, 800, 800, 256, torch.float32, 132) == \
+        fp32_key_splits(1, 4, 800, 800, 132) == 2
+
+
 def test_library_path_changes_with_any_header(tmp_path, monkeypatch):
     '''The built library's name hashes the source and every csrc/*.cuh, so
     an edited header never loads a stale library.'''
@@ -117,3 +169,9 @@ def test_the_real_sources_hash_their_header():
     assert (_build.CSRC_DIR / 'mma_tf32.cuh').exists()
     assert '#include "mma_tf32.cuh"' in (
         _build.CSRC_DIR / 'flash_attn_fwd.cu').read_text()
+    # the shared Hopper header (wgmma, TMA and the tensor-map builder)
+    assert (_build.CSRC_DIR / 'sm90.cuh').exists()
+    for name in ('flash_attn_fwd', 'flash_attn_bwd'):
+        src = (_build.CSRC_DIR / f'{name}.cu').read_text()
+        assert '#include "sm90.cuh"' in src
+        assert 'cuTensorMapEncodeTiled' not in src       # one copy, there

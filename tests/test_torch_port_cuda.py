@@ -21,7 +21,8 @@ from bmt_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
     flash_attention_bwd_dq_reference, flash_attention_forward,
     flash_attention_lse_reference, flash_attention_reference,
-    fp32_key_splits, key_mask_and_causal, launch_counts, row_dot)
+    bf16_key_splits, fp32_key_splits, key_mask_and_causal, launch_counts,
+    row_dot)
 from bmt_tpu_torch.ops.quant import (Int8Linear, int8_matmul,
                                      quantize_rows_int8)
 
@@ -217,6 +218,50 @@ def test_bf16_backward_kernels_at_tile_edges_on_card(cuda, shape, kind):
                                    rtol=rtol)
 
 
+# the edges of the bf16 forward's tiles (64-row halves of 128-row query
+# blocks, 64-key tiles; head dims padded to 32, 64 or 256): every length of
+# {1, 21, 63, 65, 129, 800} on the query and on the key side, causal and
+# padded, at every head dim
+FWD_EDGE_LENGTHS = [(1, 65, 'padding'), (21, 21, 'causal'),
+                    (63, 129, 'padding'), (65, 63, 'causal'),
+                    (129, 800, 'causal'), (800, 1, 'padding'),
+                    (21, 800, 'padding'), (800, 65, 'causal')]
+BF16_FWD_EDGE_CASES = [((2, 2, sq, sk, d), kind)
+                       for d in (8, 24, 32, 40, 64, 72, 256)
+                       for sq, sk, kind in FWD_EDGE_LENGTHS]
+
+
+@pytest.mark.parametrize('with_lse', [True, False])
+@pytest.mark.parametrize('shape,kind', BF16_FWD_EDGE_CASES)
+def test_bf16_forward_kernel_at_tile_edges_on_card(cuda, shape, kind,
+                                                   with_lse):
+    '''The bf16 forward (wgmma on TMA tiles) against its plain version at
+    query and key lengths that cut its tiles or fill less than one, head
+    dims that leave part of a 32- or 64-column region (or whole regions) to
+    TMA's zero fill, causal with Sq != Sk, ragged key masks and a batch row
+    with every key masked (NaN, lse -inf), with and without lse. (A
+    launch of several rows takes no key split;
+    test_bf16_key_split_is_deterministic_on_card has the split.)'''
+    q, k, v, _, km, causal = _inputs(cuda, torch.bfloat16, shape, kind)
+    before = flash_attention.launches
+    got = flash_attention_forward(q, k, v, km, causal, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    out, lse = got if with_lse else (got, None)
+    ref_out, ref_lse = flash_attention_lse_reference(q, k, v, km, causal)
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                               rtol=rtol, equal_nan=True)
+    assert out[-1].isnan().all() and not out[0].isnan().any()
+    if with_lse:
+        assert torch.equal(lse.isneginf(), ref_lse.isneginf())
+        assert lse[-1].isneginf().all()
+        torch.testing.assert_close(lse.nan_to_num(neginf=0.0),
+                                   ref_lse.nan_to_num(neginf=0.0),
+                                   atol=LSE_TOL[0], rtol=LSE_TOL[1])
+
+
 # the tensor-parallel shapes: the flagship's H = 4 heads over mp 2 (H = 2)
 # and mp 4 (H = 1) at d = 256 (the train cell B = 32: 256 audio, 96 video
 # rows, 22 caption tokens; the proposal cell B = 16: 800 and 300 rows), and
@@ -252,10 +297,10 @@ def _app_key_mask(cuda, B, Sk, seed):
             < lengths[:, None]).int()
 
 
-# the uni-modal audio models' calls (d_model_audio 128, H=4: d = 32,
-# zero-padded to the 64-column tile): the encoder's self-attention over up to
-# 800 audio rows, the decoder's causal self-attention over the caption and
-# its cross-attention to the memory
+# the uni-modal audio models' calls (d_model_audio 128, H=4: d = 32, the
+# bf16 kernels' 32-column tiles, zero-padded to 64 columns in fp32): the
+# encoder's self-attention over up to 800 audio rows, the decoder's causal
+# self-attention over the caption and its cross-attention to the memory
 D32_CASES = [((4, 4, 300, 300, 32), 'padding'),
              ((4, 4, 23, 23, 32), 'causal'),
              ((4, 4, 23, 800, 32), 'padding'),
@@ -337,6 +382,61 @@ def test_fp32_key_split_is_deterministic_on_card(cuda, monkeypatch, shape,
     if kind != 'none':
         assert first[0][-1].isnan().all() and first[1][-1].isneginf().all()
         assert not first[0][0].isnan().any()
+
+
+@pytest.mark.parametrize('shape,kind,n_sms,splits', [
+    ((1, 4, 800, 800, 256), 'none', None, 4),
+    ((1, 4, 300, 800, 256), 'none', None, 7),
+    ((1, 4, 300, 300, 256), 'padding', 200, 5),
+    ((1, 2, 129, 129, 64), 'causal', 40, 3),
+    ((1, 4, 800, 800, 32), 'padding', 100, 7),
+    ((1, 4, 129, 800, 40), 'empty', None, 13)])
+def test_bf16_key_split_is_deterministic_on_card(cuda, monkeypatch, shape,
+                                                 kind, n_sms, splits):
+    '''The bf16 forward with each row's key loop split over blocks, in a
+    launch of one batch row (a served video's): the count the rule picks
+    for this card (4 at 800x800, 7 at 300x800), or one forced by giving the
+    rule another SM count. Out and lse are the same bits in two launches
+    (no atomics), agree with the unsplit kernel (one SM: no split) and the
+    plain version; with every key masked the row is NaN with lse -inf.
+    Under causal the last splits of the first query blocks hold no key
+    tile and write empty partials.'''
+    from bmt_tpu_torch.ops import flash_attention as fa
+    q, k, v, _, km, causal = _inputs(cuda, torch.bfloat16, shape, kind)
+    Sk = shape[3]
+    km = torch.ones_like(km)
+    if kind == 'padding':
+        km[:, Sk * 3 // 5:] = 0
+    elif kind == 'empty':
+        km.zero_()
+    if n_sms is not None:
+        monkeypatch.setattr(fa, '_sm_count', lambda device: n_sms)
+    B, H, Sq, Sk, d = shape
+    assert bf16_key_splits(B, H, Sq, Sk, d, fa._sm_count(q.device)) == \
+        splits
+    before = flash_attention.launches
+    first, second = (flash_attention_forward(q, k, v, km, causal,
+                                             with_lse=True)
+                     for _ in range(2))
+    monkeypatch.setattr(fa, '_sm_count', lambda device: 1)
+    whole = flash_attention_forward(q, k, v, km, causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 3
+    assert torch.equal(first[0].nan_to_num(7.0), second[0].nan_to_num(7.0))
+    assert torch.equal(first[1], second[1])
+    ref_out, ref_lse = flash_attention_lse_reference(q, k, v, km, causal)
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    for out, lse in (first, whole):
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                                   rtol=rtol, equal_nan=True)
+        assert torch.equal(lse.isneginf(), ref_lse.isneginf())
+        torch.testing.assert_close(lse.nan_to_num(neginf=0.0),
+                                   ref_lse.nan_to_num(neginf=0.0),
+                                   atol=LSE_TOL[0], rtol=LSE_TOL[1])
+    if kind == 'empty':
+        assert first[0].isnan().all() and first[1].isneginf().all()
+    else:
+        assert not first[0].isnan().any()
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
