@@ -1105,6 +1105,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   using C = Dkv<DP>;
   CUtensorMap tq, tk, tv, tdo;
+  // maps baked into a CUDA graph that captures this launch (sm90.cuh)
   if (!tile_map<DP>(&tq, q, d, Sq, B * H, C::BQ) ||
       !tile_map<DP>(&tdo, dout, d, Sq, B * H, C::BQ) ||
       !tile_map<DP>(&tk, k, d, Sk, B * H, C::BK) ||
@@ -1130,6 +1131,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       int d, int causal, cudaStream_t stream) {
   using C = Dq<DP>;
   CUtensorMap tq, tk, tv, tdo;
+  // maps baked into a CUDA graph that captures this launch (sm90.cuh)
   if (!tile_map<DP>(&tq, q, d, Sq, B * H, C::BQ) ||
       !tile_map<DP>(&tdo, dout, d, Sq, B * H, C::BQ) ||
       !tile_map<DP>(&tk, k, d, Sk, B * H, C::BK) ||

@@ -912,6 +912,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int splits, cudaStream_t stream) {
   using C = Fwd<DP>;
   CUtensorMap tq, tk, tv;
+  // maps baked into a CUDA graph that captures this launch (sm90.cuh)
   if (!tile_map<DP>(&tq, q, d, Sq, B * H, BQ / 2) ||
       !tile_map<DP>(&tk, k, d, Sk, B * H, BK) ||
       !tile_map<DP>(&tv, v, d, Sk, B * H, BK))

@@ -429,7 +429,15 @@ inline EncodeTiled encode_tiled() {
 
 // a (BH, S, d) bf16 tensor as a rank-3 map (d, S, BH) read in boxes of
 // (COLS, rows, 1) with the swizzle of HeadDim<DP>; outside the tensor the
-// box fills with zeros. False when the map does not encode
+// box fills with zeros. False when the map does not encode.
+// The map holds the tensor's address and travels as a __grid_constant__
+// parameter, so a CUDA graph that captures the launch (a train step's,
+// train/graphs.py) replays the map as it was encoded. That is sound only
+// because a graph's tensors never move: its inputs are fixed buffers, its
+// activations come from its own memory pool at fixed addresses, and a
+// replay refuses a state whose tensors were rebound after the capture.
+// cudaFuncSetAttribute, called at every launch, is allowed while a stream
+// captures (the graphed steps run on the H100 with it)
 template <int DP>
 bool tile_map(CUtensorMap* map, const void* ptr, int d, int S, int BH,
               int rows) {

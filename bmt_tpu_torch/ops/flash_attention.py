@@ -406,6 +406,16 @@ def launch_counts() -> dict:
             KERNEL_DKV: flash_attention_bwd_dkv.launches}
 
 
+def add_launches(counts: dict) -> None:
+    '''Add {kernel name: launches} to the counts: a CUDA graph's replay
+    launches the kernels that its capture recorded (``train.graphs``), and
+    a capture itself launches none.'''
+    with _count_lock:
+        flash_attention.launches += counts.get(KERNEL, 0)
+        flash_attention_bwd_dq.launches += counts.get(KERNEL_DQ, 0)
+        flash_attention_bwd_dkv.launches += counts.get(KERNEL_DKV, 0)
+
+
 def reset_launch_counts() -> None:
     flash_attention.launches = 0
     flash_attention_bwd_dq.launches = 0

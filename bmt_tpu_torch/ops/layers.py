@@ -10,7 +10,7 @@ In training, the JAX package draws every mask from a key folded from
 ``dropout_generator(g)`` every ``Dropout`` draws its mask from ``g``, so a
 step's masks depend only on how ``g`` was seeded, not on what ran before.
 ``checkpoint`` (the counterpart of ``jax.checkpoint``) replays those draws
-when the backward recomputes a block.
+when the backward recomputes a block, eagerly and inside a CUDA graph.
 '''
 from __future__ import annotations
 
@@ -80,6 +80,60 @@ class Dropout(nn.Module):
         return f'p={self.p}'
 
 
+class RematStarts:
+    '''Where each ``checkpoint`` block of a train step starts drawing its
+    dropout masks, for a CUDA graph of the step (``train.graphs``).
+
+    A graph cannot move a generator back: its draws read the seed and the
+    offset from device memory that each replay fills, and
+    ``get_state``/``set_state`` act on the host copy only. So the eager
+    warm-up step records each block's starting offset (``offsets``), and
+    the captured step recomputes block j from a generator of its own
+    (``generators[j]``, registered with the graph), which ``reseed`` sets
+    before every replay to the step's seed at offsets[j]: the recompute then
+    draws the masks of the first run.'''
+
+    def __init__(self):
+        self.offsets: list = []
+        self.generators: list = []
+        self._next = 0
+
+    def make_generators(self, generator: torch.Generator) -> list:
+        '''One generator a block, cloned from ``generator`` (before the
+        capture, to be registered with the graph).'''
+        self.generators = [generator.clone_state() for _ in self.offsets]
+        return self.generators
+
+    def take(self) -> torch.Generator:
+        '''The next block's generator, during the capture.'''
+        if self._next >= len(self.generators):
+            raise RuntimeError(
+                f'the captured step runs more checkpoint blocks than its '
+                f'warm-up ({len(self.generators)})')
+        self._next += 1
+        return self.generators[self._next - 1]
+
+    def reseed(self, seed: int) -> None:
+        for g, offset in zip(self.generators, self.offsets):
+            g.manual_seed(seed)
+            g.set_offset(offset)
+
+
+_remat: RematStarts | None = None
+
+
+@contextlib.contextmanager
+def remat_starts(starts: RematStarts | None):
+    '''Record (eagerly) or hand out (while a CUDA graph captures) the
+    ``checkpoint`` blocks' dropout starts in ``starts``.'''
+    global _remat
+    previous, _remat = _remat, starts
+    try:
+        yield
+    finally:
+        _remat = previous
+
+
 def checkpoint(module: nn.Module, *args):
     '''``torch.utils.checkpoint`` of module(*args) (non-reentrant): its
     activations are recomputed in the backward instead of kept.
@@ -88,10 +142,18 @@ def checkpoint(module: nn.Module, *args):
     module held then (under ``torch.func.functional_call`` those are the
     compute-dtype copies, which are gone by the backward), and the dropout
     generator where it stood then, set back for the recompute and restored
-    after it.'''
+    after it; while a CUDA graph captures, a generator of the block's own
+    that each replay sets there (``RematStarts``).'''
     params = dict(module.named_parameters())
     g = _generator
-    start = None if g is None else g.get_state()
+    start = replay = None
+    if g is not None and _remat is not None \
+            and torch.cuda.is_current_stream_capturing():
+        replay = _remat.take()
+    elif g is not None:
+        start = g.get_state()
+        if _remat is not None:
+            _remat.offsets.append(g.get_offset())
     calls = 0
 
     def run(params, *a):
@@ -99,6 +161,9 @@ def checkpoint(module: nn.Module, *args):
         calls += 1
         if calls == 1 or g is None:
             return torch.func.functional_call(module, params, a)
+        if replay is not None:
+            with dropout_generator(replay):
+                return torch.func.functional_call(module, params, a)
         resume = g.get_state()
         g.set_state(start)
         try:

@@ -28,9 +28,13 @@ mp 2, 4 -> sp 2 x mp 2, 2 -> mp 2 (N must be 1 or even). On tiny models
 7. a LoRA step on the grid (rank 2, attention and feed-forward adapters,
    the adapters sharded like their base weights): only adapters move.
 
-Section 8 of the JAX dry run (``make_multistep``, its multi-step dispatch)
-is not ported (ROADMAP.md queue 1 item 12) and is reported so. Section 9
-runs ``python -m bmt_tpu_torch.parallel.dryrun_dist`` in two processes
+8. a bundle of K = 2 captioning steps (``make_multistep``, multi-step
+   dispatch) on the grid: losses of shape (2,), all finite, the state two
+   steps on, and the losses those of one process's bundle, which on the
+   card replays a CUDA graph of the step (under the ranks' process group
+   the bundle's steps run in order).
+
+Section 9 runs ``python -m bmt_tpu_torch.parallel.dryrun_dist`` in two processes
 joined through the JAX package's ``JAX_*`` variables (started first, they
 run beside sections 1-7) and holds their ``RESULT`` line to one process.
 A failed check raises (exit code 1); the last line is the summary, in the
@@ -58,6 +62,7 @@ PROP = dict(d_model_A=16, d_model_V=16, d_model=32, H=2, N=1, d_ff_A=32,
             anchors_num_A=2, anchors_num_V=2, dout_p=0.0)
 ANCHORS = ([2.0, 6.0], [3.0, 9.0])
 STEPS, START, END, PAD = 6, 2, 3, 1
+MULTISTEP_K = 2                          # section 8's bundle
 LOGPROB_TOL = 5e-4            # the JAX dry run's mp decode tolerance
 STEP_RTOL = 1e-4              # losses and checksums against one process
 PP_TOL = 1e-4
@@ -166,16 +171,18 @@ def checksum(model) -> float:
 
 
 def train_step(kind, device, dp=None, batch=None, seed: int = 0,
-               lora: bool = False, **kw):
+               lora: bool = False, bundle: int = 0, **kw):
     """One train step of the captioner (``kind`` 'cap') or the proposal
     generator ('prop') over ``dp``'s grid (the captioner's sp ranks run its
     rows whole), or in one process: (dims, model, state, loss). ``lora``:
     rank-2 adapters on the attention and feed-forward linears, trained
-    alone."""
+    alone. ``bundle`` K > 0: K steps on ``batch`` through
+    ``make_multistep``, the loss then the (K,) losses."""
     from bmt_tpu_torch.ops.lora import lora_frozen_predicate
     from bmt_tpu_torch.train.optim import build_optimizer
     from bmt_tpu_torch.train.steps import (init_train_state,
                                            make_cap_train_step,
+                                           make_multistep,
                                            make_prop_train_step, prop_frozen)
     if kind == 'cap':
         dims, model = (lora_captioner if lora else captioner)(device, seed,
@@ -193,6 +200,9 @@ def train_step(kind, device, dp=None, batch=None, seed: int = 0,
     if dp is not None:
         dp.shard_params(state, 0)        # under --fsdp every leaf is cut
         batch = dp.shard(batch, seq=kind == 'prop')
+    if bundle:
+        state, m = make_multistep(step)(state, [batch] * bundle)
+        return dims, model, state, m['loss'].cpu().numpy()
     state, m = step(state, batch)
     return dims, model, state, m['loss'].item()
 
@@ -309,6 +319,10 @@ def grid_sections(n: int, device) -> dict:
     out['lora_frozen_moved'] = [k for k in moved
                                 if k.rsplit('/', 1)[1] not in ('lora_a',
                                                                'lora_b')]
+    # (8) a bundle of MULTISTEP_K captioning steps on the grid
+    _, _, mstate, losses = train_step('cap', device, dp, fx['cap'], seed=9,
+                                      bundle=MULTISTEP_K)
+    out['multistep_losses'], out['multistep_step'] = losses, mstate.step
     return out
 
 
@@ -408,7 +422,11 @@ def sections(n: int, device, backend, procs, record=None) -> tuple:
         model.eval(), tensors(fx['decode'], device), STEPS, START, END, PAD,
         impl_of(device)).cpu().numpy()
     _, _, _, prop_loss = train_step('prop', device, None, fx['prop'])
-    del model
+    _, _, mstate, ms_losses = train_step('cap', device, None, fx['cap'],
+                                         seed=9, bundle=MULTISTEP_K)
+    graphs = (mstate.graphs.report() if mstate.graphs is not None
+              else 'none (CPU: steps in order)')
+    del model, mstate
     ranks = spawn(grid_worker, (n, record), n, device, backend)
     r0 = ranks[0]
     for r in ranks:
@@ -454,8 +472,17 @@ def sections(n: int, device, backend, procs, record=None) -> tuple:
           f'them: {r0["lora_frozen_moved"]}')
     check(np.isfinite(r0['lora_loss']), f'LoRA loss {r0["lora_loss"]}')
     # (8)
-    print('dryrun_multichip: section 8 (make_multistep, multi-step '
-          'dispatch) is not ported (ROADMAP.md queue 1 item 12)', flush=True)
+    ms_got = np.asarray(r0['multistep_losses'])
+    check(ms_got.shape == (MULTISTEP_K,) and np.isfinite(ms_got).all(),
+          f'multistep losses {ms_got}')
+    check(all(r['multistep_step'] == MULTISTEP_K for r in ranks),
+          f'multistep state at step {[r["multistep_step"] for r in ranks]}, '
+          f'{MULTISTEP_K} expected')
+    check(all(close(a, b) for a, b in zip(ms_got, ms_losses)),
+          f'multistep losses {ms_got} != one process\'s bundle {ms_losses}')
+    print(f'dryrun_multichip: section 8 multistep K={MULTISTEP_K} losses '
+          f'{ms_got.tolist()} == one process {ms_losses.tolist()}; one '
+          f'process\'s graphs: {graphs}', flush=True)
     # (9)
     mhost_ok = 'skipped'
     if n >= 2:
@@ -473,7 +500,8 @@ def sections(n: int, device, backend, procs, record=None) -> tuple:
             f'{r0["toks"].shape[1]})+mp-tolerance pipeline={pp_ok} '
             f'moe={moe_ok} fsdp={fsdp_ok} '
             f'lora=adapters-only({r0["lora_moved"]} leaves) '
-            f'loss={r0["lora_loss"]:.4f} multistep=not-ported '
+            f'loss={r0["lora_loss"]:.4f} multistep=K{MULTISTEP_K}'
+            f'(losses={ms_got.shape},step={MULTISTEP_K}) '
             f'multihost={mhost_ok}')
     return line, ranks
 

@@ -11,8 +11,9 @@ from bmt_tpu_torch.train.losses import (caption_loss, label_smoothing_kl,
 from bmt_tpu_torch.train.optim import (Optimizer, ReduceLROnPlateau,
                                        build_optimizer, get_learning_rate,
                                        set_learning_rate)
-from bmt_tpu_torch.train.steps import (TrainState, init_train_state,
+from bmt_tpu_torch.train.steps import (TrainState, TrainStep,
+                                       init_train_state,
                                        make_cap_train_step,
-                                       make_cap_val_step,
+                                       make_cap_val_step, make_multistep,
                                        make_prop_inference_step,
                                        make_prop_train_step, prop_frozen)

@@ -76,9 +76,11 @@ from bmt_tpu_torch.train.optim import (ReduceLROnPlateau, build_optimizer,
                                        set_learning_rate)
 from bmt_tpu_torch.train.options import (attention_impl, check_ported,
                                          compute_dtype, report_epoch,
-                                         report_time, resolve_device)
+                                         report_graphs, report_time,
+                                         resolve_device)
 from bmt_tpu_torch.train.steps import (TrainState, init_train_state,
-                                       make_cap_train_step, make_cap_val_step)
+                                       make_cap_train_step, make_cap_val_step,
+                                       make_multistep)
 from bmt_tpu_torch.utils.logging import MetricsLogger, NullLogger
 from bmt_tpu_torch.utils.misc import average_metrics_in_two_dicts, timer
 
@@ -156,8 +158,10 @@ def resume(ckpt_dir, name: str, state: TrainState):
         source = copy.deepcopy(state.model)
         if checkpoint_exists(ckpt_dir, f'{name}.ema'):
             load_model_params(ckpt_dir, f'{name}.ema', source)
-        state.ema = {n: p.detach().clone()
-                     for n, p in source.named_parameters()}
+        # in place: a CUDA graph of the step holds the EMA's tensors
+        with torch.no_grad():
+            for n, p in source.named_parameters():
+                state.ema[n].copy_(p)
     return meta
 
 
@@ -275,6 +279,11 @@ def train_cap(cfg: Config, device=None):
         accum_steps=getattr(cfg, 'grad_accum_steps', 1) or 1,
         ema_decay=ema_decay,
         moe_aux_coeff=getattr(cfg, 'moe_aux_coeff', 0.01), dp=dp_step)
+    # --steps_per_dispatch > 1: bundles of that many steps (CUDA graphs of
+    # the step on the card; train.steps.make_multistep)
+    steps_per_dispatch = int(getattr(cfg, 'steps_per_dispatch', 1) or 1)
+    multistep = (make_multistep(train_step) if steps_per_dispatch > 1
+                 else None)
     val_step = make_cap_val_step(dims, cfg.smoothing, train_ds.pad_idx, impl,
                                  dtype, dp=dp_step)
     decode_fn = make_decode_fn(
@@ -369,9 +378,11 @@ def train_cap(cfg: Config, device=None):
                              if cfg.log_path else None),
                 guard=guard,
                 start_batch=(resume_batch if epoch == start_epoch else 0),
-                stats=stats, dp=dp_step)
+                stats=stats, dp=dp_step, multistep=multistep,
+                steps_per_dispatch=steps_per_dispatch)
             state.optimizer.zero_grad()
             report_epoch(f'train epoch {epoch}', t0, stats)
+            report_graphs(state)
 
             if guard is not None and guard.requested:
                 # mid-epoch: save with the last COMPLETED epoch and the

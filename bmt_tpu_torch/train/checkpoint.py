@@ -347,8 +347,6 @@ def load_optimizer_state(model: nn.Module, optimizer: Optimizer,
     calls = int(take(layout['count']))
     count = int(scalar('adam_count', scalar('schedule_count', calls)))
     lr = take(layout['learning_rate'])
-    group = optimizer.inner.param_groups[0]
-    on_device = group.get('capturable') or group.get('fused')
     states = {}
     for moment, path, p, axes, trainable in _jax_moments(model, optimizer):
         arr = take(f'{layout[moment]}{SEP}{path}')
@@ -366,19 +364,13 @@ def load_optimizer_state(model: nn.Module, optimizer: Optimizer,
         state = states.setdefault(p, {})
         state[MOMENTS[moment]] = torch.from_numpy(
             np.ascontiguousarray(arr)).to(p.device, dtype)
-        if moment == 'mu':
-            state['step'] = torch.tensor(
-                float(count), dtype=torch.float32,
-                device=p.device if on_device else 'cpu')
     leftover = sorted(set(flat) - used)
     if leftover:
         raise KeyError(f'optimizer state holds {len(leftover)} arrays that '
                        f'this optimizer has no place for (first: '
                        f'{leftover[0]!r}): written for another '
                        f'configuration or another model')
-    for p in optimizer.params:
-        optimizer.inner.state.pop(p, None)
-    optimizer.inner.state.update(states)
+    _install_states(optimizer, states)
     optimizer.count, optimizer.calls = count, calls
     # the file holds the rate in fp32; a base rate that rounds to it stays
     if np.float32(optimizer.lr) != lr:
@@ -386,6 +378,28 @@ def load_optimizer_state(model: nn.Module, optimizer: Optimizer,
     optimizer.notfinite = int(scalar('notfinite_count', 0))
     optimizer.total_notfinite = int(scalar('total_notfinite', 0))
     optimizer.last_finite = bool(scalar('last_finite', True))
+
+
+@torch.no_grad()
+def _install_states(optimizer: Optimizer, states: dict) -> None:
+    '''Put {parameter: {key: tensor}} into the optimizer's state: copied
+    into the tensors it holds where they have the same keys, shapes and
+    dtypes (a CUDA graph of the train step holds their addresses,
+    ``train.graphs``), else in their place. A parameter without a loaded
+    state gets zero moments in place, which is a fresh optimizer's state
+    (its moments start at zero), or none if it had none.'''
+    for p in optimizer.params:
+        old, new = optimizer.inner.state.get(p), states.get(p)
+        if old and new is None:
+            for t in old.values():
+                t.zero_()
+        elif old and old.keys() == new.keys() and all(
+                old[k].shape == t.shape and old[k].dtype == t.dtype
+                for k, t in new.items()):
+            for k, t in new.items():
+                old[k].copy_(t)
+        elif new is not None:
+            optimizer.inner.state[p] = new
 
 
 def _param_paths(model: nn.Module) -> dict:
@@ -407,18 +421,14 @@ def _load_torch_layout(model: nn.Module, optimizer: Optimizer,
             continue
         _, key, path = k.split(SEP, 2)
         by_path.setdefault(path, {})[key] = arr
-    group = optimizer.inner.param_groups[0]
-    on_device = group.get('capturable') or group.get('fused')
+    states = {}
     for p in optimizer.params:
         entries = by_path.pop(paths[id(p)], None)
         if entries is None:
             continue
         state = {}
         for key, arr in entries.items():
-            if key == 'step':
-                state[key] = torch.tensor(
-                    float(arr), dtype=torch.float32,
-                    device=p.device if on_device else 'cpu')
+            if key == 'step':        # the optimizer's count stands for it
                 continue
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(
@@ -428,11 +438,12 @@ def _load_torch_layout(model: nn.Module, optimizer: Optimizer,
             dtype = (getattr(optimizer.inner, 'mu_dtype', p.dtype)
                      if key == 'exp_avg' else p.dtype)
             state[key] = torch.from_numpy(np.array(arr)).to(p.device, dtype)
-        optimizer.inner.state[p] = state
+        states[p] = state
     if by_path:
         raise KeyError(f'optimizer state for {len(by_path)} paths that are '
                        f'no trainable parameter (first: '
                        f'{sorted(by_path)[0]!r})')
+    _install_states(optimizer, states)
     optimizer.count = optimizer.calls = int(flat['count'])
     optimizer.lr = float(flat['lr'])
     optimizer.notfinite = int(flat['notfinite'])

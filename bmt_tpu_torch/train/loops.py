@@ -25,8 +25,13 @@ each rank's rows and is gathered in row order, rank 0 alone writes and
 scores the submission and hands the scores to the others, and a preemption
 signal on any rank stops every rank after the same step. The ranks of one
 sp or ep group load the same rows (``local_rows`` reads the dp
-coordinate). Not ported:
-multi-step dispatch (ROADMAP queue 1 item 12).
+coordinate).
+
+Multi-step dispatch (``multistep``, ``train.steps.make_multistep``, with
+``steps_per_dispatch`` K > 1): the train loops run bundles of K batches
+through ``multistep``, an epoch's tail shorter than a bundle through the
+single step, and poll the guard between bundles, so the exact-resume point
+comes at most K - 1 batches after the signal, as in the JAX loops.
 '''
 from __future__ import annotations
 
@@ -218,34 +223,93 @@ def _on_rank(batch: dict, dp) -> dict:
     return batch if dp is None else dp.shard(batch)
 
 
+class _Bundler:
+    '''Runs a train loop's steps one at a time, or in bundles of
+    ``steps_per_dispatch`` through ``multistep``: ``add(batch)`` returns
+    [(metrics, steps)] of what ran (nothing while a bundle fills; a
+    bundle's metrics summed over its steps); ``tail()`` yields (metrics, 1)
+    for each batch that a short last bundle left, run one step each.'''
+
+    def __init__(self, train_step, multistep, steps_per_dispatch: int,
+                 state):
+        self.step, self.multistep = train_step, multistep
+        self.k = steps_per_dispatch if multistep is not None else 1
+        self.state, self.pending, self.bundled = state, [], 0
+
+    def add(self, batch: dict) -> list:
+        if self.k == 1:
+            self.state, metrics = self.step(self.state, batch)
+            return [(metrics, 1)]
+        self.pending.append(batch)
+        if len(self.pending) < self.k:
+            return []
+        bundle, self.pending = self.pending, []
+        self.state, metrics = self.multistep(self.state, bundle)
+        self.bundled += self.k
+        return [({k: v.sum() for k, v in metrics.items()}, self.k)]
+
+    def tail(self):
+        pending, self.pending = self.pending, []
+        for batch in pending:
+            self.state, metrics = self.step(self.state, batch)
+            yield metrics, 1
+
+    def even_out(self, stats: Optional[dict]) -> None:
+        '''``stats['step_s']`` holds a bundle's seconds on its last batch
+        and ~0 on the others: give each of its batches the bundle's
+        mean.'''
+        steps = None if stats is None else stats.get('step_s')
+        if not steps or self.k == 1:
+            return
+        for i in range(0, self.bundled, self.k):
+            mean = sum(steps[i:i + self.k]) / self.k
+            steps[i:i + self.k] = [mean] * self.k
+
+
 def train_epoch_cap(train_step, state, dataset, epoch: int, logger=None,
                     seed: int = 0, profile_steps: int = 0, profile_dir=None,
                     guard=None, start_batch: int = 0,
-                    stats: Optional[dict] = None, dp=None):
+                    stats: Optional[dict] = None, dp=None, multistep=None,
+                    steps_per_dispatch: int = 1):
     '''Teacher-forced training epoch (reference:
     captioning_epoch_loops.py:122-149). Returns (state, mean loss).
 
-    guard: optional ``PreemptionGuard``, polled after every step; on request
-    the epoch stops early with ``guard.batch_in_epoch`` the index of the
-    next unprocessed batch. start_batch: skip the first k batches (exact
-    resume of an interrupted epoch; the batch order is fixed by (seed,
-    epoch)). dp: this rank's rows of each batch go to ``train_step``.'''
+    guard: optional ``PreemptionGuard``, polled after every step (bundle);
+    on request the epoch stops early with ``guard.batch_in_epoch`` the
+    index of the next unprocessed batch. start_batch: skip the first k
+    batches (exact resume of an interrupted epoch; the batch order is fixed
+    by (seed, epoch)). dp: this rank's rows of each batch go to
+    ``train_step``. multistep, steps_per_dispatch: bundles of that many
+    steps (module docstring).'''
     total, n = 0.0, 0
+    runner = _Bundler(train_step, multistep, steps_per_dispatch, state)
     prof = _EpochProfiler(profile_steps, epoch, profile_dir)
     try:
         for batch in _timed(dataset.batches(
                 epoch=epoch, seed=seed,
                 **_batches_kw(dataset, start_batch, dp)), stats):
-            state, metrics = train_step(
-                state, _on_rank(_step_batch(batch, dataset.batch_size), dp))
-            total = total + metrics['loss']          # a device scalar
-            n += 1
+            ran = runner.add(_on_rank(_step_batch(batch, dataset.batch_size),
+                                      dp))
+            for metrics, k in ran:
+                total = total + metrics['loss']      # a device scalar
+                n += k
+            if not ran:
+                continue
             prof.step(n)
             if _stop(guard, dp):
                 guard.batch_in_epoch = start_batch + n
                 break
+        else:                   # the tail that did not fill a bundle
+            for metrics, k in runner.tail():
+                total = total + metrics['loss']
+                n += k
+                if _stop(guard, dp):
+                    guard.batch_in_epoch = start_batch + n
+                    break
     finally:
         prof.close(n)
+    state = runner.state
+    runner.even_out(stats)
     mean = float(total) / max(n, 1)
     if logger is not None:
         logger.add_scalar('debug/train_loss_epoch', mean, epoch)
@@ -414,33 +478,51 @@ def validation_1by1(cfg, model, decoder_fn, dataset, epoch: int,
 def train_epoch_prop(train_step, state, dataset, epoch: int, logger=None,
                      seed: int = 0, guard=None, start_batch: int = 0,
                      profile_steps: int = 0, profile_dir=None,
-                     stats: Optional[dict] = None, dp=None):
+                     stats: Optional[dict] = None, dp=None, multistep=None,
+                     steps_per_dispatch: int = 1):
     '''Proposal-generator training epoch (reference:
     proposal_epoch_loops.py:27-63). The dataset's batches hold 'src',
     'centers', 'lengths' and 'valid'; a batch shorter than ``batch_size``
-    (the tail) is dropped. guard, start_batch, profile_steps, stats, dp: as
-    in ``train_epoch_cap``. Returns (state, mean loss).'''
+    (the tail) is dropped. guard, start_batch, profile_steps, stats, dp,
+    multistep, steps_per_dispatch: as in ``train_epoch_cap``. Returns
+    (state, mean loss).'''
     total, n, acc = 0.0, 0, {}
+    runner = _Bundler(train_step, multistep, steps_per_dispatch, state)
     prof = _EpochProfiler(profile_steps, epoch, profile_dir)
+
+    def account(ran):
+        nonlocal total, n, acc
+        for metrics, k in ran:
+            total = total + metrics['loss']           # device scalars
+            acc = add_dict_to_another_dict(
+                {key: v for key, v in metrics.items() if key != 'loss'}, acc)
+            n += k
     try:
         for batch in _timed(dataset.batches(
                 epoch=epoch, seed=seed,
                 **_batches_kw(dataset, start_batch, dp)), stats):
             if len(batch['valid']) < dataset.batch_size:
                 continue                              # drop_last
-            state, metrics = train_step(state, _on_rank({
+            ran = runner.add(_on_rank({
                 k: batch[k] for k in ('src', 'centers', 'lengths', 'valid')},
                 dp))
-            total = total + metrics['loss']           # device scalars
-            acc = add_dict_to_another_dict(
-                {k: v for k, v in metrics.items() if k != 'loss'}, acc)
-            n += 1
+            account(ran)
+            if not ran:
+                continue
             prof.step(n)
             if _stop(guard, dp):
                 guard.batch_in_epoch = start_batch + n
                 break
+        else:
+            for ran in runner.tail():
+                account([ran])
+                if _stop(guard, dp):
+                    guard.batch_in_epoch = start_batch + n
+                    break
     finally:
         prof.close(n)
+    state = runner.state
+    runner.even_out(stats)
     if n == 0 and start_batch == 0:
         print(f'WARNING: proposal train epoch {epoch} ran ZERO batches -- '
               f'the dataset has fewer videos than the batch size '

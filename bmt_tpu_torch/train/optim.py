@@ -12,13 +12,10 @@ order of the JAX package's optax chain:
 2. global-norm clipping of the raw gradients over the trainable parameters
    (``optax.clip_by_global_norm``: g * max_norm / ||g|| when ||g|| >=
    max_norm; unlike ``torch.nn.utils.clip_grad_norm_`` no 1e-6 is added);
-3. L2 weight decay into the gradient and Adam (``torch.optim.Adam``, not
-   AdamW), or SGD with momentum (``torch.optim.SGD``, whose momentum buffer
-   starts at the first gradient, as ``optax.trace`` does from zeros). With
-   ``--optim_mu_dtype bfloat16`` Adam keeps its first moment in bf16 and its
-   second in fp32; ``torch.optim.Adam`` keeps one dtype, so that option runs
-   ``OptaxAdam``, which follows ``optax.scale_by_adam(mu_dtype=...)`` step
-   for step;
+3. L2 weight decay into the gradient and Adam (``OptaxAdam``, not AdamW:
+   ``optax.scale_by_adam`` step for step, its first moment in
+   ``--optim_mu_dtype``), or SGD with momentum (``OptaxSGD``:
+   ``optax.trace`` from zeros);
 4. the learning rate times the ``warmup_cosine`` multiplier of the update
    count, equal to ``optax.warmup_cosine_decay_schedule`` /
    ``linear_schedule`` at every count.
@@ -36,6 +33,7 @@ file serves both packages.
 '''
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional
 
@@ -49,7 +47,8 @@ def schedule_multiplier(cfg, total_steps: Optional[int] = None
                         ) -> Optional[Callable[[int], float]]:
     '''The per-update learning-rate multiplier of ``--scheduler
     warmup_cosine`` as a function of the update count, or None for a
-    constant rate.'''
+    constant rate. Its ``horizon`` is the count from which it stays
+    constant.'''
     if getattr(cfg, 'scheduler', 'constant') != 'warmup_cosine':
         return None
     warm = max(int(getattr(cfg, 'warmup_steps', 0) or 0), 0)
@@ -65,7 +64,10 @@ def schedule_multiplier(cfg, total_steps: Optional[int] = None
 
     if total <= warm:
         # no (usable) step budget: linear warmup, then flat
-        return lambda count: linear(count, max(warm, 1))
+        def warmup(count):
+            return linear(count, max(warm, 1))
+        warmup.horizon = max(warm, 1)
+        return warmup
 
     def warmup_cosine(count):
         if count < warm:
@@ -73,14 +75,35 @@ def schedule_multiplier(cfg, total_steps: Optional[int] = None
         c = min(count - warm, total - warm)
         cosine = 0.5 * (1.0 + math.cos(math.pi * c / (total - warm)))
         return (1.0 - floor) * cosine + floor
+    warmup_cosine.horizon = total
     return warmup_cosine
+
+
+def _gated(apply, new, old):
+    '''``new`` where ``apply`` (a device bool) holds, else ``old``; every
+    tensor when ``apply`` is None.'''
+    if apply is None:
+        return new
+    return [torch.where(apply, n, o) for n, o in zip(new, old)]
+
+
+@functools.lru_cache(maxsize=None)
+def correction_table(b: float) -> torch.Tensor:
+    '''1 - b^t in fp32 for t = 1, 2, ... until b^t no longer moves it from
+    1 (the last row then stands for every later t), each rounded as the
+    host computed it before the count moved to the device:
+    ``1 - torch.tensor(b, dtype=torch.float32) ** t`` (the power of a
+    Python int, which rounds unlike a power of a tensor of exponents).'''
+    base = torch.tensor(b, dtype=torch.float32)
+    n = 1 if b <= 0.0 else max(1, math.ceil(-27 / math.log2(b)) + 1)
+    return torch.stack([1 - base ** t for t in range(1, n + 1)])
 
 
 class OptaxAdam(torch.optim.Optimizer):
     '''Adam with L2 weight decay into the gradient, in the order and
     rounding of ``optax.add_decayed_weights`` then ``optax.scale_by_adam``
     with ``mu_dtype``, the first moment ``exp_avg`` stored in ``mu_dtype``
-    and the second ``exp_avg_sq`` in fp32:
+    (fp32 by default) and the second ``exp_avg_sq`` in fp32:
 
       mu = (1 - b1) g + b1 mu_stored   (b1 mu_stored in mu_dtype, b1 rounded
                                         to it, as JAX's weak-typed scalar)
@@ -88,49 +111,122 @@ class OptaxAdam(torch.optim.Optimizer):
       p += -lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
 
     with mu itself, not its stored rounding, in the update; then mu is
-    stored. State keys as ``torch.optim.Adam``'s (``step``, ``exp_avg``,
-    ``exp_avg_sq``), so a checkpoint names them alike.'''
+    stored. State keys as ``torch.optim.Adam``'s (``exp_avg``,
+    ``exp_avg_sq``), so a checkpoint names them alike.
+
+    ``step(lr, count, apply)`` reads everything that changes from step to
+    step from tensors on the parameters' device: the learning rate, the
+    count of updates applied before this one (t - 1) and the non-finite
+    guard's verdict (None: always apply). So the same call runs eagerly and
+    inside a CUDA graph, and nothing in it waits for the device.'''
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0,
-                 mu_dtype=torch.bfloat16):
+                 mu_dtype=torch.float32):
         super().__init__(params, {'lr': lr, 'betas': betas, 'eps': eps,
                                   'weight_decay': weight_decay})
         self.mu_dtype = mu_dtype
+        self._tables = {}
+
+    def bias_corrections(self, group: dict, count: torch.Tensor) -> tuple:
+        '''(1 - b1^t, 1 - b2^t) for t = count + 1, fp32 scalars on the
+        count's device: rows of a table of 1 - b^t over t, made on the host
+        once (``correction_table``) and indexed by the device count. A host
+        t would be frozen into a CUDA graph, and a CPU scalar divisor would
+        be applied on the card as its reciprocal.'''
+        return tuple(self._correction(b, count) for b in group['betas'])
+
+    def _correction(self, b: float, count: torch.Tensor) -> torch.Tensor:
+        key = (b, count.device)
+        if key not in self._tables:
+            self._tables[key] = correction_table(b).to(count.device)
+        table = self._tables[key]
+        return table.index_select(0, count.clamp(
+            max=table.numel() - 1).view(1)).view(())
 
     @torch.no_grad()
-    def step(self):
+    def step(self, lr: torch.Tensor, count: torch.Tensor,
+             apply: Optional[torch.Tensor] = None):
         for group in self.param_groups:
             b1, b2 = group['betas']
-            wd, eps, lr = group['weight_decay'], group['eps'], group['lr']
+            wd, eps = group['weight_decay'], group['eps']
             b1_mu = torch.tensor(b1, dtype=self.mu_dtype).item()
-            corrections = {}
-            for p in group['params']:
-                if p.grad is None:
-                    continue
-                g = p.grad if not wd else p.grad + wd * p
+            params = [p for p in group['params'] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
                 state = self.state[p]
-                if not state:
-                    state['step'] = torch.zeros((), dtype=torch.float32)
+                if 'exp_avg' not in state:
                     state['exp_avg'] = torch.zeros_like(
                         p, dtype=self.mu_dtype)
                     state['exp_avg_sq'] = torch.zeros_like(
                         p, dtype=torch.float32)
-                state['step'] += 1
-                mu = (1 - b1) * g + state['exp_avg'] * b1_mu
-                nu = state['exp_avg_sq']
-                nu.mul_(b2).add_((1 - b2) * (g * g))
-                # 1 - b^t in fp32, as device tensors: a CPU scalar divisor
-                # would be applied on the card as its reciprocal
-                key = (int(state['step']), p.device)
-                if key not in corrections:
-                    corrections[key] = [
-                        (1 - torch.tensor(b, dtype=torch.float32) ** key[0])
-                        .to(p.device) for b in (b1, b2)]
-                bc1, bc2 = corrections[key]
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-                p.add_(u * -lr)
-                state['exp_avg'].copy_(mu)
+            mus = [self.state[p]['exp_avg'] for p in params]
+            nus = [self.state[p]['exp_avg_sq'] for p in params]
+            grads = [p.grad for p in params]
+            if wd:
+                grads = torch._foreach_add(grads,
+                                           torch._foreach_mul(params, wd))
+            mu = torch._foreach_mul(grads, 1 - b1)
+            torch._foreach_add_(mu, torch._foreach_mul(mus, b1_mu))
+            nu = torch._foreach_mul(nus, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1 - b2))
+            bc1, bc2 = self.bias_corrections(group, count)
+            u = torch._foreach_div(mu, bc1)
+            den = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            torch._foreach_div_(u, den)
+            torch._foreach_mul_(u, -lr)
+            if apply is None:
+                torch._foreach_add_(params, u)
+            else:
+                torch._foreach_copy_(params, _gated(
+                    apply, torch._foreach_add(params, u), params))
+            torch._foreach_copy_(mus, _gated(apply, mu, mus))
+            torch._foreach_copy_(nus, _gated(apply, nu, nus))
+
+
+class OptaxSGD(torch.optim.Optimizer):
+    '''SGD with L2 weight decay into the gradient and heavy-ball momentum
+    (``optax.add_decayed_weights``, ``optax.trace``, then the scale by
+    -lr): trace = g + momentum trace, from a zero trace, kept in the state
+    as ``momentum_buffer`` (``torch.optim.SGD``'s key). ``step(lr, count,
+    apply)`` as ``OptaxAdam``'s.'''
+
+    def __init__(self, params, lr: float, momentum: float = 0.0,
+                 weight_decay: float = 0.0):
+        super().__init__(params, {'lr': lr, 'momentum': momentum,
+                                  'weight_decay': weight_decay})
+
+    @torch.no_grad()
+    def step(self, lr: torch.Tensor, count: torch.Tensor,
+             apply: Optional[torch.Tensor] = None):
+        for group in self.param_groups:
+            momentum, wd = group['momentum'], group['weight_decay']
+            params = [p for p in group['params'] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if wd:
+                grads = torch._foreach_add(grads,
+                                           torch._foreach_mul(params, wd))
+            update = grads
+            if momentum:
+                for p in params:
+                    if 'momentum_buffer' not in self.state[p]:
+                        self.state[p]['momentum_buffer'] = torch.zeros_like(p)
+                bufs = [self.state[p]['momentum_buffer'] for p in params]
+                update = torch._foreach_mul(bufs, momentum)
+                torch._foreach_add_(update, grads)
+                torch._foreach_copy_(bufs, _gated(apply, update, bufs))
+            step = torch._foreach_mul(update, -lr)
+            if apply is None:
+                torch._foreach_add_(params, step)
+            else:
+                torch._foreach_copy_(params, _gated(
+                    apply, torch._foreach_add(params, step), params))
 
 
 def optax_layout(cfg, masked: bool) -> dict:
@@ -186,42 +282,93 @@ class Optimizer:
     a frozen predicate was given). ``shards``: set by
     ``parallel.sharding_rules.ParamShards`` when some parameters are
     shards; the norm is then the whole model's and the non-finite verdict
-    every rank's.'''
+    every rank's.
+
+    Everything a step changes lives on the parameters' device: the update
+    count and the guard's counters are device tensors (``count``,
+    ``notfinite``, ``total_notfinite`` and ``last_finite`` read them, a
+    host sync each, and write them in place), the learning rate of each
+    count is a row of a device table (``lr_table``: the base rate times the
+    schedule, rounded to fp32, rewritten in place when the base rate
+    changes), and the guard's verdict gates the update with
+    ``torch.where``. So ``step()`` never waits for the device, and the same
+    code runs eagerly and inside a CUDA graph (``train.graphs``), where the
+    host values of an eager step would be frozen. Only ``calls`` is a host
+    count.'''
 
     def __init__(self, params: list, cfg, total_steps: Optional[int] = None,
                  masked: bool = False):
+        if not params:
+            raise ValueError('no trainable parameters')
         self.params = params
-        self.lr = float(cfg.lr)
+        device = params[0].device
         self.grad_clip = getattr(cfg, 'grad_clip', None)
         self.skip_nonfinite = int(getattr(cfg, 'skip_nonfinite_grads', 0)
                                   or 0)
         self.schedule = schedule_multiplier(cfg, total_steps)
         self.layout = optax_layout(cfg, masked)
-        self.count = 0
         self.calls = 0
-        self.notfinite = 0
-        self.total_notfinite = 0
-        self.last_finite = True
         self.shards = None
+        self._count = torch.zeros((), dtype=torch.int64, device=device)
+        self._notfinite = torch.zeros((), dtype=torch.int64, device=device)
+        self._total_notfinite = torch.zeros((), dtype=torch.int64,
+                                            device=device)
+        self._last_finite = torch.ones((), dtype=torch.bool, device=device)
+        horizon = 0 if self.schedule is None else self.schedule.horizon
+        self.lr_table = torch.zeros(horizon + 1, dtype=torch.float32,
+                                    device=device)
+        self.lr = float(cfg.lr)
         wd = getattr(cfg, 'weight_decay', 0.0) or 0.0
-        if not params:
-            raise ValueError('no trainable parameters')
         if cfg.optimizer == 'adam':
             mu_dtype = getattr(cfg, 'optim_mu_dtype', 'float32') or 'float32'
             if mu_dtype not in ('float32', 'bfloat16'):
                 raise ValueError(f'--optim_mu_dtype {mu_dtype!r}: float32 or '
                                  f'bfloat16')
-            adam = torch.optim.Adam if mu_dtype == 'float32' else OptaxAdam
-            self.inner = adam(
+            self.inner = OptaxAdam(
                 params, lr=self.lr, betas=(getattr(cfg, 'beta1', 0.9),
                                            getattr(cfg, 'beta2', 0.999)),
-                eps=getattr(cfg, 'eps', 1e-8), weight_decay=wd)
+                eps=getattr(cfg, 'eps', 1e-8), weight_decay=wd,
+                mu_dtype=getattr(torch, mu_dtype))
         elif cfg.optimizer == 'sgd':
-            self.inner = torch.optim.SGD(
-                params, lr=self.lr, momentum=getattr(cfg, 'momentum', 0.0),
-                weight_decay=wd)
+            self.inner = OptaxSGD(params, lr=self.lr,
+                                  momentum=getattr(cfg, 'momentum', 0.0),
+                                  weight_decay=wd)
         else:
             raise ValueError(cfg.optimizer)
+
+    @property
+    def lr(self) -> float:
+        return self._lr
+
+    @lr.setter
+    def lr(self, value: float) -> None:
+        self._lr = float(value)
+        n = self.lr_table.numel()
+        rates = [self._lr * (self.schedule(c) if self.schedule else 1.0)
+                 for c in range(n)]
+        with torch.no_grad():
+            self.lr_table.copy_(torch.tensor(rates, dtype=torch.float32))
+
+    def _scalar(name, kind):
+        def get(self):
+            return kind(getattr(self, name))
+
+        def put(self, value):
+            with torch.no_grad():
+                getattr(self, name).fill_(value)
+        return property(get, put)
+
+    count = _scalar('_count', int)
+    notfinite = _scalar('_notfinite', int)
+    total_notfinite = _scalar('_total_notfinite', int)
+    last_finite = _scalar('_last_finite', bool)
+    del _scalar
+
+    def device_state(self) -> list:
+        '''The device tensors a step reads and writes in place besides the
+        parameters and the moments: the counters and the rate table.'''
+        return [self._count, self._notfinite, self._total_notfinite,
+                self._last_finite, self.lr_table]
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -233,29 +380,31 @@ class Optimizer:
         norm = (torch.linalg.vector_norm(norms) if self.shards is None
                 else self.shards.global_norm(self.params, norms))
         self.calls += 1
+        apply = None
         if self.skip_nonfinite:
-            # one host sync a step, only with the guard on
             amax = torch.stack(torch._foreach_norm(grads, math.inf))
-            self.last_finite = bool(torch.isfinite(amax).all())
+            finite = torch.isfinite(amax).all()
             if self.shards is not None:      # one verdict for every rank
-                self.last_finite = not self.shards.dp.any(
-                    not self.last_finite)
-            if self.last_finite:
-                self.notfinite = 0
-            else:
-                self.notfinite += 1
-                self.total_notfinite += 1
-                if self.notfinite <= self.skip_nonfinite:
-                    return norm
+                finite = torch.tensor(
+                    not self.shards.dp.any(not bool(finite)),
+                    device=finite.device)
+            self._notfinite.copy_(torch.where(finite, 0,
+                                              self._notfinite + 1))
+            self._total_notfinite.add_((~finite).to(torch.int64))
+            self._last_finite.copy_(finite)
+            # optax.apply_if_finite: past the limit the update passes
+            apply = finite | (self._notfinite > self.skip_nonfinite)
         if self.grad_clip is not None:
             factor = torch.where(norm < self.grad_clip, 1.0,
                                  self.grad_clip / norm)
             torch._foreach_mul_(grads, factor)
-        lr = self.lr * (self.schedule(self.count) if self.schedule else 1.0)
+        # an index tensor of one element: a 0-d one would be read on the host
+        lr = self.lr_table.index_select(0, self._count.clamp(
+            max=self.lr_table.numel() - 1).view(1)).view(())
         for group in self.inner.param_groups:
             group['lr'] = lr
-        self.inner.step()
-        self.count += 1
+        self.inner.step(lr, self._count, apply)
+        self._count.add_(1 if apply is None else apply.to(torch.int64))
         return norm
 
     def zero_grad(self) -> None:

@@ -9,8 +9,8 @@ port's ``'kernel'`` (the CUDA kernels) and ``xla`` (plain jnp attention) as
 '''
 from __future__ import annotations
 
+import json
 import statistics
-import sys
 from time import perf_counter
 
 import torch
@@ -58,7 +58,7 @@ def check_model_ported(cfg) -> None:
 def check_ported(cfg) -> None:
     '''Raise for a model or an option of the config that the port does not
     run: NotImplementedError, naming its ROADMAP item, for orbax (item
-    12); print once that multi-step dispatch runs step by step.
+    12).
     ``--fsdp``, ``--ep_devices`` (train_cap) and ``--sp_devices``
     (train_prop) run, alone and together; in the other procedures they
     have no effect, as in the JAX package.'''
@@ -67,10 +67,6 @@ def check_ported(cfg) -> None:
         raise NotImplementedError(
             f'--ckpt_format {cfg.ckpt_format}: the port reads and writes the '
             f'npz format only; orbax is not ported (ROADMAP queue 1 item 12)')
-    if (getattr(cfg, 'steps_per_dispatch', 1) or 1) > 1:
-        print(f'--steps_per_dispatch {cfg.steps_per_dispatch}: the port '
-              f'dispatches step by step, which the JAX package documents as '
-              f'bit-identical', file=sys.stderr)
 
 
 def report_time(stage: str, t0: float, extra: str = '') -> float:
@@ -94,3 +90,11 @@ def report_epoch(stage: str, t0: float, stats: dict) -> float:
         f'host clock), prefetch wait {median_ms(waits):.2f} ms/batch '
         f'(median; max {1e3 * max(waits, default=0):.2f}; '
         f'{sum(waits):.3f} s in all)'))
+
+
+def report_graphs(state) -> None:
+    '''Print ``[graphs]`` with the CUDA graphs of ``--steps_per_dispatch``
+    that the state holds (``train.graphs.StepGraphs.report``), when it
+    holds any.'''
+    if state.graphs is not None:
+        print(f'[graphs] {json.dumps(state.graphs.report())}')

@@ -37,8 +37,10 @@ from bmt_tpu_torch.train.optim import (ReduceLROnPlateau, build_optimizer,
                                        set_learning_rate)
 from bmt_tpu_torch.train.options import (attention_impl, check_ported,
                                          compute_dtype, report_epoch,
-                                         report_time, resolve_device)
+                                         report_graphs, report_time,
+                                         resolve_device)
 from bmt_tpu_torch.train.steps import (init_train_state,
+                                       make_multistep,
                                        make_prop_inference_step,
                                        make_prop_train_step, prop_frozen)
 from bmt_tpu_torch.utils.logging import MetricsLogger, NullLogger
@@ -116,6 +118,10 @@ def train_prop(cfg: Config, device=None):
         dims, pad_idx, impl, dtype,
         accum_steps=getattr(cfg, 'grad_accum_steps', 1) or 1,
         ema_decay=ema_decay, dp=dp_step)
+    # --steps_per_dispatch > 1: bundles (see cap_trainer)
+    steps_per_dispatch = int(getattr(cfg, 'steps_per_dispatch', 1) or 1)
+    multistep = (make_multistep(train_step) if steps_per_dispatch > 1
+                 else None)
     inference_step = make_prop_inference_step(dims, pad_idx, impl, dtype,
                                               dp=dp_step)
     state = init_train_state(model, optimizer, seed, ema=ema_decay > 0)
@@ -195,9 +201,11 @@ def train_prop(cfg: Config, device=None):
                 profile_steps=getattr(cfg, 'profile_steps', 0),
                 profile_dir=(os.path.join(cfg.log_path, 'profile')
                              if cfg.log_path else None),
-                stats=stats, dp=dp_step)
+                stats=stats, dp=dp_step, multistep=multistep,
+                steps_per_dispatch=steps_per_dispatch)
             state.optimizer.zero_grad()
             report_epoch(f'train epoch {epoch}', t0, stats)
+            report_graphs(state)
 
             if guard is not None and guard.requested:
                 b = guard.batch_in_epoch

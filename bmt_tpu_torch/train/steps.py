@@ -43,13 +43,21 @@ padding masks are gathered whole, the model runs inside
 ``parallel.seq.sequence_parallel``, and the cell counts are the blocks'
 summed over the data group.
 
-Not ported: ``make_multistep`` (a TPU dispatch workaround).
+Each train step is a ``TrainStep``: its batch to device tensors, the
+reseed, a body that only enqueues device work, then the host's step count.
+``make_multistep`` bundles K steps into one call, as JAX's does with
+``lax.scan``: on the card a CUDA graph of the body for each batch geometry
+(``train.graphs``) is replayed once a step, in place of the step's ~2000
+kernel launches; on the CPU, and under a process group, the K steps run in
+order.
 '''
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -64,13 +72,15 @@ from bmt_tpu_torch.train.optim import Optimizer
 @dataclasses.dataclass
 class TrainState:
     '''The model (fp32 masters), its optimizer, the step count, the dropout
-    seed, and the EMA of the parameters ({name: tensor}) when EMA is on.'''
+    seed, the EMA of the parameters ({name: tensor}) when EMA is on, and
+    the CUDA graphs of its steps once ``make_multistep`` has made some.'''
     model: nn.Module
     optimizer: Optimizer
     seed: int = 0
     step: int = 0
     ema: Optional[dict] = None
     generator: Optional[torch.Generator] = None
+    graphs: Optional[object] = None     # train.graphs.StepGraphs
 
 
 def init_train_state(model: nn.Module, optimizer: Optimizer, seed: int = 0,
@@ -153,6 +163,68 @@ def _seed_rank(dp) -> int:
     return 0 if dp is None else dp.seed_rank
 
 
+class TrainStep:
+    '''A train step, ``step(state, batch) -> (state, metrics)``, in the
+    parts that ``make_multistep``'s CUDA graphs take apart:
+
+    - ``host_inputs(batch)``: the batch as a flat {name: array} of numpy
+      arrays in the dtypes the body reads (``'src/<stack>'``, then the
+      step's own ``casts``);
+    - ``seed(state)``: the dropout seed of the state's next step,
+      (seed, step, rank) mixed by ``step_seed``;
+    - ``body(state, inputs) -> metrics``: the step on device tensors. It
+      only enqueues device work (no host read, no host-to-device copy), so
+      a graph can capture it; the optimizer's counters and the EMA are
+      updated in place on the device;
+    - the host's step count, ``state.step``, advanced after the body.
+
+    ``key`` holds what else picks the body's work (the accumulation steps
+    and the EMA decay): a graph is kept for each key and batch geometry.'''
+
+    def __init__(self, body, casts: dict, dp=None, key=()):
+        self.body, self.casts, self.dp, self.key = body, casts, dp, key
+
+    def host_inputs(self, batch: dict) -> dict:
+        out = {f'src/{k}': np.asarray(x) for k, x in batch['src'].items()}
+        for name, dtype in self.casts.items():
+            if batch.get(name) is not None:
+                out[name] = np.asarray(batch[name]).astype(
+                    _NUMPY[dtype], copy=False)
+        return out
+
+    def device_inputs(self, batch: dict, device) -> dict:
+        '''``host_inputs`` as tensors on ``device``, and a
+        sequence-parallel batch's ``'seq_split'``.'''
+        out = {f'src/{k}': torch.as_tensor(x, device=device)
+               for k, x in batch['src'].items()}
+        for name, dtype in self.casts.items():
+            if batch.get(name) is not None:
+                out[name] = torch.as_tensor(batch[name],
+                                            device=device).to(dtype)
+        if 'seq_split' in batch:
+            out['seq_split'] = tuple(batch['seq_split'])
+        return out
+
+    def seed(self, state: TrainState) -> int:
+        return step_seed(state.seed, state.step, _seed_rank(self.dp))
+
+    def __call__(self, state: TrainState, batch: dict):
+        device = next(state.model.parameters()).device
+        inputs = self.device_inputs(batch, device)
+        state.generator.manual_seed(self.seed(state))
+        metrics = self.body(state, inputs)
+        state.step += 1
+        return state, metrics
+
+
+_NUMPY = {torch.int64: np.int64, torch.bool: np.bool_,
+          torch.float32: np.float32}
+
+
+def _src(inputs: dict) -> dict:
+    return {k[4:]: x for k, x in inputs.items() if k.startswith('src/')}
+
+
 def make_cap_train_step(dims, smoothing: float, pad_idx: int,
                         attention_impl: str = 'torch',
                         compute_dtype=torch.float32, accum_steps: int = 1,
@@ -182,29 +254,33 @@ def make_cap_train_step(dims, smoothing: float, pad_idx: int,
     Switch loss (a per-row mean) is the mean of their means: each block's
     MoE term is weighted by 1 / n_dp of its global microbatch's tokens.'''
     collect_aux = dims.moe_experts > 1 and moe_aux_coeff > 0.0
+    # the batch's token count, then each global microbatch's (for MoE):
+    # this rank's microbatch i is the (rank * accum + i)-th block of mb rows
+    # of the global batch, inside global microbatch block // n_dp
+    n_dp = 1 if dp is None else dp.n_dp
+    in_mb = [((0 if dp is None else dp.dp_rank) * accum_steps + i) // n_dp
+             for i in range(accum_steps)]
+    in_mb_on = {}         # {device: in_mb}, copied to the device once
 
-    def step(state: TrainState, batch: dict):
+    def body(state: TrainState, inputs: dict):
         model = state.model
         device = next(model.parameters()).device
-        src, caption, row_valid = _device_batch(batch, device)
-        cap_x, cap_y = _masked_targets(caption, row_valid, pad_idx)
+        src, caption = _src(inputs), inputs['caption']
+        cap_x, cap_y = _masked_targets(caption, inputs.get('row_valid'),
+                                       pad_idx)
         B = caption.shape[0]
         if B % accum_steps:
             raise ValueError(f'batch size {B} not divisible by '
                              f'grad_accum_steps={accum_steps}')
         mb = B // accum_steps
-        # the batch's token count, then each global microbatch's (for MoE):
-        # this rank's microbatch i is the (rank * accum + i)-th block of mb
-        # rows of the global batch, inside global microbatch block // n_dp
-        n_dp = 1 if dp is None else dp.n_dp
-        in_mb = [((0 if dp is None else dp.dp_rank) * accum_steps + i)
-                 // n_dp for i in range(accum_steps)]
         tokens = (cap_y != pad_idx)
         counts = tokens.sum()[None]
         if collect_aux:
+            if device not in in_mb_on:
+                in_mb_on[device] = torch.tensor(in_mb, device=device)
             per_mb = tokens.view(accum_steps, -1).sum(1)
             counts = torch.cat([counts, torch.zeros_like(per_mb).index_add_(
-                0, torch.tensor(in_mb, device=device), per_mb)])
+                0, in_mb_on[device], per_mb)])
         if dp is not None:
             counts = dp.all_reduce_sum(counts)
         n_tokens = counts[0].clamp(min=1)
@@ -213,8 +289,6 @@ def make_cap_train_step(dims, smoothing: float, pad_idx: int,
         state.optimizer.zero_grad()
         if dp is not None:
             dp.gather_params()
-        state.generator.manual_seed(step_seed(state.seed, state.step,
-                                              _seed_rank(dp)))
         kl_sum = torch.zeros((), device=device)
         with dropout_generator(state.generator):
             for i in range(accum_steps):
@@ -239,9 +313,9 @@ def make_cap_train_step(dims, smoothing: float, pad_idx: int,
         grad_norm = state.optimizer.step()
         with torch.no_grad():
             _ema_update(state.ema, model, ema_decay)
-        state.step += 1
-        return state, {'loss': kl_sum / n_tokens, 'grad_norm': grad_norm}
-    return step
+        return {'loss': kl_sum / n_tokens, 'grad_norm': grad_norm}
+    return TrainStep(body, {'caption': torch.int64, 'row_valid': torch.bool},
+                     dp, key=(accum_steps, ema_decay))
 
 
 def make_cap_val_step(dims, smoothing: float, pad_idx: int,
@@ -283,16 +357,6 @@ def prop_frozen(freeze_encoder: bool = False):
         return (path[0] in ('anchors_A', 'anchors_V', 'anchors')
                 or (freeze_encoder and path[0] == 'encoder'))
     return frozen
-
-
-def _prop_batch(batch: dict, device):
-    '''(src, (centers, lengths, valid)) as tensors on ``device``.'''
-    src = {k: torch.as_tensor(x, device=device)
-           for k, x in batch['src'].items()}
-    targets = (torch.as_tensor(batch['centers'], device=device).float(),
-               torch.as_tensor(batch['lengths'], device=device).float(),
-               torch.as_tensor(batch['valid'], device=device).bool())
-    return src, targets
 
 
 def _prop_forward(model, src, targets, pad_idx, attention_impl,
@@ -354,15 +418,16 @@ def make_prop_train_step(dims, pad_idx: int, attention_impl: str = 'torch',
     same route: the batch is this rank's rows, the counts are summed over
     the ranks, and so are the gradients and the reported losses.'''
 
-    def step(state: TrainState, batch: dict):
+    def body(state: TrainState, inputs: dict):
         with seq.sequence_parallel(None if dp is None else dp.sp_group):
-            return _step(state, batch)
+            return _body(state, inputs)
 
-    def _step(state: TrainState, batch: dict):
+    def _body(state: TrainState, inputs: dict):
         model = state.model
         device = next(model.parameters()).device
-        src, targets = _prop_batch(batch, device)
-        split = batch.get('seq_split', ())
+        src = _src(inputs)
+        targets = (inputs['centers'], inputs['lengths'], inputs['valid'])
+        split = inputs.get('seq_split', ())
         if dp is not None:
             dp.gather_params()      # the anchors too, read by the counts
         B = targets[0].shape[0]
@@ -391,8 +456,6 @@ def make_prop_train_step(dims, pad_idx: int, attention_impl: str = 'torch',
 
         model.train()
         state.optimizer.zero_grad()
-        state.generator.manual_seed(step_seed(state.seed, state.step,
-                                              _seed_rank(dp)))
         loss_sum, terms = torch.zeros((), device=device), {}
         with dropout_generator(state.generator):
             for i in range(accum_steps):
@@ -418,9 +481,10 @@ def make_prop_train_step(dims, pad_idx: int, attention_impl: str = 'torch',
         grad_norm = state.optimizer.step()
         with torch.no_grad():
             _ema_update(state.ema, model, ema_decay)
-        state.step += 1
-        return state, {'loss': loss_sum, 'grad_norm': grad_norm, **terms}
-    return step
+        return {'loss': loss_sum, 'grad_norm': grad_norm, **terms}
+    return TrainStep(body, {'centers': torch.float32,
+                            'lengths': torch.float32, 'valid': torch.bool},
+                     dp, key=(accum_steps, ema_decay))
 
 
 def make_prop_inference_step(dims, pad_idx: int,
@@ -443,3 +507,78 @@ def make_prop_inference_step(dims, pad_idx: int,
                                  compute_dtype,
                                  split=batch.get('seq_split', ()))[0].float()
     return step
+
+
+# ---------------------------------------------------------------------------
+# multi-step dispatch
+# ---------------------------------------------------------------------------
+
+def _unstack(batches) -> list:
+    '''K host batches from a list, or from one batch whose array leaves
+    carry a leading K (JAX's stacked layout).'''
+    if isinstance(batches, (list, tuple)):
+        return list(batches)
+
+    def leaves(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                yield from leaves(v)
+        elif isinstance(x, (np.ndarray, torch.Tensor)):
+            yield x
+
+    k = next(leaves(batches)).shape[0]
+
+    def pick(x, i):
+        if isinstance(x, dict):
+            return {key: pick(v, i) for key, v in x.items()}
+        return x[i] if isinstance(x, (np.ndarray, torch.Tensor)) else x
+    return [pick(batches, i) for i in range(k)]
+
+
+def make_multistep(step: TrainStep):
+    '''K train steps in one call (counterpart of
+    ``bmt_tpu.train.steps.make_multistep``): ``multistep(state, batches) ->
+    (state, metrics)``, ``batches`` K host batches (a list, or one batch
+    whose array leaves carry a leading K), each metric stacked to (K,).
+
+    On a CUDA model the state keeps one CUDA graph of ``step``'s body for
+    each batch geometry (every input's shape and dtype, and ``step.key``),
+    as ``jit`` keeps one executable a shape (``train.graphs.StepGraphs``):
+    the first batch of a geometry runs eagerly on the graphs' side stream
+    (the warm-up, a real step), the second captures the graph, and from
+    then on each batch is copied into the graph's inputs and the graph is
+    replayed, one launch for the step's ~2000 kernels. The steps are those
+    of ``step`` bit for bit: the same body on the same inputs, the dropout
+    generator reseeded to the same (seed, step, rank) before each replay.
+    A failed capture or replay raises; nothing falls back to eager steps.
+
+    On the CPU the K steps run in order. So do they under a process group
+    (``step.dp``): its gloo collectives cannot be captured (said once on
+    stderr).'''
+    announced = []
+
+    def multistep(state: TrainState, batches):
+        batches = _unstack(batches)
+        device = next(state.model.parameters()).device
+        grouped = step.dp is not None and step.dp.size > 1
+        if grouped and not announced:
+            announced.append(True)
+            print(f'multi-step dispatch: under a process group of '
+                  f'{step.dp.size} ranks the {len(batches)} steps of a '
+                  f'bundle run in order (collectives are not captured in '
+                  f'CUDA graphs)', file=sys.stderr)
+        per_step = []
+        if device.type == 'cuda' and not grouped:
+            from bmt_tpu_torch.train.graphs import StepGraphs
+            if state.graphs is None:
+                state.graphs = StepGraphs(device)
+            for batch in batches:
+                per_step.append(state.graphs.run(step, state, batch))
+        else:
+            for batch in batches:
+                state, metrics = step(state, batch)
+                per_step.append(metrics)
+        return state, {k: torch.stack([torch.as_tensor(m[k])
+                                       for m in per_step])
+                       for k in per_step[0]}
+    return multistep

@@ -299,6 +299,20 @@ when it fails:
     23a-23d launch shape, and their times at H = 2 at the train and
     proposal cells' longest calls, bf16 and fp32.
 
+24. multi-step dispatch (``--steps_per_dispatch``; ``make_multistep``):
+    the captioner's train cell in bf16 and in fp32 and the proposal cell
+    (bf16, B=16, E=6, remat), each with EMA, as bundles of 4 steps through
+    CUDA graphs against 4 eager steps from the same state (24a): the
+    losses, parameters, moments, counters and EMA agree within STEP_TOL /
+    PROP_STEP_TOL (the differences are printed; expected 0) after two
+    bundles (the first warms up and captures) and after timed rounds; each
+    bundle launches the kernels of its 4 steps from the graph; the ms a
+    step eager and graphed (host clock, medians of alternating bundles),
+    the capture's seconds, the graph pool's MiB, and each graphed bundle's
+    busy share in one trace of the three. 24b runs train_cap with
+    --steps_per_dispatch 4 on phase 17's tree: the graphs it captured and
+    replayed, and its epoch loss beside 17a's.
+
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. The report's `launches` are the captioning
 trainer's (phase 9); `launches_by_path` gives those of each main path's run
@@ -308,7 +322,8 @@ as `unimodal` (20a's four runs) and `acceptance`, and phase 21's:
 `export_replay`, `moments ...`, `dp_*` summed over the ranks,
 `engine_replicas`; and phase 22's `22a ...` and `22b ...`, and phase 23's
 `23a ...`, `23b decode`, `23c pp ...` and `23d dryrun ranks`, summed over
-the ranks), `serving` phase 18's numbers, `main_py_options` phase 19's,
+the ranks, and phase 24's `24b train_cap K4`), `multistep` phase 24's
+numbers, `serving` phase 18's numbers, `main_py_options` phase 19's,
 `unimodal` phase 20's, `export_dp` phase 21's, `sharding` phase 22's,
 `tensor_pipeline` phase 23's,
 `main_py_procedures` phase 17's seconds, step and prefetch-wait
@@ -390,7 +405,7 @@ from bmt_tpu_torch.parallel.pipeline import (
     pipelined_bimodal_encoder_forward, stack_layer_params, stage_group)
 from bmt_tpu_torch.parallel.sharding_rules import mp_plan
 from bmt_tpu_torch.train import (build_optimizer, init_train_state,
-                                 make_cap_train_step,
+                                 make_cap_train_step, make_multistep,
                                  make_prop_inference_step,
                                  make_prop_train_step, prop_frozen, train_epoch_cap,
                                  train_epoch_prop)
@@ -2059,7 +2074,8 @@ def run_procedure(argv, dev, shapes: collections.Counter):
     launches = launch_counts()
     stages = {}
     for line in printed.getvalue().splitlines():
-        if line.startswith(('[time]', '[scores]', 'Total Number')):
+        if line.startswith(('[time]', '[scores]', '[graphs]',
+                            'Total Number')):
             print(f'      {line}')
         if line.startswith('[time] '):
             stage, rest = line[len('[time] '):].split(': ', 1)
@@ -5070,6 +5086,246 @@ def phase_mp_kernel_times(dev, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# multi-step dispatch: CUDA graphs of the train steps
+# ---------------------------------------------------------------------------
+
+MULTISTEP_K = 4                         # steps a bundle (--steps_per_dispatch)
+MULTISTEP_ROUNDS = 3                    # timed bundles a path, alternating
+MULTISTEP_EMA = 0.999                   # the cells' EMA, so it is compared
+
+
+def state_tensors(state) -> dict:
+    '''{kind: [tensors]} of what a train step changes: the parameters,
+    Adam's moments, the optimizer's device counters and rate table, the
+    EMA.'''
+    opt = state.optimizer
+    return {'param': list(state.model.parameters()),
+            'moment': [v for p in opt.params
+                       for v in opt.inner.state.get(p, {}).values()],
+            'counter': opt.device_state(),
+            'ema': list((state.ema or {}).values())}
+
+
+def state_diffs(a, b) -> dict:
+    '''{kind: max |a - b|} over ``state_tensors``.'''
+    ta, tb = state_tensors(a), state_tensors(b)
+    check(all(len(ta[k]) == len(tb[k]) for k in ta), 'states differ in '
+          'their tensors')
+    return {k: max(((x.double() - y.double()).abs().max().item()
+                    for x, y in zip(ta[k], tb[k])), default=0.0)
+            for k in ta}
+
+
+def traced_spans(fns: dict) -> dict:
+    '''{name: (device busy ms, wall ms)} of each fn() in one
+    torch.profiler session: the union of the device activity's intervals
+    that fall inside the fn's span (the card synchronised at both ends of
+    it), beside the span itself; (None, wall) where the profiler saw no
+    device event.'''
+    from torch.profiler import ProfilerActivity, profile
+    spans = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in fns.items():
+            with torch.profiler.record_function(f'span {name}'):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                spans[name] = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    marks = {e.name[len('span '):]: (e.time_range.start, e.time_range.end)
+             for e in events if e.name.startswith('span ')
+             and e.device_type != torch.autograd.DeviceType.CUDA}
+    out = {}
+    for name, wall in spans.items():
+        lo, hi = marks.get(name, (0, -1))
+        inside = [e for e in events if lo <= e.time_range.start
+                  and e.time_range.end <= hi]
+        busy = device_busy_ms(inside)
+        out[name] = (busy['union_ms'] if busy['kernels'] else None, wall)
+    return out
+
+
+def multistep_cell(label, make, batches, tol, want, smi):
+    '''One train cell through ``make_multistep`` against the same steps run
+    eagerly: ``make()`` gives (state, step) fresh from one seed, twice.
+    Two bundles of the K ``batches`` (the first warms the graph up on its
+    first batch and captures it on the second) against 2K eager steps from
+    the same state: the losses and every tensor of the states agree within
+    ``tol`` (expected equal), and each bundle launches the K steps'
+    kernels (``want`` a step) from the graph. Then MULTISTEP_ROUNDS timed
+    bundles a path in turns (host clock, the card synchronised at both
+    ends; ms a step), after which the states are compared again. Returns
+    (numbers, a function that runs one graphed bundle).'''
+    eager, step_e = make()
+    graphed, step_g = make()
+    multistep = make_multistep(step_g)
+    diffs, launches = [], []
+
+    def eager_bundle():
+        nonlocal eager
+        out = []
+        for b in batches:
+            eager, m = step_e(eager, b)
+            out.append(m['loss'])
+        return torch.stack(out)
+
+    def graph_bundle():
+        nonlocal graphed
+        graphed, m = multistep(graphed, batches)
+        return m['loss']
+
+    def compare(le, lg):
+        d = state_diffs(eager, graphed)
+        d['loss'] = (le.double() - lg.double()).abs().max().item()
+        check(torch.isfinite(lg).all().item(), f'{label}: graphed losses '
+              f'{lg.tolist()}')
+        check(d['loss'] <= tol['loss'] * le.abs().max().item()
+              and max(d[k] for k in ('param', 'moment', 'counter', 'ema'))
+              <= tol['param'], f'{label}: graphed bundle against eager '
+              f'steps: {d} (tol {tol})')
+        diffs.append(d)
+
+    for _ in range(2):
+        le = eager_bundle()
+        reset_launch_counts()
+        lg = graph_bundle()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches.append(counts)
+        check(counts == {k: len(batches) * n for k, n in want.items()},
+              f'{label}: a bundle launched {counts}, {want} a step '
+              f'expected')
+        compare(le, lg)
+    report = graphed.graphs.report()
+    check(report['graphs'] == 1
+          and report['replays'] == 2 * len(batches) - 1,
+          f'{label}: graphs {report}')
+    times = {'eager': [], 'graphed': []}
+    fns = {'eager': eager_bundle, 'graphed': graph_bundle}
+    lasts = {}
+    order = ('eager', 'graphed', 'graphed', 'eager') * MULTISTEP_ROUNDS
+    for path in order[:2 * MULTISTEP_ROUNDS]:
+        out, secs = synced(fns[path])
+        times[path].append(1e3 * secs / len(batches))
+        lasts[path] = out
+    compare(lasts['eager'], lasts['graphed'])
+    med = {k: statistics.median(v) for k, v in times.items()}
+    worst = {k: max(d[k] for d in diffs) for k in diffs[0]}
+    print(f'    {label}: graphed bundle against eager steps, max |diff| '
+          f'after bundles 1, 2 and the timed rounds: {worst} (tol {tol}); '
+          f'launches a bundle {launches[-1]}; {report["graphs"]} graph, '
+          f'captured in {report["capture_s"]:.3f} s, its pool '
+          f'{report["pool_mib"]:.1f} MiB')
+    print(f'      ms per step (host clock, median of {MULTISTEP_ROUNDS} '
+          f'bundles of {len(batches)}; {smi}): eager {med["eager"]:.2f} '
+          f'{[round(t, 2) for t in times["eager"]]}, graphed '
+          f'{med["graphed"]:.2f} {[round(t, 2) for t in times["graphed"]]}'
+          f' ({med["eager"] / med["graphed"]:.2f}x)')
+    numbers = {'max_abs_diff': worst, 'launches_per_bundle': launches[-1],
+               'eager_ms': med['eager'], 'graphed_ms': med['graphed'],
+               'eager_ms_all': times['eager'],
+               'graphed_ms_all': times['graphed'], **report}
+    del eager
+    return numbers, graph_bundle
+
+
+def phase_multistep(dev, smi, tree, log, k1_loss):
+    '''Phase 24: --steps_per_dispatch on the card. 24a the captioner's
+    train cell in bf16 and fp32 and the proposal cell (bf16, remat) as
+    graphed bundles of MULTISTEP_K against eager steps, with one trace of
+    a bundle of each; 24b ``python -m bmt_tpu_torch --procedure train_cap
+    --steps_per_dispatch MULTISTEP_K`` on phase 17's tree, its epoch loss
+    beside 17a's (``k1_loss``, K = 1). Returns ({path: launches},
+    numbers).'''
+    out, bundles = {}, {}
+    cap = CapModelDims(voc_size=VOC)                  # dropout 0.1
+    cap_batches = [train_batch(240 + i, TB, SV, SA, TSC, cap)
+                   for i in range(MULTISTEP_K)]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = f'captioner {str(dtype)[6:]}'
+
+        def make(dtype=dtype):
+            model = BiModalTransformer(
+                cap, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(24))
+            state = init_train_state(model, build_optimizer(TRAIN_CFG,
+                                                            model),
+                                     seed=24, ema=True)
+            return state, make_cap_train_step(
+                cap, SMOOTHING, PAD, 'kernel', compute_dtype=dtype,
+                ema_decay=MULTISTEP_EMA)
+        out[name], bundles[name] = multistep_cell(
+            f'[24a] {name} (B={TB}, Sa={SA}, Sv={SV}, Sc={TSC}, dropout '
+            f'0.1, EMA {MULTISTEP_EMA})', make, cap_batches, STEP_TOL,
+            dict.fromkeys((KERNEL, KERNEL_DQ, KERNEL_DKV), CALLS_PER_STEP),
+            smi)
+        torch.cuda.empty_cache()
+    prop = PropModelDims(remat=True)                  # dropout 0.1
+    prop_batches = [prop_train_batch(250 + i, PB, PSA, PSV, PE, prop)
+                    for i in range(MULTISTEP_K)]
+
+    def make_prop():
+        model = proposal_model(prop, dev, 25)
+        state = init_train_state(model, build_optimizer(
+            TRAIN_CFG, model, frozen=prop_frozen(False)), seed=25, ema=True)
+        return state, make_prop_train_step(prop, PAD, 'kernel',
+                                           compute_dtype=torch.bfloat16,
+                                           ema_decay=MULTISTEP_EMA)
+    out['proposal bf16'], bundles['proposal bf16'] = multistep_cell(
+        f'[24a] proposal bf16 (B={PB}, Sa={PSA}, Sv={PSV}, E={PE}, remat, '
+        f'dropout 0.1, EMA {MULTISTEP_EMA})', make_prop, prop_batches,
+        PROP_STEP_TOL, {KERNEL: 2 * PROP_CALLS, KERNEL_DQ: PROP_CALLS,
+                        KERNEL_DKV: PROP_CALLS}, smi)
+    for name, (busy, wall) in traced_spans(bundles).items():
+        share = ('not measured: the profiler saw no device event'
+                 if busy is None else
+                 f'{busy:.2f} ms busy of {wall:.2f} ms ({busy / wall:.1%}; '
+                 f'the union of its device intervals)')
+        print(f'    [24a] traced graphed bundle, {name}: {share}')
+        out[name]['traced_busy_ms'], out[name]['traced_wall_ms'] = busy, wall
+    del bundles
+    torch.cuda.empty_cache()
+    launches, out['train_cap_k4'] = multistep_cli(dev, smi, tree, log,
+                                                  k1_loss)
+    return {'24b train_cap K4': launches}, out
+
+
+def multistep_cli(dev, smi, tree, log, k1_loss):
+    '''24b: train_cap with --steps_per_dispatch MULTISTEP_K on phase 17's
+    tree; (launches, numbers).'''
+    # two epochs: an epoch's 6 batches fall in as many bucket geometries,
+    # each met once in the first epoch's bundle (a warm-up each); the
+    # second epoch's bundle meets some again and captures and replays
+    flags = [*CAP_FLAGS, '--one_by_one_starts_at', '2', '--epoch_num', '2',
+             '--steps_per_dispatch', str(MULTISTEP_K)]
+    print(f'    [24b] train_cap {" ".join(flags)} on phase 17\'s tree (the '
+          f'1-by-1 validation left out; {smi}):')
+    argv = ['--procedure', 'train_cap', *tree, *CLI_FLAGS, '--log_dir', log,
+            *flags, '--exper_name', 'cap_k4']
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _, secs, launches, stages = run_procedure(argv, dev,
+                                                  collections.Counter())
+    lines = printed.getvalue().splitlines()
+    print('\n'.join(lines))
+    graphs = [json.loads(line.strip()[len('[graphs] '):]) for line in lines
+              if line.strip().startswith('[graphs] ')]
+    check(graphs and graphs[-1]['replays'] > 0, f'train_cap '
+          f'--steps_per_dispatch {MULTISTEP_K} replayed no graph: {graphs}')
+    loss = logged(os.path.join(log, 'train_cap', 'cap_k4'),
+                  'debug/train_loss_epoch')
+    print(f'      epoch losses {loss}, epoch 0 against 17a\'s (K = 1) '
+          f'{k1_loss}; graphs {graphs[-1]}')
+    check(np.allclose(loss[:1], k1_loss[:1], rtol=1e-5), f'epoch 0 loss '
+          f'{loss[0]} with bundles of {MULTISTEP_K}, {k1_loss[0]} without')
+    return launches, {'s': secs, 'loss': loss, 'k1_loss': k1_loss,
+                      'graphs': graphs[-1], **epoch_numbers(stages)}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this smoke test runs only on '
@@ -5451,6 +5707,14 @@ def main():
         tensor_pipeline['path_shapes'] = {
             'launch_shapes': len(seen23), 'checks': checks23,
             'max_abs_err': err23, 'at': worst23}
+        torch.cuda.empty_cache()
+        started[24] = round(time.perf_counter() - t_main, 1)
+        print(f'[24] multi-step dispatch (--steps_per_dispatch '
+              f'{MULTISTEP_K}): CUDA graphs of the train steps, the '
+              f'attention kernels captured inside them:')
+        multistep_launches, multistep = phase_multistep(
+            dev, smi, tree, os.path.join(tmp, 'log'),
+            logged(cap_dir, 'debug/train_loss_epoch'))
 
     # times at the train cell's encoder 256x256 call (forward with lse), and
     # at the proposal cell's 800x800 call; launches of each main path's run
@@ -5463,7 +5727,7 @@ def main():
              'single_video_app': app_launches, **proc_launches,
              'serve': serve_launches, **option_launches,
              **unimodal_launches, **phase21_launches, **phase22_launches,
-             **tp_launches}
+             **tp_launches, **multistep_launches}
     path_err = {k: max(procedures['path_shapes']['max_abs_err'][k],
                        options['path_shapes']['max_abs_err'][k],
                        unimodal['path_shapes']['max_abs_err'][k], err21[k],
@@ -5504,7 +5768,7 @@ def main():
         'main_py_procedures': procedures, 'serving': serving,
         'main_py_options': options, 'unimodal': unimodal,
         'export_dp': export_dp, 'sharding': sharding,
-        'tensor_pipeline': tensor_pipeline,
+        'tensor_pipeline': tensor_pipeline, 'multistep': multistep,
         'phase_started_s': started,
         'script_s': round(time.perf_counter() - t_main, 1)}))
     print(json.dumps({'ok': True, 'device': {

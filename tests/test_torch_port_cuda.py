@@ -728,3 +728,166 @@ def test_moe_train_step_kernel_equals_torch_on_card(cuda):
         for n in pk:
             torch.testing.assert_close(pk[n], pt[n], atol=1e-6, rtol=0,
                                        msg=n)
+
+
+# ---------------------------------------------------------------------------
+# multi-step dispatch: CUDA graphs of the train steps
+# ---------------------------------------------------------------------------
+
+def _small_cell(cuda, kind, dtype, seed=0):
+    '''(state, step, batches) of a small cell with dropout 0.1 and EMA:
+    the captioner ('cap'; 'cap_accum' with 2 microbatches) or the proposal
+    generator with remat ('prop').'''
+    import types
+
+    from bmt_tpu_torch.models import (BiModalTransformer, CapModelDims,
+                                      MultimodalProposalGenerator,
+                                      PropModelDims)
+    from bmt_tpu_torch.train.optim import build_optimizer
+    from bmt_tpu_torch.train.steps import (init_train_state,
+                                           make_cap_train_step,
+                                           make_prop_train_step, prop_frozen)
+    cfg = types.SimpleNamespace(optimizer='adam', lr=1e-3, grad_clip=1.0,
+                                weight_decay=1e-4)
+    g = torch.Generator().manual_seed(seed)
+    src = [{'rgb': torch.randn(4, 24, 32, generator=g),
+            'flow': torch.randn(4, 24, 32, generator=g),
+            'audio': torch.randn(4, 40, 16, generator=g)}
+           for _ in range(3)]
+    for s in src:
+        s['audio'][1, 30:] = 1.0
+        s['rgb'][2, 20:] = 1.0
+    if kind.startswith('cap'):
+        dims = CapModelDims(voc_size=50, d_model_A=16, d_model_V=32,
+                            d_model_C=32, d_model=64, H=2, N=2, d_ff_A=32,
+                            d_ff_V=64, d_ff_C=64, dout_p=0.1, d_vid=32,
+                            d_aud=16, use_linear_embedder=True)
+        model = BiModalTransformer(
+            dims, device=cuda,
+            generator=torch.Generator(device=cuda).manual_seed(1))
+        state = init_train_state(model, build_optimizer(cfg, model), seed=3,
+                                 ema=True)
+        step = make_cap_train_step(dims, 0.7, 1, 'kernel', dtype,
+                                   accum_steps=2 if kind == 'cap_accum'
+                                   else 1, ema_decay=0.99)
+        batches = []
+        for s in src:
+            caption = torch.randint(4, 50, (4, 9), generator=g)
+            caption[:, 0] = 2
+            caption[2, 6:] = 1
+            batches.append({'src': {k: v.numpy() for k, v in s.items()},
+                            'caption': caption.numpy()})
+        return state, step, batches
+    dims = PropModelDims(d_model_A=16, d_model_V=32, d_model=64, H=2, N=2,
+                         d_ff_A=32, d_ff_V=64, d_vid=32, d_aud=16,
+                         kernel_sizes_A=(3, 5), kernel_sizes_V=(3, 5),
+                         conv_layers_A=(8,), conv_layers_V=(8,),
+                         anchors_num_A=2, anchors_num_V=2, dout_p=0.1,
+                         remat=True, use_linear_embedder=True)
+    model = MultimodalProposalGenerator(
+        dims, device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(1))
+    model.set_anchors([2.0, 6.0], [3.0, 9.0])
+    state = init_train_state(model, build_optimizer(
+        cfg, model, frozen=prop_frozen(False)), seed=3, ema=True)
+    step = make_prop_train_step(dims, 1, 'kernel', dtype, ema_decay=0.99)
+    batches = [{'src': {k: v.numpy() for k, v in s.items()},
+                'centers': torch.rand(4, 3, generator=g).numpy() * 30,
+                'lengths': torch.rand(4, 3, generator=g).numpy() * 10 + 1,
+                'valid': torch.tensor([[True, True, False]] * 4).numpy()}
+               for s in src]
+    return state, step, batches
+
+
+def _changed_tensors(state) -> list:
+    opt = state.optimizer
+    return (list(state.model.parameters())
+            + [v for p in opt.params for v in opt.inner.state[p].values()]
+            + opt.device_state() + list(state.ema.values()))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kind', ['cap', 'cap_accum', 'prop'])
+def test_graphed_steps_equal_eager_steps_on_card(cuda, kind, dtype):
+    '''Two bundles of 3 steps through ``make_multistep`` (a warm-up, a
+    capture, then replays) against 6 eager steps from the same seed,
+    dropout on: the stacked losses and every tensor of the state bit for
+    bit; one graph, 5 replays; each bundle counts its steps' kernel
+    launches, the replays' included.'''
+    from bmt_tpu_torch.ops.flash_attention import reset_launch_counts
+    from bmt_tpu_torch.train.steps import make_multistep
+    eager, step, batches = _small_cell(cuda, kind, dtype)
+    graphed, gstep, _ = _small_cell(cuda, kind, dtype)
+    multistep = make_multistep(gstep)
+    per_step = None
+    for _ in range(2):
+        reset_launch_counts()
+        losses = []
+        for b in batches:
+            eager, m = step(eager, b)
+            losses.append(m['loss'])
+        torch.cuda.synchronize()
+        if per_step is None:
+            per_step = launch_counts()
+            assert all(per_step.values()), per_step
+        reset_launch_counts()
+        graphed, m = multistep(graphed, batches)
+        torch.cuda.synchronize()
+        assert launch_counts() == per_step
+        torch.testing.assert_close(m['loss'], torch.stack(losses), atol=0,
+                                   rtol=0)
+    report = graphed.graphs.report()
+    assert (report['graphs'], report['replays']) == (1, 5), report
+    assert graphed.step == eager.step == 6
+    for a, b in zip(_changed_tensors(eager), _changed_tensors(graphed)):
+        assert torch.equal(a, b)
+
+
+def test_graphs_follow_a_load_and_refuse_a_rebound_tensor_on_card(cuda):
+    '''After the capture, a checkpoint load copies into the captured
+    tensors and the replays go on from the loaded state (as eager steps
+    from it do); a tensor of the state rebound instead makes the next
+    replay raise.'''
+    from bmt_tpu_torch.train.checkpoint import (load_optimizer_state,
+                                                optimizer_state_tree)
+    from bmt_tpu_torch.train.steps import make_multistep
+    eager, step, batches = _small_cell(cuda, 'cap', torch.float32)
+    graphed, gstep, _ = _small_cell(cuda, 'cap', torch.float32)
+    multistep = make_multistep(gstep)
+    graphed, _ = multistep(graphed, batches)          # warm-up, capture
+    eager, _ = step(eager, batches[0])
+    saved = optimizer_state_tree(eager.model, eager.optimizer)
+    params = {n: p.detach().clone() for n, p in eager.model.named_parameters()}
+    for state in (eager, graphed):
+        load_optimizer_state(state.model, state.optimizer, saved)
+        with torch.no_grad():
+            for n, p in state.model.named_parameters():
+                p.copy_(params[n])
+                state.ema[n].copy_(params[n])
+        state.step = 1
+    for b in batches:
+        eager, _ = step(eager, b)
+    graphed, _ = multistep(graphed, batches)
+    for a, b in zip(_changed_tensors(eager), _changed_tensors(graphed)):
+        assert torch.equal(a, b)
+    name = next(iter(graphed.ema))
+    graphed.ema[name] = graphed.ema[name].clone()
+    with pytest.raises(RuntimeError, match='rebound'):
+        multistep(graphed, batches)
+
+
+def test_failed_capture_raises_on_card(cuda):
+    '''A step whose body reads the device on the host cannot be captured:
+    the bundle raises (the warm-up step ran; nothing falls back to eager
+    steps after it).'''
+    from bmt_tpu_torch.train.steps import TrainStep, make_multistep
+    state, step, batches = _small_cell(cuda, 'cap', torch.float32)
+
+    def body(state, inputs):
+        out = step.body(state, inputs)
+        out['host'] = torch.tensor(out['loss'].item())
+        return out
+    multistep = make_multistep(TrainStep(body, step.casts, key=step.key))
+    with pytest.raises(RuntimeError, match='capturing the train step'):
+        multistep(state, batches)
+    assert state.step == 1

@@ -1,7 +1,7 @@
 '''The port's multi-chip dry run on the CPU: ``python -m
 bmt_tpu_torch.scripts.dryrun_multichip --device cpu --n_devices 4``
 (four gloo ranks laid out sp 2 x mp 2, as the JAX dry run lays out four
-devices) passes sections 1-7 and 9 and names section 8 as not ported; its
+devices) passes every section, section 8's K = 2 bundle included; its
 two-process worker ``bmt_tpu_torch.parallel.dryrun_dist``, joined through
 torchrun's variables, gives one process's loss and checksum (rtol 1e-5);
 and its fixtures are the JAX package's (``bmt_tpu.parallel.dryrun_dist``),
@@ -31,7 +31,7 @@ def test_dryrun_multichip_4_passes_every_section_but_8(dryrun):
     assert dryrun.startswith('dryrun_multichip(4) OK: mesh=dp1xsp2xmp2 ')
     for part in ('(seq-parallel)', 'decode=dp-invariant(2x7)+mp-tolerance',
                  'pipeline=pp2==seq', 'moe=ep2(E=4)', 'fsdp=dp4',
-                 'lora=adapters-only(', 'multistep=not-ported',
+                 'lora=adapters-only(', 'multistep=K2(losses=(2,),step=2)',
                  'multihost=2proc-dp2'):
         assert part in dryrun, part
     assert dryrun.endswith('==single')
