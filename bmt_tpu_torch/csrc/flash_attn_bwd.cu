@@ -3,10 +3,10 @@
 //
 // Replaces the two Pallas backward kernels of bmt_tpu/ops/pallas_attention.py,
 // both launched by `_flash_attention_tiled_bwd`:
-//   tf32::flash_attn_bwd_dq_tf32_kernel (fp32),
+//   tf32::flash_attn_bwd_dq_tf32_sm90_kernel (fp32),
 //   wg::flash_attn_bwd_dq_sm90_kernel (bf16)
 //       <- `_dq_kernel`  (:351-389, pallas_call :473)
-//   tf32::flash_attn_bwd_dkv_tf32_kernel (fp32),
+//   tf32::flash_attn_bwd_dkv_tf32_sm90_kernel (fp32),
 //   wg::flash_attn_bwd_dkv_sm90_kernel (bf16)
 //       <- `_dkv_kernel` (:392-431, pallas_call :498)
 // and the XLA recompute of the single-block custom VJP (`_fa_bwd`, :558-581),
@@ -39,57 +39,88 @@
 //   before the key tile starts are skipped. The sequential grid axis that
 //   carried the Pallas accumulators in VMEM becomes this in-block loop;
 //   nothing crosses blocks.
-// Both run every product on tensor cores: 3xTF32 mma.sync for float32
-// (below), bf16 wgmma for bfloat16 (further below). The head dim is padded
-// to DP (a template parameter: 64 or 256 in fp32, 32, 64 or 256 in bf16;
-// the padded columns load as 0 and are not stored), so d need only be a
-// multiple of 8. Ragged edges: key rows >= Sk load as 0 and are masked,
-// query rows >= Sq load as 0 and get P = 0 (not relying on dO = 0 there),
-// and gradient rows past Sq or Sk are not stored. Tiles arrive in a ring of
-// stages, so tile t + 1 loads while tile t computes.
+// Both run every product on the tensor cores by wgmma.mma_async on tiles
+// that TMA brings into shared memory (csrc/sm90.cuh): three TF32 products
+// for float32 (below), bf16 for bfloat16 (further below). The head dim is
+// padded to DP (a template parameter: 64 or 256 in fp32, 32, 64 or 256 in
+// bf16; the padded columns load as 0 and are not stored), so d need only
+// be a multiple of 8. Ragged edges: key rows >= Sk load as 0 and are
+// masked, query rows >= Sq load as 0 and get P = 0 (not relying on dO = 0
+// there), and gradient rows past Sq or Sk are not stored. Tiles arrive in a
+// ring of stages, so tile t + 1 loads while tile t computes.
 //
 // fp32 (the fp32 train steps: make_cap_train_step's and
-// make_prop_train_step's default compute dtype, and the parity checks):
-// tiles by 16-byte cp.async copies in a ring of two stages, tensor cores in
-// TF32 by mma.sync m16n8k8, three products per product (csrc/mma_tf32.cuh), so
-// the gradients are as accurate as fp32 FMA; one TF32 product misses the
-// fp32 tolerances (tests/test_torch_port_tf32.py). What bounds them on this
-// card: three m16n8k8 products per fp32 product make the peak 495 / 3 = 165
-// TFLOP/s, and the train cell's 256x256 calls move 77-85 FLOP per byte
-// against the 49 at which that peak and HBM's 3.35 TB/s cross, so they are
-// bound by operations (dQ 12.9 GFLOP, 0.078 ms; dK/dV 17.2 GFLOP, 0.104 ms).
-// Before the tensor cores come the instructions around them: each operand is
-// split in registers into hi + lo (five instructions a value, mma_tf32.cuh),
-// which set the pace of the fp32 forward (PERF.md). The design (the same for
-// both kernels, with the roles of queries and keys swapped; "rows" are the
-// block's queries in dQ and its keys in dK/dV, "columns" those of the loop's
-// tiles):
-// - BM = 64 rows a block, tiles of BN = 16 columns, 8 warps. Warps w and
-//   w + 4 share rows 16 (w % 4) .. + 15 and all 16 columns of each tile.
-//   Warp w computes S and dP (dQ: S = Q K^T, dP = dO V^T; dK/dV: S^T =
-//   K Q^T, dP^T = V dO^T) over head-dim half w / 4 only: the rows' A
-//   fragments and the tile's B fragments by ldmatrix, each value split once
-//   for the three products lo hi, hi lo and hi hi, which go into three
-//   accumulators summed (lh + hl) + hh. The pair then hands its halves to
-//   each other through shared memory (a named barrier of 64 threads) and
-//   both add them, x + y being y + x, so both hold the same S and dP.
-// - P and dS are rebuilt in registers (exp2 of base-2 logits) and used as
-//   they stand as the A fragment of the gradient product, as the fp32
-//   forward uses P: the S accumulator gives lane (group, tig) columns
-//   2 tig and 2 tig + 1 where the A fragment wants k = tig and tig + 4, so k
-//   is mapped to columns in that order and the B operand (K for dQ = dS K;
-//   dO and Q for dV = P^T dO and dK = dS^T Q) is read by scalar loads of its
-//   rows 2 tig and 2 tig + 1, free of bank conflicts at the padded stride.
-//   TF32 fragments cannot be transposed by ldmatrix .trans (16-bit words
-//   only); this way no operand needs it and P and dS never touch shared
-//   memory.
-// - Warp w accumulates the gradient for head-dim half w / 4: dQ 16 x DP/2
-//   (64 registers a thread at DP = 256), dK and dV 2 x 16 x DP/2 (128).
-// - Shared memory at DP = 256, rows of 256 + 4 floats: the block's two 64-row
-//   tiles (133,120 bytes), two stages of the loop's two 16-row tiles
-//   (66,560) and the pair exchange (16,384): 216,192 bytes (dQ) and 216,576
-//   (dK/dV, with the query tiles' lse and D), one block an SM. Registers
-//   from ptxas -v are in PERF.md.
+// make_prop_train_step's default compute dtype, and the parity checks).
+// Every product is three TF32 wgmma products (m64nNk8, fp32 accumulators),
+// lo(A) hi(B) + hi(A) lo(B) + hi(A) hi(B), so the gradients keep fp32
+// accuracy; one TF32 product misses the fp32 tolerances
+// (tests/test_torch_port_tf32.py emulates both). The tensor core reads an
+// fp32 word as TF32 by dropping its low 13 bits, so a B operand's raw word
+// in shared memory serves as hi = trunc(x), beside lo = rna(x - trunc(x));
+// an A operand, split in registers, takes hi = rna(x), lo = rna(x - hi)
+// (rna: round to nearest); S's and dP's two small products go into an
+// accumulator of their own. So the errors against the plain backward read
+// as the mma.sync kernels' did; with the raw word as A's hi, lo = x -
+// trunc(x) read truncated and one accumulator they read 1.3-2.3x those,
+// 12% faster (PERF.md). What bounds them on this card: three TF32
+// products per fp32 product make the peak 495 / 3 = 165 TFLOP/s, and the
+// train cell's 256x256 calls do 77-85 FLOP per byte against the 49 at
+// which that peak and HBM's 3.35 TB/s cross: operations bound them (dQ
+// 12.9 GFLOP, 0.078 ms; dK/dV 17.2 GFLOP, 0.104 ms; 800x800 B = 16: 0.381
+// and 0.508 ms).
+// Before them come each tile's steps between the products (below). The
+// design, alike in both kernels ("rows" are the block's queries in dQ and
+// its keys in dK/dV, "columns" those of the loop's tiles):
+// - TF32 wgmma reads a shared-memory operand K-major only (the transposed
+//   B is for 16-bit types), so every product takes its A operand from
+//   registers, where any layout is a matter of addressing: S = Q K^T and
+//   dP = dO V^T (dQ), S^T = K Q^T and dP^T = V dO^T (dK/dV) read the
+//   block's own tile by rows; the gradients are computed transposed,
+//   dQ^T = K^T dS^T, dV^T = dO^T P and dK^T = Q^T dS, reading the loop's
+//   tile by columns. An A fragment is split in registers, two
+//   instructions a value. B is K-major in shared memory: the loop's raw
+//   tile as TMA landed it (hi) beside its lo parts, which a pass of the
+//   consuming warpgroup writes at the same offsets; and dS, P^T, dS^T,
+//   written from the accumulators as hi and lo tiles (64 rows x 32).
+// - 64 rows a block, loop tiles of 32. A 64 x 256 fp32 tile takes 64 KB,
+//   so at DP = 256 a cluster of two blocks shares a block's work, each with
+//   128 head-dim columns: its own two tiles (64 KB), two stages of the
+//   loop's raw tiles (64 KB), their lo parts (32 KB), the 64 x 32 tiles
+//   and the partials' receive buffers fit 227 KB. Each block takes S and dP
+//   over its columns and sends the partials (64 x 32 a warpgroup) to the
+//   other by st.async, which completes the other's mbarrier; both add, x +
+//   y being y + x, so both hold the same S and dP, P and dS, and each
+//   computes its columns of the gradient. At DP = 64 one block takes all.
+// - 384 threads: warpgroups 0 and 1 compute, warp 8 loads (rank-3 TMA
+//   maps of fp32 (d, S, B H), regions of 32 columns with the 128-byte
+//   swizzle, tile_map_f32), setmaxnreg 40 / 232. dQ: warpgroup 0 takes K's
+//   lo parts, S and dP, sums them with the other block's and hands them
+//   over; warpgroup 1 takes P, dS and dQ^T = K^T dS^T a tile behind, and
+//   V's lo parts a tile ahead, so that its steps run under the next
+//   tile's products (S and dP in one warpgroup each, P and dS passed
+//   between them, ran 5% slower). dK/dV: 0 takes S^T, P^T and dV^T, 1
+//   dP^T, dS^T and dK^T (each holds a 64 x 128 gradient at DP = 256).
+// - A product's k-steps run in groups of 12 products (4 k-steps; 6 in
+//   dQ's gradient), one group in flight: the next group's fragments load
+//   while it runs (with two in flight, ptxas serialised every product,
+//   C7514). A tile's gradient products go into a zeroed accumulator that
+//   one fp32 add joins to the gradient (the tensor core adds each product
+//   to its accumulator truncated, and the long runs of small terms of a
+//   causal call's first rows drift).
+// - Where the time goes (dQ at 800x800, clock64 marks in a copy of the
+//   kernel before dQ's warpgroups took their present roles; PERF.md):
+//   ~6,500 cycles a tile against 2,304 of tensor-core work, the rest the
+//   split pass (64 KB of shared-memory traffic a tile), the partials'
+//   round trip (~1,000), P's exp2 (700 with exp2f, 350 on the SFU) and
+//   the hand-overs.
+// - Short query blocks (the decoder's Sq = 21-23): dQ's block is a third
+//   full; dK/dV's query tile two thirds. Grids: ceil(S / 64) x H x B
+//   clusters, one block an SM (140-231 KB); at 800x800 B = 16 1,664
+//   blocks, 12.6 waves on 132 SMs; the decoder's 128 clusters two waves.
+// ptxas -v (sm_90a, CUDA 12.8): 168 registers at DP = 64 and 256 (the
+// launch bound; setmaxnreg 40 and 232), no spills; dynamic shared memory
+// at DP = 256: dQ 230,712 bytes, dK/dV 230,984; at 64: 149,080 and
+// 149,608.
 //
 // bf16 (the bf16 train and serving paths): every product by wgmma.mma_async
 // (bf16 in, fp32 accumulators) on tiles that TMA brings into shared memory
@@ -159,7 +190,6 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
-#include "mma_tf32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -167,413 +197,846 @@ namespace {
 constexpr int MAX_D = 256;
 
 // ---------------------------------------------------------------------------
-// fp32: tensor cores in TF32, three products (mma.sync m16n8k8), cp.async
-// tiles
+// fp32: TF32 wgmma, three products, on TMA tiles; at DP = 256 a cluster of
+// two blocks, each with half the head dim
 // ---------------------------------------------------------------------------
 
 namespace tf32 {
 
-using namespace mma_tf32;
+using namespace sm90;
 using mma_bf16::cp_async4;
-using mma_bf16::cp_async_commit;
-using mma_bf16::cp_async_wait;
 
+constexpr int CONSUMERS = 256;       // two consumer warpgroups
+constexpr int THREADS = 384;         // and the producer warpgroup
 constexpr int BM = 64;               // rows a block: dQ queries, dK/dV keys
-constexpr int BN = 16;               // rows a tile of the block's loop
-constexpr int THREADS = 256;         // 8 warps: 4 row slices x 2 dim halves
-constexpr int NG = 4;                // column tiles a group of products
-constexpr int XCH = 16;              // floats a lane hands its partner a tile
+constexpr int BN = 32;               // rows a tile of the block's loop
 constexpr float LOG2E = 1.44269504088896341f;
+// named barriers (0 is __syncthreads): each consumer warpgroup's own
+// (WG_BAR + its index); in dK/dV the P^T hand-over, in dQ the S and dP
+// hand-over (HO_*) and V's lo parts written
+constexpr int P_READY = 1, P_FREE = 2, WG_BAR = 3;
+constexpr int HO_READY = 1, HO_FREE = 2, V_READY = 5;
+// k-steps whose A fragments a ring slot holds (product3): groups of 4
+// k-steps, 12 products, took 2-5% less time than groups of 2 (the wait
+// after each group is exposed); 8 would not fit in the registers
+constexpr int STEP = 4;
 
-// the block's two BM-row tiles, two stages of the loop's two BN-row tiles
-// (head dim padded to DP), the pair exchange, then `extra` bytes of small
-// arrays
-template <int DP> constexpr size_t smem_bytes(size_t extra) {
-  return (size_t)(2 * BM + 4 * BN) * pad_f32(DP) * sizeof(float) +
-         THREADS * XCH * sizeof(float) + extra;
+template <int DP> struct Cfg {
+  static constexpr int CL = DP == 256 ? 2 : 1;     // blocks a cluster
+  static constexpr int DH = DP / CL;               // head-dim columns a block
+  static constexpr int MB = DH / 64;               // 64-row blocks of dX^T
+  static constexpr int STAGES = DP == 256 ? 2 : 4;
+  static constexpr uint32_t OWN = BM * DH * 4;     // one of the block's tiles
+  static constexpr uint32_t LOOP = BN * DH * 4;    // one of a loop tile's
+  static constexpr uint32_t GRAD = BM * BN * 4;    // a 64 x 32 fp32 tile
+  // k-steps a group of dK/dV's gradient products (product3; S and dP's
+  // take STEP, dQ's 2): two groups or more
+  static constexpr int G_GRAD = MB * (BN / 8) / STEP >= 2 ? STEP : STEP / 2;
+};
+
+// 2^x by the special-function unit (ex2.approx.ftz: within 2^-22
+// relative; 0 for a result under 2^-126, a P that moves no fp32 sum):
+// exp2f's accurate path doubled the time P takes
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// c = a b^T for rows [m0, m0 + 16) of tile A and rows [0, 16) of tile Bt
-// (both row stride LD), over the KS k-steps of 8 columns from column k0:
-// each step's fragments by ldmatrix (those of step kk + 1 loaded before the
-// products of step kk), each split once for its three products lo hi,
-// hi lo and hi hi, which go into three accumulators so that no mma waits
-// on the one before it, summed (lh + hl) + hh. c[j][e]: row
-// m0 + group + 8 (e / 2), column j 8 + 2 tig + e % 2
-template <int KS>
-__device__ __forceinline__ void product_abt(const float* A, const float* Bt,
-                                            int LD, int m0, int k0, int lane,
-                                            float c[2][4]) {
-  float lh[2][4], hl[2][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = lh[j][e] = hl[j][e] = 0.f;
-  uint32_t fa[2][4], fb[2][4];
-  ldmatrix_x4(fa[0], frag_a(A, LD, m0, k0, lane));
-  ldmatrix_x4(fb[0], frag_b_nk(Bt, LD, 0, k0, lane));
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int cur = kk & 1;
-    if (kk + 1 < KS) {
-      ldmatrix_x4(fa[cur ^ 1], frag_a(A, LD, m0, k0 + kk * 8 + 8, lane));
-      ldmatrix_x4(fb[cur ^ 1], frag_b_nk(Bt, LD, 0, k0 + kk * 8 + 8, lane));
-    }
-    uint32_t ah[4], al[4], bhi[2][2], blo[2][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      split(fa[cur][i], ah[i], al[i]);
-      split(fb[cur][i], bhi[i >> 1][i & 1], blo[i >> 1][i & 1]);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) mma(lh[j], al, bhi[j][0], bhi[j][1]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) mma(hl[j], ah, blo[j][0], blo[j][1]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) mma(c[j], ah, bhi[j][0], bhi[j][1]);
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = (lh[j][e] + hl[j][e]) + c[j][e];
+// fp32 -> tf32 bits, round to nearest, ties away from zero (the bits of
+// cvt.rna.tf32.f32, in two integer instructions)
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
-// The two warps of a row slice each hold S and dP over one half of the head
-// dim: each writes its halves to `mine`, waits for its partner at named
-// barrier 1 + slice (64 threads; 0 is __syncthreads), and adds the
-// partner's from `theirs`. x + y is y + x, so both warps end with the same
-// bits. `mine` is written again only after the next __syncthreads, which
-// the partner reaches after its reads
-__device__ __forceinline__ void pair_sum(float s[2][4], float dp[2][4],
-                                         float* mine, const float* theirs,
-                                         int slice, int lane) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    mine[i * 32 + lane] = s[i >> 2][i & 3];
-    mine[(8 + i) * 32 + lane] = dp[i >> 2][i & 3];
-  }
-  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slice) : "memory");
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    s[i >> 2][i & 3] += theirs[i * 32 + lane];
-    dp[i >> 2][i & 3] += theirs[(8 + i) * 32 + lane];
-  }
+// The lo part of a B operand, whose raw word serves as hi (the tensor
+// core reads it truncated): x - trunc(x), exact in fp32, rounded to tf32
+__device__ __forceinline__ float lo_part(float x) {
+  return __uint_as_float(
+      rna_tf32(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u)));
 }
 
-// acc += a b over 16 k for the NT 8-wide column tiles of b from column n0:
-// a (16 x 16) as the C fragments product_abt gives (a[j][e]: row
-// group + 8 (e / 2), k j 8 + 2 tig + e % 2), b rows [0, 16) of tile B (row
-// stride LD, rows = k). The mma's k = tig and tig + 4 of step j take a's k
-// j 8 + 2 tig and j 8 + 2 tig + 1, so the A fragment is a[j] in the order
-// c0, c2, c1, c3 and b's B fragment is its rows j 8 + 2 tig and + 1 at
-// column group, read as scalars. Each value is split once. Per group of NG
-// column tiles the two steps' lo hi, hi lo and hi hi go into a zeroed
-// accumulator, which is then added to acc in fp32: an mma adds its sum to
-// its accumulator truncated, not rounded, and a long run of small terms
-// into a large accumulator drifts (dV of a causal call's first keys
-// gathers thousands of them), while one rounded add a tile does not
-template <int NT>
-__device__ __forceinline__ void product_acc(float acc[NT][4],
-                                            const float a[2][4],
-                                            const float* B, int LD, int n0,
-                                            int tig, int group) {
-  uint32_t ah[2][4], al[2][4];
+// the lo parts of the BYTES of fp32 at src into dst, at the same offsets
+// (so in the same swizzled layout), by the 128 threads of a warpgroup (all
+// loads, then all stores), made visible to its products
+template <uint32_t BYTES>
+__device__ __forceinline__ void split_tile(const unsigned char* src,
+                                           unsigned char* dst, int t) {
+  constexpr int N = BYTES / (128 * 16);
+  float4 x[N];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    split(a[j][0], ah[j][0], al[j][0]);
-    split(a[j][2], ah[j][1], al[j][1]);
-    split(a[j][1], ah[j][2], al[j][2]);
-    split(a[j][3], ah[j][3], al[j][3]);
-  }
-  const float* b0 = B + 2 * tig * LD + n0 + group;
+  for (int j = 0; j < N; ++j)
+    x[j] = *reinterpret_cast<const float4*>(src + (j * 128 + t) * 16);
 #pragma unroll
-  for (int n = 0; n < NT; n += NG) {
-    float t[NG][4];
+  for (int j = 0; j < N; ++j)
+    *reinterpret_cast<float4*>(dst + (j * 128 + t) * 16) = make_float4(
+        lo_part(x[j].x), lo_part(x[j].y), lo_part(x[j].z), lo_part(x[j].w));
+  fence_proxy_async();
+}
+
+// the register A operand of k-step kk: rows 16 w + g (+ 8), columns
+// 8 kk + t (+ 4) of a tile of R rows (S = Q K^T reads Q so)
+template <int R>
+__device__ __forceinline__ void frag_rows(const unsigned char* tile, int w,
+                                          int lane, int, int kk,
+                                          float (&x)[4]) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int g = 0; g < NG; ++g) t[g][0] = t[g][1] = t[g][2] = t[g][3] = 0.f;
+  for (int i = 0; i < 4; ++i)
+    x[i] = *reinterpret_cast<const float*>(
+        tile + F32Tile<R>::at(16 * w + g + 8 * (i & 1),
+                              8 * kk + t + 4 * (i >> 1)));
+}
+
+// the same of the tile's transpose: A(m, k) = tile(k, m) with m = 64 mb +
+// 16 w + g (+ 8), k = 8 kk + t (+ 4) (dQ^T = K^T dS^T reads K so)
+template <int R>
+__device__ __forceinline__ void frag_cols(const unsigned char* tile, int w,
+                                          int lane, int mb, int kk,
+                                          float (&x)[4]) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t bh[NG][2], bl[NG][2];
+  for (int i = 0; i < 4; ++i)
+    x[i] = *reinterpret_cast<const float*>(
+        tile + F32Tile<R>::at(8 * kk + t + 4 * (i >> 1),
+                              64 * mb + 16 * w + g + 8 * (i & 1)));
+}
+
+// the A operands in flight: two slots of K k-steps, hi = rna(x) and lo =
+// rna(x - hi), four registers each. Ring
+// holds STEP; RingG 2, for dQ's gradient, whose accumulators take the
+// registers; RingS 8 for dQ's S and dP, whose groups take STEP all the
+// same: with a ring of STEP there ptxas serialised dQ's products at
+// DP = 64 (C7515), and groups of 8 slowed the decoder's 21-row calls
+typedef uint32_t Ring[2][STEP][2][4];
+typedef uint32_t RingG[2][2][2][4];
+typedef uint32_t RingS[2][8][2][4];
+
+template <int K>
+__device__ __forceinline__ void keep_slot(uint32_t (&r)[K][2][4]) {
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        split(b0[j * 8 * LD + (n + g) * 8], bh[g][0], bl[g][0]);
-        split(b0[(j * 8 + 1) * LD + (n + g) * 8], bh[g][1], bl[g][1]);
+  for (int s = 0; s < K; ++s) keep_live(r[s]);
+}
+template <int K>
+__device__ __forceinline__ void keep_ring(uint32_t (&r)[2][K][2][4]) {
+  keep_slot(r[0]);
+  keep_slot(r[1]);
+}
+
+// d[m] (+)= A_m B over KS k-steps for each of MB row blocks m, in three
+// TF32 products a k-step, smallest first: lo(A) hi(B), hi(A) lo(B),
+// hi(A) hi(B). With SEP the two small ones go into c[m] and the caller
+// adds c to d once the products have finished (as S and dP are taken: the
+// small terms added to a large accumulator lose their low bits, truncated,
+// at each add); else all into d[m] (pass d as c). add = false overwrites d
+// (and c). A's fragments
+// come from frag(m, kk, x) (raw fp32) and are split in registers; B is
+// K-major in shared memory, its raw tile at bhi(kk) (read truncated: hi)
+// and its lo parts at blo(kk). G k-steps make a group of products, one
+// group in flight: a group's fragments are loaded and split into one slot
+// of the ring while the group before runs from the other, then the wait
+// for that one and the issue. (With two groups in flight, wait<1>, ptxas
+// serialises every product: C7514.) A product has an even number of
+// groups, so the next one starts in the slot its predecessor's last group
+// did not use
+template <int N, int MB, int KS, int G, bool SEP, int K, class Frag,
+          class Hi, class Lo>
+__device__ __forceinline__ void product3(float (&d)[MB][N / 2],
+                                         float (&c)[MB][N / 2],
+                                         uint32_t (&ring)[2][K][2][4],
+                                         Frag frag, Hi bhi, Lo blo,
+                                         bool add) {
+  static_assert(G <= K && KS % G == 0 && (MB * KS / G) % 2 == 0,
+                "product3: an even number of whole groups");
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+#pragma unroll
+    for (int k0 = 0; k0 < KS; k0 += G) {
+      const int slot = ((m * KS + k0) / G) & 1;
+#pragma unroll
+      for (int s = 0; s < G; ++s) {
+        float x[4];
+        frag(m, k0 + s, x);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t hi = rna_tf32(x[i]);
+          ring[slot][s][0][i] = hi;
+          ring[slot][s][1][i] = rna_tf32(x[i] - __uint_as_float(hi));
+        }
       }
+      wgmma_wait<0>();                   // the group before
+      keep_slot(ring[slot ^ 1]);
+      wgmma_fence();
 #pragma unroll
-      for (int g = 0; g < NG; ++g) mma(t[g], al[j], bh[g][0], bh[g][1]);
-#pragma unroll
-      for (int g = 0; g < NG; ++g) mma(t[g], ah[j], bl[g][0], bl[g][1]);
-#pragma unroll
-      for (int g = 0; g < NG; ++g) mma(t[g], ah[j], bh[g][0], bh[g][1]);
+      for (int s = 0; s < G; ++s) {
+        const int kk = k0 + s;
+        WgmmaTf32<N>::rs(c[m], ring[slot][s][1], bhi(kk), add || kk > 0);
+        WgmmaTf32<N>::rs(c[m], ring[slot][s][0], blo(kk), 1);
+        WgmmaTf32<N>::rs(d[m], ring[slot][s][0], bhi(kk),
+                         !SEP || add || kk > 0);
+      }
+      wgmma_commit();
     }
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n + g][e] += t[g][e];
   }
 }
 
-// dQ. Block (x, y, z): query rows [64 x, 64 x + 64) of head y, batch z;
-// key tiles of BN rows in order. DP: the head dim the tiles are padded to
-// (64 or 256, >= d)
+// S or dP (NA = 1), or both (NA = 2: x and y), over this block's head-dim
+// columns plus the other block's of the cluster (CL = 2): thread t stores
+// its 16 values of each into the other block's receive buffer `recv` (4
+// float4 at q 128 + t, y 8 KB after x) by st.async, whose bytes complete
+// the other's barrier `bar`, waits for the other block's on its own, and
+// adds them. x + y is y + x, so both blocks hold the same bits
+template <int CL, int NA>
+__device__ __forceinline__ void cluster_sum(float (&x)[16], float (&y)[16],
+                                            uint32_t recv, const float4* mine,
+                                            uint32_t bar, uint32_t phase,
+                                            int t) {
+  if (CL == 1) return;
+  const uint32_t other = cluster_rank() ^ 1u;
+  const uint32_t dst = map_to(recv, other), dst_bar = map_to(bar, other);
+  if (t == 0) mbar_arrive_expect_tx(bar, NA * 128 * 16 * 4);  // the other's
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const float* v = a == 0 ? x : y;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      st_async(dst + ((a * 4 + q) * 128 + t) * 16,
+               make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]),
+               dst_bar);
+  }
+  mbar_wait_cluster(bar, phase);
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    float* v = a == 0 ? x : y;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 z = mine[(a * 4 + q) * 128 + t];
+      v[4 * q] += z.x;
+      v[4 * q + 1] += z.y;
+      v[4 * q + 2] += z.z;
+      v[4 * q + 3] += z.w;
+    }
+  }
+}
+
+// a 64 x 32 accumulator (element 4 j + e at row 16 w + g + 8 (e / 2),
+// column 8 j + 2 t + e % 2) into a 64-row tile at hi (as it is) and lo
+// (lo_part): the K-major B operand of a gradient product
+__device__ __forceinline__ void store_grad_tile(const float (&s)[16],
+                                                unsigned char* hi,
+                                                unsigned char* lo, int w,
+                                                int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const uint32_t at = F32Tile<BM>::at(16 * w + g + 8 * hf, 8 * j + 2 * t);
+      const float a = s[4 * j + 2 * hf], b = s[4 * j + 2 * hf + 1];
+      *reinterpret_cast<float2*>(hi + at) = make_float2(a, b);
+      *reinterpret_cast<float2*>(lo + at) =
+          make_float2(lo_part(a), lo_part(b));
+    }
+}
+
+// acc += t, once a tile's products into t have finished: one rounded add
+// a tile (the tensor core adds its products to an accumulator truncated,
+// and a long run of small terms into a large one drifts)
+template <int MB, int R>
+__device__ __forceinline__ void add_tile(float (&acc)[MB][R],
+                                         float (&t)[MB][R]) {
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+    fence_operands(t[m]);
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[m][i] += t[m][i];
+  }
+}
+
+// dX^T (DH x N, rows the block's head-dim columns from c0, columns N of
+// its rows from r0) into rows < S, columns < d of out (row stride d)
+template <int MB, int N>
+__device__ __forceinline__ void store_transposed(
+    const float (&acc)[MB][N / 2], float* out, int r0, int S, int c0, int d,
+    int w, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < MB; ++m)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + 64 * m + 16 * w + g + 8 * (e >> 1);
+        const int row = r0 + 8 * j + 2 * t + (e & 1);
+        if (row < S && col < d) out[(size_t)row * d + col] = acc[m][4 * j + e];
+      }
+}
+
+// ---------------------------------------------------------------------------
+// dQ
+// ---------------------------------------------------------------------------
+
+template <int DP> struct Dq {
+  using C = Cfg<DP>;
+  // byte offsets from the 1024-aligned base: Q, dO, STAGES of K and of V,
+  // the lo parts of K and V, dS's hi and lo tiles, the S and dP hand-over,
+  // the receive buffers of a cluster ([parity]: S, dP), the key mask's
+  // STAGES, the barriers own_full, full[STAGES], empty[STAGES],
+  // recv[parity]
+  static constexpr uint32_t Q_OFF = 0, DO_OFF = C::OWN;
+  static constexpr uint32_t K_OFF = 2 * C::OWN;
+  static constexpr uint32_t V_OFF = K_OFF + C::STAGES * C::LOOP;
+  static constexpr uint32_t KLO_OFF = V_OFF + C::STAGES * C::LOOP;
+  static constexpr uint32_t VLO_OFF = KLO_OFF + C::LOOP;
+  static constexpr uint32_t DS_OFF = VLO_OFF + C::LOOP;
+  static constexpr uint32_t HO_OFF = DS_OFF + 2 * C::GRAD;
+  static constexpr uint32_t RECV_OFF = HO_OFF + 2 * C::GRAD;
+  static constexpr uint32_t MASK_OFF =
+      RECV_OFF + (C::CL > 1 ? 4 * C::GRAD : 0);
+  static constexpr uint32_t BAR_OFF = MASK_OFF + C::STAGES * BN * 4;
+  static constexpr size_t SMEM = BAR_OFF + (3 + 2 * C::STAGES) * 8 + 1024;
+  static_assert(SMEM <= 232448, "dQ: shared memory");
+};
+
+// Block x of a cluster of CL along x, (y, z): query rows [64 (x / CL),
+// + 64) of head y, batch z, head-dim columns [DH (x % CL), + DH); key
+// tiles of BN rows in order. Warpgroup 0 computes S = Q K^T and dP =
+// dO V^T and sums them with the other block's; warpgroup 1 computes P,
+// dS and dQ^T = K^T dS^T a tile behind, and V's lo parts a tile ahead;
+// warp 8 (the first of warpgroup 2) loads the tiles
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_attn_bwd_dq_tf32_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const int32_t* __restrict__ key_mask,
-                              const float* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ drow,
-                              float* __restrict__ dq, int H, int Sq, int Sk,
-                              int d, int causal, float scale) {
-  constexpr int LD = pad_f32(DP);
-  constexpr int HD = DP / 2;         // the warp's half of the head dim
-  constexpr int NT = HD / 8;         // its 8-wide column tiles of dQ
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);   // BM x LD
-  float* dOs = Qs + BM * LD;                        // BM x LD
-  float* Ks = dOs + BM * LD;                        // 2 x BN x LD
-  float* Vs = Ks + 2 * BN * LD;                     // 2 x BN x LD
-  float* xs = Vs + 2 * BN * LD;                     // 8 warps x XCH x 32
-  int32_t* valid_s = reinterpret_cast<int32_t*>(xs + THREADS * XCH);  // 2 x BN
+flash_attn_bwd_dq_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                   const __grid_constant__ CUtensorMap tm_k,
+                                   const __grid_constant__ CUtensorMap tm_v,
+                                   const __grid_constant__ CUtensorMap tm_do,
+                                   const int32_t* __restrict__ key_mask,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ drow,
+                                   float* __restrict__ dq, int H, int Sq,
+                                   int Sk, int d, int causal, float scale) {
+  using C = Cfg<DP>;
+  using L = Dq<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = aligned_base(smem_raw);
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t own_full = base + L::BAR_OFF;
+  const uint32_t full0 = own_full + 8, empty0 = full0 + 8 * C::STAGES;
+  const uint32_t recv_bar0 = empty0 + 8 * C::STAGES;
+  int32_t* mask_s = reinterpret_cast<int32_t*>(smem + L::MASK_OFF);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int group = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const float* kb = k + bh * Sk * d;
-  const float* vb = v + bh * Sk * d;
-  const int32_t* mb = key_mask + (size_t)b * Sk;
-
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int q0 = (blockIdx.x / C::CL) * BM, h = blockIdx.y, b = blockIdx.z;
+  const int c0 = (blockIdx.x % C::CL) * C::DH;
+  const int bh = b * H + h;
   int n_tiles = (Sk + BN - 1) / BN;
   // causal: the block's last valid row sees keys up to itself
   if (causal) n_tiles = min(n_tiles, (min(q0 + BM, Sq) - 1) / BN + 1);
 
-  // key tile t into stage t & 1: K, V rows (0 past Sk) and key validity
-  auto load_kv = [&](int t) {
-    const int k0 = t * BN, st = t & 1;
-    load_rows_async<DP, THREADS>(Ks + st * BN * LD, kb, k0, BN, Sk, d, tid);
-    load_rows_async<DP, THREADS>(Vs + st * BN * LD, vb, k0, BN, Sk, d, tid);
-    if (tid < BN) {
-      const bool in = k0 + tid < Sk;
-      cp_async4(valid_s + st * BN + tid, in ? mb + k0 + tid : mb, in);
+  if (tid == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS);
     }
-  };
-  load_rows_async<DP, THREADS>(Qs, q + bh * Sq * d, q0, BM, Sq, d, tid);
-  load_rows_async<DP, THREADS>(dOs, dout + bh * Sq * d, q0, BM, Sq, d, tid);
-  load_kv(0);
-  cp_async_commit();
-
-  // warp roles: query rows m0..m0+15 of the block with its partner warp
-  // ^ 4; head-dim columns c0..c0+HD-1 for its halves of S and dP and for dQ
-  const int slice = warp & 3, m0 = slice * 16, c0 = (warp >> 2) * HD;
-  float* mine = xs + warp * XCH * 32;
-  const float* theirs = xs + (warp ^ 4) * XCH * 32;
-  const float scale2 = scale * LOG2E;
-  // this thread's two query rows (those of its C fragments), their lse in
-  // base-2 units and their D; rows past Sq read nothing and are masked
-  int row[2];
-  float lse2[2], D[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    row[hf] = q0 + m0 + group + 8 * hf;
-    const bool in = row[hf] < Sq;
-    lse2[hf] = in ? lse[bh * Sq + row[hf]] * LOG2E : -INFINITY;
-    D[hf] = in ? drow[bh * Sq + row[hf]] : 0.f;
+    for (int r = 0; r < 2; ++r) mbar_init(recv_bar0 + 8 * r, 1);
+    fence_barrier_init();
   }
-  // uniform over the pair: false when its rows all lie past Sq (decoder
-  // calls have Sq = 21 in a 64-row block)
-  const bool rows_live = q0 + m0 < Sq;
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // the other block's barriers are ready before either block uses them
+  if (C::CL > 1) cluster_sync(); else __syncthreads();
 
-  // one barrier a tile: after it, tile t has landed and every warp is done
-  // with tile t - 1, so its stage (which tile t + 1 takes) and the pair
-  // exchange are free
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<0>();                    // Q, dO and tile t have landed
-    __syncthreads();
-    if (t + 1 < n_tiles) load_kv(t + 1);   // overlaps this tile
-    cp_async_commit();
-    const int k0 = t * BN;
-    const float* Kt = Ks + (t & 1) * BN * LD;
-    const float* Vt = Vs + (t & 1) * BN * LD;
-    const int32_t* vt = valid_s + (t & 1) * BN;
-    // skip, uniform over the pair, when its rows all lie past Sq or
-    // (causal) every key of the tile lies after them: dS is 0 there
-    if (!rows_live || (causal && k0 > q0 + m0 + 15)) continue;
-    float s[2][4], dp[2][4];
-    product_abt<HD / 8>(Qs, Kt, LD, m0, c0, lane, s);
-    product_abt<HD / 8>(dOs, Vt, LD, m0, c0, lane, dp);
-    pair_sum(s, dp, mine, theirs, slice, lane);
-    // P = valid ? exp(S scale - lse) : 0 (never exp then mask), as
-    // 2^(S scale log2(e) - lse log2(e)), and dS = P (dP - D) scale into s
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hf = e >> 1, kl = j * 8 + 2 * tig + (e & 1);
-        const bool ok = vt[kl] != 0 && row[hf] < Sq &&
-                        (!causal || k0 + kl <= row[hf]);
-        const float p = ok ? exp2f(s[j][e] * scale2 - lse2[hf]) : 0.f;
-        s[j][e] = ok ? p * (dp[j][e] - D[hf]) * scale : 0.f;
+  const int wgi = warpgroup(tid);
+  if (wgi == 2) {
+    // the producer warp: Q and dO once, then each key tile's K and V (by
+    // TMA) and its key validity (by cp.async, 0 past Sk)
+    setmaxnreg_dec<40>();
+    if (warp_of(tid) == 8) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(own_full, 2 * C::OWN);
+        for (int r = 0; r < C::DH / 32; ++r) {
+          const uint32_t off = r * F32Tile<BM>::REGION;
+          tma_load_3d(base + L::Q_OFF + off, &tm_q, own_full, c0 + 32 * r,
+                      q0, bh);
+          tma_load_3d(base + L::DO_OFF + off, &tm_do, own_full, c0 + 32 * r,
+                      q0, bh);
+        }
+      }
+      const int32_t* mask_g = key_mask + (size_t)b * Sk;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % C::STAGES, k0 = i * BN;
+        const uint32_t full = full0 + 8 * st;
+        if (i >= C::STAGES)
+          mbar_wait(empty0 + 8 * st, (i / C::STAGES - 1) & 1);
+        const bool in = k0 + lane < Sk;
+        cp_async4(mask_s + st * BN + lane, in ? mask_g + k0 + lane : mask_g,
+                  in);
+        cp_async_mbar_arrive(full);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full, 2 * C::LOOP);
+          for (int r = 0; r < C::DH / 32; ++r) {
+            const uint32_t off = st * C::LOOP + r * F32Tile<BN>::REGION;
+            tma_load_3d(base + L::K_OFF + off, &tm_k, full, c0 + 32 * r, k0,
+                        bh);
+            tma_load_3d(base + L::V_OFF + off, &tm_v, full, c0 + 32 * r, k0,
+                        bh);
+          }
+        }
       }
     }
-    // dQ += dS K for head-dim columns c0..c0+HD-1
-    product_acc<NT>(acc, s, Kt, LD, c0, tig, group);
-  }
-
-  float* gq = dq + bh * Sq * d;
+    if (C::CL > 1) cluster_sync();   // neither block leaves while the other
+                                     // may still write to it
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = tid & 127, warp = t >> 5;
+    const int g = lane >> 2, tig = lane & 3;
+    float* ho = reinterpret_cast<float*>(smem + L::HO_OFF);
+    const uint32_t klo = base + L::KLO_OFF, vlo = base + L::VLO_OFF;
+    // the receive buffers of tile i's S and dP (cluster_sum)
+    auto recv_addr = [&](int i) {
+      return base + L::RECV_OFF + (i & 1) * 2 * C::GRAD;
+    };
+    if (wgi == 0) {
+      // S and dP, and their products' small terms
+      float sp[1][16], dpv[1][16], spc[1][16], dpc[1][16];
+      RingS ring;
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    if (row[hf] >= Sq) continue;
+      for (int e = 0; e < 16; ++e)
+        sp[0][e] = dpv[0][e] = spc[0][e] = dpc[0][e] = 0.f;
+      mbar_wait(own_full, 0);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % C::STAGES;
+        const uint32_t k_tile = base + L::K_OFF + st * C::LOOP;
+        const uint32_t v_tile = base + L::V_OFF + st * C::LOOP;
+        mbar_wait(full0 + 8 * st, (i / C::STAGES) & 1);
+        // K's lo parts, once the last tile's S has read the last ones in
+        // every warp: HO_FREE follows each warp's wait, from tile 2 on
+        if (i == 1) bar_sync(WG_BAR, 128);
+        split_tile<C::LOOP>(smem + (k_tile - base), smem + (klo - base), t);
+        bar_sync(WG_BAR, 128);
+        // S = Q K^T and dP = dO V^T: 64 query rows x BN keys over this
+        // block's DH columns; A = Q or dO (registers), B = K or V
+        fence_operands(sp[0]);
+        fence_operands(dpv[0]);
+        fence_operands(spc[0]);
+        fence_operands(dpc[0]);
+        product3<32, 1, C::DH / 8, STEP, true>(
+            sp, spc, ring,
+            [&](int m, int kk, float (&x)[4]) {
+              frag_rows<BM>(smem + L::Q_OFF, warp, lane, m, kk, x);
+            },
+            [&](int kk) { return F32Tile<BN>::kmajor(k_tile, kk); },
+            [&](int kk) { return F32Tile<BN>::kmajor(klo, kk); }, false);
+        bar_sync(V_READY, CONSUMERS);    // V's lo parts, from warpgroup 1
+        product3<32, 1, C::DH / 8, STEP, true>(
+            dpv, dpc, ring,
+            [&](int m, int kk, float (&x)[4]) {
+              frag_rows<BM>(smem + L::DO_OFF, warp, lane, m, kk, x);
+            },
+            [&](int kk) { return F32Tile<BN>::kmajor(v_tile, kk); },
+            [&](int kk) { return F32Tile<BN>::kmajor(vlo, kk); }, false);
+        wgmma_wait<0>();
+        keep_ring(ring);
+        fence_operands(sp[0]);
+        fence_operands(dpv[0]);
+        fence_operands(spc[0]);
+        fence_operands(dpc[0]);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int c = c0 + n * 8 + 2 * tig;
-      if (c >= d) continue;
-      *reinterpret_cast<float2*>(gq + (size_t)row[hf] * d + c) =
-          make_float2(acc[n][2 * hf], acc[n][2 * hf + 1]);
+        for (int e = 0; e < 16; ++e) {
+          sp[0][e] = spc[0][e] + sp[0][e];
+          dpv[0][e] = dpc[0][e] + dpv[0][e];
+        }
+        mbar_arrive(empty0 + 8 * st);
+        cluster_sum<C::CL, 2>(sp[0], dpv[0], recv_addr(i),
+                              reinterpret_cast<const float4*>(
+                                  smem + (recv_addr(i) - base)),
+                              recv_bar0 + 8 * (i & 1), (i >> 1) & 1, t);
+        // hand S and dP to warpgroup 1, whose thread t takes the same
+        // places, once it has read the last tile's
+        if (i > 0) bar_sync(HO_FREE, CONSUMERS);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          ho[e * 128 + t] = sp[0][e];
+          ho[(16 + e) * 128 + t] = dpv[0][e];
+        }
+        bar_arrive(HO_READY, CONSUMERS);
+      }
+    } else {
+      // the thread's two query rows (those of its S and dP fragments),
+      // their lse in base-2 units and their D; rows past Sq read nothing
+      // and are masked
+      int row[2];
+      float lse2[2], D[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        row[hf] = q0 + 16 * warp + g + 8 * hf;
+        const size_t at = (size_t)bh * Sq + row[hf];
+        const bool in = row[hf] < Sq;
+        lse2[hf] = in ? lse[at] * LOG2E : 0.f;
+        D[hf] = in ? drow[at] : 0.f;
+      }
+      const float scale2 = scale * LOG2E;
+      const uint32_t ds = base + L::DS_OFF;
+      float acc[C::MB][32], tmp[C::MB][32];   // dQ^T, and a tile's of it
+      RingG ring;
+#pragma unroll
+      for (int m = 0; m < C::MB; ++m)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[m][e] = tmp[m][e] = 0.f;
+      // V's lo parts of tile i, for warpgroup 0's dP; the last tile's dP,
+      // which read the last ones, finished before HO_READY
+      auto split_v = [&](int i) {
+        const int st = i % C::STAGES;
+        mbar_wait(full0 + 8 * st, (i / C::STAGES) & 1);
+        split_tile<C::LOOP>(smem + L::V_OFF + st * C::LOOP,
+                            smem + (vlo - base), t);
+        bar_arrive(V_READY, CONSUMERS);
+      };
+      split_v(0);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % C::STAGES, k0 = i * BN;
+        float p[16], dsv[16];
+        bar_sync(HO_READY, CONSUMERS);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          p[e] = ho[e * 128 + t];
+          dsv[e] = ho[(16 + e) * 128 + t];
+        }
+        if (i + 1 < n_tiles) bar_arrive(HO_FREE, CONSUMERS);
+        // P = valid ? exp(S scale - lse) : 0 (never exp then mask), as
+        // 2^(S scale log2(e) - lse log2(e)), and dS = P (dP - D) scale:
+        // element 4 j + e is query row row[e / 2], key column 8 j + 2 tig
+        // + e % 2
+        const int32_t* valid = mask_s + st * BN;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kl = 8 * j + 2 * tig + (e & 1), hf = e >> 1;
+            const bool ok = valid[kl] != 0 && row[hf] < Sq &&
+                            (!causal || k0 + kl <= row[hf]);
+            const float pe =
+                ok ? exp2_fast(p[4 * j + e] * scale2 - lse2[hf]) : 0.f;
+            dsv[4 * j + e] = pe * (dsv[4 * j + e] - D[hf]) * scale;
+          }
+        }
+        // once the last tile's dQ^T product has read dS in every warp, the
+        // new one's hi and lo tiles (query rows, key columns), dQ^T's B
+        // operand
+        wgmma_wait<0>();
+        keep_ring(ring);
+        if (i > 0) add_tile<C::MB, 32>(acc, tmp);
+        bar_sync(WG_BAR + 1, 128);
+        store_grad_tile(dsv, smem + L::DS_OFF, smem + L::DS_OFF + C::GRAD,
+                        warp, lane);
+        fence_proxy_async();
+        bar_sync(WG_BAR + 1, 128);
+        // dQ^T += K^T dS^T: this block's DH columns x 64 query rows over
+        // the tile's keys, into tmp; A = K^T (registers, from K's tile)
+        product3<64, C::MB, BN / 8, 2, false>(
+            tmp, tmp, ring,
+            [&](int m, int kk, float (&x)[4]) {
+              frag_cols<BN>(smem + L::K_OFF + st * C::LOOP, warp, lane, m,
+                            kk, x);
+            },
+            [&](int kk) { return F32Tile<BM>::kmajor(ds, kk); },
+            [&](int kk) { return F32Tile<BM>::kmajor(ds + C::GRAD, kk); },
+            false);
+        mbar_arrive(empty0 + 8 * st);
+        if (i + 1 < n_tiles) split_v(i + 1);
+      }
+      wgmma_wait<0>();
+      keep_ring(ring);
+      add_tile<C::MB, 32>(acc, tmp);
+      store_transposed<C::MB, 64>(acc, dq + (size_t)bh * Sq * d, q0, Sq, c0,
+                                  d, warp, lane);
     }
+    if (C::CL > 1) cluster_sync();
   }
 }
 
-// dK/dV. Block (x, y, z): key rows [64 x, 64 x + 64) of head y, batch z;
-// query tiles of BN rows in order, with their lse and D. DP as above
+// ---------------------------------------------------------------------------
+// dK/dV
+// ---------------------------------------------------------------------------
+
+template <int DP> struct Dkv {
+  using C = Cfg<DP>;
+  // byte offsets from the 1024-aligned base: K, V, STAGES of Q and of dO,
+  // the lo parts of Q (warpgroup 0) and dO (1), P^T's and dS^T's hi and lo
+  // tiles, the receive buffers of a cluster, STAGES of lse and of D, the
+  // barriers own_full, full[STAGES], empty[STAGES], recv[warpgroup][parity]
+  static constexpr uint32_t K_OFF = 0, V_OFF = C::OWN;
+  static constexpr uint32_t Q_OFF = 2 * C::OWN;
+  static constexpr uint32_t DO_OFF = Q_OFF + C::STAGES * C::LOOP;
+  static constexpr uint32_t LO_OFF = DO_OFF + C::STAGES * C::LOOP;
+  static constexpr uint32_t PT_OFF = LO_OFF + 2 * C::LOOP;
+  static constexpr uint32_t DST_OFF = PT_OFF + 2 * C::GRAD;
+  static constexpr uint32_t RECV_OFF = DST_OFF + 2 * C::GRAD;
+  static constexpr uint32_t LSE_OFF =
+      RECV_OFF + (C::CL > 1 ? 4 * C::GRAD : 0);
+  static constexpr uint32_t D_OFF = LSE_OFF + C::STAGES * BN * 4;
+  static constexpr uint32_t BAR_OFF = D_OFF + C::STAGES * BN * 4;
+  static constexpr size_t SMEM = BAR_OFF + (5 + 2 * C::STAGES) * 8 + 1024;
+  static_assert(SMEM <= 232448, "dK/dV: shared memory");
+};
+
+// Block x of a cluster of CL along x, (y, z): key rows [64 (x / CL), + 64)
+// of head y, batch z, head-dim columns [DH (x % CL), + DH); query tiles of
+// BN rows in order. Warpgroup 0 computes S^T = K Q^T, P^T and dV^T =
+// dO^T P; warpgroup 1 computes dP^T = V dO^T, dS^T and dK^T = Q^T dS;
+// warp 8 (the first of warpgroup 2) loads the tiles
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_attn_bwd_dkv_tf32_kernel(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               const int32_t* __restrict__ key_mask,
-                               const float* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ drow,
-                               float* __restrict__ dk, float* __restrict__ dv,
-                               int H, int Sq, int Sk, int d, int causal,
-                               float scale) {
-  constexpr int LD = pad_f32(DP);
-  constexpr int HD = DP / 2;
-  constexpr int NT = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);   // BM x LD
-  float* Vs = Ks + BM * LD;                         // BM x LD
-  float* Qs = Vs + BM * LD;                         // 2 x BN x LD
-  float* dOs = Qs + 2 * BN * LD;                    // 2 x BN x LD
-  float* xs = dOs + 2 * BN * LD;                    // 8 warps x XCH x 32
-  float* lse_s = xs + THREADS * XCH;                // 2 x BN
-  float* D_s = lse_s + 2 * BN;                      // 2 x BN
-  int32_t* valid_s = reinterpret_cast<int32_t*>(D_s + 2 * BN);  // BM
+flash_attn_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                    const __grid_constant__ CUtensorMap tm_k,
+                                    const __grid_constant__ CUtensorMap tm_v,
+                                    const __grid_constant__ CUtensorMap tm_do,
+                                    const int32_t* __restrict__ key_mask,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ drow,
+                                    float* __restrict__ dk,
+                                    float* __restrict__ dv, int H, int Sq,
+                                    int Sk, int d, int causal, float scale) {
+  using C = Cfg<DP>;
+  using L = Dkv<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = aligned_base(smem_raw);
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t own_full = base + L::BAR_OFF;
+  const uint32_t full0 = own_full + 8, empty0 = full0 + 8 * C::STAGES;
+  const uint32_t recv_bar0 = empty0 + 8 * C::STAGES;
+  float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
+  float* d_s = reinterpret_cast<float*>(smem + L::D_OFF);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int group = lane >> 2, tig = lane & 3;
-  const int k0 = blockIdx.x * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const float* qb = q + bh * Sq * d;
-  const float* ob = dout + bh * Sq * d;
-  const float* lb = lse + bh * Sq;
-  const float* db = drow + bh * Sq;
-  const int32_t* mb = key_mask + (size_t)b * Sk;
-
-  load_rows_async<DP, THREADS>(Ks, k + bh * Sk * d, k0, BM, Sk, d, tid);
-  load_rows_async<DP, THREADS>(Vs, v + bh * Sk * d, k0, BM, Sk, d, tid);
-  if (tid < BM) {
-    const bool in = k0 + tid < Sk;
-    cp_async4(valid_s + tid, in ? mb + k0 + tid : mb, in);   // 0 past Sk
-  }
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int k0 = (blockIdx.x / C::CL) * BM, h = blockIdx.y, b = blockIdx.z;
+  const int c0 = (blockIdx.x % C::CL) * C::DH;
+  const int bh = b * H + h;
   const int n_tiles = (Sq + BN - 1) / BN;
-  // causal: tile t ends at row t BN + BN - 1, before k0 for t < k0 / BN
-  const int first = causal ? k0 / BN : 0;
-  // query tile t into stage (t - first) & 1: Q, dO rows (0 past Sq), lse, D
-  auto load_q = [&](int t) {
-    const int q0 = t * BN, st = (t - first) & 1;
-    load_rows_async<DP, THREADS>(Qs + st * BN * LD, qb, q0, BN, Sq, d, tid);
-    load_rows_async<DP, THREADS>(dOs + st * BN * LD, ob, q0, BN, Sq, d, tid);
-    if (tid < BN) {
-      const bool in = q0 + tid < Sq;
-      cp_async4(lse_s + st * BN + tid, in ? lb + q0 + tid : lb, in);
-      cp_async4(D_s + st * BN + tid, in ? db + q0 + tid : db, in);
+  // causal: query tile t ends at row t BN + BN - 1, before k0 for
+  // t < k0 / BN; with Sq < Sk a block may see no tile at all
+  const int first = causal ? min(k0 / BN, n_tiles) : 0;
+  const int count = n_tiles - first;
+
+  if (tid == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS);
     }
-  };
-  if (first < n_tiles) load_q(first);
-  cp_async_commit();
+    for (int r = 0; r < 4; ++r) mbar_init(recv_bar0 + 8 * r, 1);
+    fence_barrier_init();
+  }
+  if (C::CL > 1) cluster_sync(); else __syncthreads();
 
-  // warp roles: key rows m0..m0+15 of the block with its partner warp ^ 4;
-  // head-dim columns c0..c0+HD-1 for its halves of S^T and dP^T and for dK
-  // and dV
-  const int slice = warp & 3, m0 = slice * 16, c0 = (warp >> 2) * HD;
-  float* mine = xs + warp * XCH * 32;
-  const float* theirs = xs + (warp ^ 4) * XCH * 32;
-  const float scale2 = scale * LOG2E;
-  // uniform over the pair: false when its key rows all lie past Sk
-  const bool keys_live = k0 + m0 < Sk;
-  float dk_acc[NT][4], dv_acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  for (int t = first; t < n_tiles; ++t) {
-    cp_async_wait<0>();                    // K, V and tile t have landed
-    __syncthreads();
-    if (t + 1 < n_tiles) load_q(t + 1);    // overlaps this tile
-    cp_async_commit();
-    const int q0 = t * BN, st = (t - first) & 1;
-    const float* Qt = Qs + st * BN * LD;
-    const float* dOt = dOs + st * BN * LD;
-    const float* lt = lse_s + st * BN;
-    const float* Dt = D_s + st * BN;
-    // skip, uniform over the pair, when its key rows all lie past Sk or
-    // (causal) after every query of the tile: P and dS are 0 there
-    if (!keys_live || (causal && k0 + m0 > q0 + BN - 1)) continue;
-    float s[2][4], dp[2][4], ds[2][4];
-    product_abt<HD / 8>(Ks, Qt, LD, m0, c0, lane, s);     // S^T
-    product_abt<HD / 8>(Vs, dOt, LD, m0, c0, lane, dp);   // dP^T
-    pair_sum(s, dp, mine, theirs, slice, lane);
-    // P^T = valid ? exp(S^T scale - lse) : 0 (never exp then mask) into s,
-    // and dS^T = P^T (dP^T - D) scale: element e of s[j] is key row
-    // m0 + group + 8 (e / 2), query column j 8 + 2 tig + e % 2
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = m0 + group + 8 * (e >> 1);
-        const int ql = j * 8 + 2 * tig + (e & 1), qi = q0 + ql;
-        const bool ok = valid_s[kl] != 0 && qi < Sq &&
-                        (!causal || k0 + kl <= qi);
-        const float p =
-            ok ? exp2f(s[j][e] * scale2 - lt[ql] * LOG2E) : 0.f;
-        ds[j][e] = ok ? p * (dp[j][e] - Dt[ql]) * scale : 0.f;
-        s[j][e] = p;
+  const int wgi = warpgroup(tid);
+  if (wgi == 2) {
+    // the producer warp: K and V once, then each query tile's Q and dO (by
+    // TMA) and its lse and D (by cp.async, 0 past Sq) into the ring as
+    // soon as the tile's stage is free; the full barrier waits for both
+    setmaxnreg_dec<40>();
+    if (warp_of(tid) == 8 && count > 0) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(own_full, 2 * C::OWN);
+        for (int r = 0; r < C::DH / 32; ++r) {
+          const uint32_t off = r * F32Tile<BM>::REGION;
+          tma_load_3d(base + L::K_OFF + off, &tm_k, own_full, c0 + 32 * r,
+                      k0, bh);
+          tma_load_3d(base + L::V_OFF + off, &tm_v, own_full, c0 + 32 * r,
+                      k0, bh);
+        }
+      }
+      const float* lse_g = lse + (size_t)bh * Sq;
+      const float* d_g = drow + (size_t)bh * Sq;
+      for (int i = 0; i < count; ++i) {
+        const int st = i % C::STAGES, q0 = (first + i) * BN;
+        const uint32_t full = full0 + 8 * st;
+        if (i >= C::STAGES)
+          mbar_wait(empty0 + 8 * st, (i / C::STAGES - 1) & 1);
+        const bool in = q0 + lane < Sq;
+        cp_async4(lse_s + st * BN + lane, in ? lse_g + q0 + lane : lse_g, in);
+        cp_async4(d_s + st * BN + lane, in ? d_g + q0 + lane : d_g, in);
+        cp_async_mbar_arrive(full);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full, 2 * C::LOOP);
+          for (int r = 0; r < C::DH / 32; ++r) {
+            const uint32_t off = st * C::LOOP + r * F32Tile<BN>::REGION;
+            tma_load_3d(base + L::Q_OFF + off, &tm_q, full, c0 + 32 * r, q0,
+                        bh);
+            tma_load_3d(base + L::DO_OFF + off, &tm_do, full, c0 + 32 * r,
+                        q0, bh);
+          }
+        }
       }
     }
-    // dV += P^T dO and dK += dS^T Q for head-dim columns c0..c0+HD-1
-    product_acc<NT>(dv_acc, s, dOt, LD, c0, tig, group);
-    product_acc<NT>(dk_acc, ds, Qt, LD, c0, tig, group);
-  }
-  cp_async_wait<0>();  // nothing left in flight (no query tile at all)
-
+    if (C::CL > 1) cluster_sync();
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = tid & 127, warp = t >> 5;
+    const int g = lane >> 2, tig = lane & 3;
+    // the thread's two key rows (those of its S^T fragments)
+    int kr[2];
+    bool key_ok[2];
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int kr = k0 + m0 + group + 8 * hf;
-    if (kr >= Sk) continue;
-    float* gk = dk + (bh * Sk + kr) * d;
-    float* gv = dv + (bh * Sk + kr) * d;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int c = c0 + n * 8 + 2 * tig;
-      if (c >= d) continue;
-      *reinterpret_cast<float2*>(gk + c) =
-          make_float2(dk_acc[n][2 * hf], dk_acc[n][2 * hf + 1]);
-      *reinterpret_cast<float2*>(gv + c) =
-          make_float2(dv_acc[n][2 * hf], dv_acc[n][2 * hf + 1]);
+    for (int hf = 0; hf < 2; ++hf) {
+      kr[hf] = k0 + 16 * warp + g + 8 * hf;
+      key_ok[hf] = kr[hf] < Sk && key_mask[(size_t)b * Sk + kr[hf]] != 0;
     }
+    const float scale2 = scale * LOG2E;
+    // S^T's A operand K (warpgroup 0) or dP^T's V (1), the lo parts of its
+    // B operand, Q or dO, and the B operand of its gradient product, P^T
+    // (dV^T = dO^T P) or dS^T (dK^T = Q^T dS), hi then lo
+    const unsigned char* own = smem + (wgi == 0 ? L::K_OFF : L::V_OFF);
+    const uint32_t lo = base + L::LO_OFF + wgi * C::LOOP;
+    const uint32_t grad = base + (wgi == 0 ? L::PT_OFF : L::DST_OFF);
+    const unsigned char* pt = smem + L::PT_OFF;
+    const uint32_t recv = base + L::RECV_OFF + wgi * 2 * C::GRAD;
+    const uint32_t recv_bar = recv_bar0 + wgi * 16;
+    // S^T (0) or dP^T (1), and its products' small terms
+    float s[1][16], sc[1][16];
+    float acc[C::MB][32], tmp[C::MB][32];   // dV^T (0) or dK^T (1)
+    Ring ring;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[0][e] = sc[0][e] = 0.f;
+#pragma unroll
+    for (int m = 0; m < C::MB; ++m)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[m][e] = tmp[m][e] = 0.f;
+    if (count > 0) mbar_wait(own_full, 0);
+
+    // each tile's gradient product runs on while the next tile's S^T or
+    // dP^T is issued
+    for (int i = 0; i < count; ++i) {
+      const int st = i % C::STAGES, q0 = (first + i) * BN;
+      const uint32_t q_tile = base + L::Q_OFF + st * C::LOOP;
+      const uint32_t do_tile = base + L::DO_OFF + st * C::LOOP;
+      const uint32_t b_tile = wgi == 0 ? q_tile : do_tile;
+      mbar_wait(full0 + 8 * st, (i / C::STAGES) & 1);
+      // the lo parts of Q (0) or dO (1): the last tile's S^T or dP^T, which
+      // read the last ones, finished before the warpgroup's barrier after
+      // P^T or dS^T
+      split_tile<C::LOOP>(smem + (b_tile - base), smem + (lo - base), t);
+      bar_sync(WG_BAR + wgi, 128);
+
+      // S^T = K Q^T (0) or dP^T = V dO^T (1): 64 keys x BN queries over
+      // this block's DH columns; A = K or V (registers), B = Q or dO
+      fence_operands(s[0]);
+      fence_operands(sc[0]);
+      product3<32, 1, C::DH / 8, STEP, true>(
+          s, sc, ring,
+          [&](int m, int kk, float (&x)[4]) {
+            frag_rows<BM>(own, warp, lane, m, kk, x);
+          },
+          [&](int kk) { return F32Tile<BN>::kmajor(b_tile, kk); },
+          [&](int kk) { return F32Tile<BN>::kmajor(lo, kk); }, false);
+      wgmma_wait<0>();                   // and the last tile's gradient
+      keep_ring(ring);
+      fence_operands(s[0]);
+      fence_operands(sc[0]);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[0][e] = sc[0][e] + s[0][e];
+      if (i > 0) add_tile<C::MB, 32>(acc, tmp);
+      cluster_sum<C::CL, 1>(s[0], s[0], recv + (i & 1) * C::GRAD,
+                            reinterpret_cast<const float4*>(
+                                smem + (recv - base) + (i & 1) * C::GRAD),
+                            recv_bar + 8 * (i & 1), (i >> 1) & 1, t);
+
+      const float* rows = (wgi == 0 ? lse_s : d_s) + st * BN;
+      if (wgi == 0) {
+        // P^T = valid ? exp(S^T scale - lse) : 0 (never exp then mask), as
+        // 2^(S^T scale log2(e) - lse log2(e)): element 4 j + e is key row
+        // kr[e / 2], query column 8 j + 2 tig + e % 2
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ql = 8 * j + 2 * tig + (e & 1), qi = q0 + ql;
+            const bool ok = key_ok[e >> 1] && qi < Sq &&
+                            (!causal || kr[e >> 1] <= qi);
+            s[0][4 * j + e] =
+                ok ? exp2_fast(s[0][4 * j + e] * scale2 - rows[ql] * LOG2E)
+                   : 0.f;
+          }
+        }
+        // P^T (key rows, query columns) is dV^T's B operand and warpgroup
+        // 1's P: written once warpgroup 1 has read the last tile's
+        if (i > 0) bar_sync(P_FREE, CONSUMERS);
+        store_grad_tile(s[0], smem + L::PT_OFF, smem + L::PT_OFF + C::GRAD,
+                        warp, lane);
+        fence_proxy_async();
+        bar_sync(WG_BAR, 128);
+        bar_arrive(P_READY, CONSUMERS);
+      } else {
+        bar_sync(P_READY, CONSUMERS);
+        // dS^T = P^T (dP^T - D) scale; P^T is 0 wherever it is masked
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int ql = 8 * j + 2 * tig;
+            const float2 p = *reinterpret_cast<const float2*>(
+                pt + F32Tile<BM>::at(16 * warp + g + 8 * hf, ql));
+            float* x = &s[0][4 * j + 2 * hf];
+            x[0] = p.x * (x[0] - rows[ql]) * scale;
+            x[1] = p.y * (x[1] - rows[ql + 1]) * scale;
+          }
+        if (i + 1 < count) bar_arrive(P_FREE, CONSUMERS);
+        store_grad_tile(s[0], smem + L::DST_OFF, smem + L::DST_OFF + C::GRAD,
+                        warp, lane);
+        fence_proxy_async();
+        bar_sync(WG_BAR + 1, 128);
+      }
+      // dV^T += dO^T P (0) or dK^T += Q^T dS (1): this block's DH columns
+      // x 64 keys over the tile's queries, into tmp; A = dO^T or Q^T
+      // (registers, from the tile)
+      const unsigned char* a_tile =
+          smem + ((wgi == 0 ? do_tile : q_tile) - base);
+      product3<64, C::MB, BN / 8, C::G_GRAD, false>(
+          tmp, tmp, ring,
+          [&](int m, int kk, float (&x)[4]) {
+            frag_cols<BN>(a_tile, warp, lane, m, kk, x);
+          },
+          [&](int kk) { return F32Tile<BM>::kmajor(grad, kk); },
+          [&](int kk) { return F32Tile<BM>::kmajor(grad + C::GRAD, kk); },
+          false);
+      mbar_arrive(empty0 + 8 * st);
+    }
+    wgmma_wait<0>();
+    keep_ring(ring);
+    if (count > 0) add_tile<C::MB, 32>(acc, tmp);
+    store_transposed<C::MB, 64>(acc, (wgi == 0 ? dv : dk) + (size_t)bh * Sk * d,
+                            k0, Sk, c0, d, warp, lane);
+    if (C::CL > 1) cluster_sync();
   }
+}
+
+// ---------------------------------------------------------------------------
+// launches: the tensor maps are encoded on the host at each launch
+// (sm90.cuh, tile_map_f32), and a cluster of Cfg::CL blocks along x
+// ---------------------------------------------------------------------------
+
+template <class... Params, class... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int cl,
+                            size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <int DP>
@@ -581,19 +1044,20 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* key_mask, const void* dout, const void* lse,
                       const void* drow, void* dq, int B, int H, int Sq, int Sk,
                       int d, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DP>(2 * BN * sizeof(int32_t));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_bwd_dq_tf32_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BM - 1) / BM, H, B);
-  flash_attn_bwd_dq_tf32_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int32_t*>(key_mask),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(drow), static_cast<float*>(dq), H, Sq, Sk, d,
-      causal, 1.0f / sqrtf((float)d));
-  return cudaGetLastError();
+  using C = Cfg<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  // maps baked into a CUDA graph that captures this launch (sm90.cuh)
+  if (!tile_map_f32(&tq, q, d, Sq, B * H, BM) ||
+      !tile_map_f32(&tdo, dout, d, Sq, B * H, BM) ||
+      !tile_map_f32(&tk, k, d, Sk, B * H, BN) ||
+      !tile_map_f32(&tv, v, d, Sk, B * H, BN))
+    return cudaErrorInvalidValue;
+  const dim3 grid(C::CL * ((Sq + BM - 1) / BM), H, B);
+  return launch_clusters(
+      flash_attn_bwd_dq_tf32_sm90_kernel<DP>, grid, C::CL, Dq<DP>::SMEM,
+      stream, tq, tk, tv, tdo, static_cast<const int32_t*>(key_mask),
+      static_cast<const float*>(lse), static_cast<const float*>(drow),
+      static_cast<float*>(dq), H, Sq, Sk, d, causal, 1.0f / sqrtf((float)d));
 }
 
 template <int DP>
@@ -602,20 +1066,20 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* lse, const void* drow, void* dk, void* dv,
                        int B, int H, int Sq, int Sk, int d, int causal,
                        cudaStream_t stream) {
-  constexpr size_t smem =
-      smem_bytes<DP>(4 * BN * sizeof(float) + BM * sizeof(int32_t));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_bwd_dkv_tf32_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + BM - 1) / BM, H, B);
-  flash_attn_bwd_dkv_tf32_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int32_t*>(key_mask),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(drow), static_cast<float*>(dk),
-      static_cast<float*>(dv), H, Sq, Sk, d, causal, 1.0f / sqrtf((float)d));
-  return cudaGetLastError();
+  using C = Cfg<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tile_map_f32(&tq, q, d, Sq, B * H, BN) ||
+      !tile_map_f32(&tdo, dout, d, Sq, B * H, BN) ||
+      !tile_map_f32(&tk, k, d, Sk, B * H, BM) ||
+      !tile_map_f32(&tv, v, d, Sk, B * H, BM))
+    return cudaErrorInvalidValue;
+  const dim3 grid(C::CL * ((Sk + BM - 1) / BM), H, B);
+  return launch_clusters(
+      flash_attn_bwd_dkv_tf32_sm90_kernel<DP>, grid, C::CL, Dkv<DP>::SMEM,
+      stream, tq, tk, tv, tdo, static_cast<const int32_t*>(key_mask),
+      static_cast<const float*>(lse), static_cast<const float*>(drow),
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk, d, causal,
+      1.0f / sqrtf((float)d));
 }
 
 }  // namespace tf32
@@ -1163,10 +1627,11 @@ bool bad_shape(int B, int H, int Sq, int Sk, int d) {
 // 16-byte aligned and of one dtype (is_bf16 ? bfloat16 : float32). key_mask:
 // (B, Sk) int32, nonzero = attend. lse, drow: (B, H, Sq) float32 (the
 // forward's row log-sum-exp and rowsum(dout * out) with NaN -> 0). The dtype
-// picks the kernel, both on tensor cores: 3xTF32 for fp32 (the head dim
-// padded to 64 or 256), wgmma for bf16 (padded to 32, 64 or 256; its tensor
-// maps are encoded here, and one that does not encode returns
-// cudaErrorInvalidValue). Each launches on `stream`, allocates nothing,
+// picks the kernel, both on wgmma: three TF32 products for fp32 (the head
+// dim padded to 64 or 256; clusters of two blocks at 256), bf16 for bf16
+// (padded to 32, 64 or 256). The tensor maps are encoded here, and one that
+// does not encode returns cudaErrorInvalidValue. Each launches on
+// `stream`, allocates nothing,
 // does not synchronise, and returns the cudaError_t of the launch
 // (0 = success).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,

@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks of the bf16 attention kernels, forward
-// (flash_attn_fwd.cu) and backward (flash_attn_bwd.cu): mbarriers, TMA tile
-// loads, shared-memory matrix descriptors and the warpgroup product
-// wgmma.mma_async (bf16 in, fp32 accumulators), in inline PTX; the layout
-// of a head-dim tile (HeadDim) and, on the host, the tensor maps that TMA
-// reads it by (tile_map), encoded at each launch.
+// Hopper (sm_90a) building blocks of the attention kernels on wgmma: the
+// bf16 forward (flash_attn_fwd.cu) and the bf16 and fp32 backward
+// (flash_attn_bwd.cu): mbarriers, TMA tile loads, clusters, shared-memory
+// matrix descriptors and the warpgroup product wgmma.mma_async (bf16 or
+// TF32 in, fp32 accumulators), in inline PTX; the layout of a head-dim
+// tile (HeadDim for bf16, F32Tile for fp32) and, on the host, the tensor
+// maps that TMA reads it by (tile_map, tile_map_f32), encoded at each
+// launch.
 //
 // Tiles. A bf16 tile of R rows of the head dim padded to DP lies in shared
 // memory as DP / COLS regions, one after another, each R rows of COLS
@@ -35,6 +37,18 @@
 // columns 2 tig (+ 8), two bf16 a register, in the order (row, col) =
 // (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8): the accumulator of
 // one product converts to the A operand of the next in place.
+//
+// fp32 (the fp32 backward, flash_attn_bwd.cu): wgmma in TF32, m64nNk8,
+// reads both operands K-major (the transposed B of the bf16 products is
+// for 16-bit types alone) and a 32-bit word as TF32 by dropping its low 13
+// bits. A fp32 tile (F32Tile) lies in regions of 32 floats (128-byte rows,
+// the 128-byte swizzle: chunk c of row r at chunk c ^ (r % 8)); a k-step
+// is 8 floats, 32 bytes along a row, so its descriptor is the bf16 one's
+// in bytes. The register A operand of m64nNk8 .tf32 holds one fp32 word a
+// register, (row, col) = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+// Tensor maps of fp32 tensors: tile_map_f32. Blocks of a cluster reach each
+// other's shared memory by st.async (map_to), which completes the other
+// block's barrier.
 
 #pragma once
 
@@ -69,7 +83,8 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
-// arrive, and expect `bytes` more of TMA writes before the phase completes
+// arrive, and expect `bytes` more of TMA (or st.async) writes before the
+// phase completes
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                                                       uint32_t bytes) {
   asm volatile(
@@ -86,6 +101,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "WAIT:\n"
       "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
       "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// mbar_wait at the scope of the cluster: for a barrier that another
+// block's st.async completes
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAITC:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
+      "@!p bra WAITC;\n}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
 }
@@ -139,6 +168,52 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
 }
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// makes this thread's writes to shared memory visible to the async proxy
+// (the wgmma products that read them next)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// clusters: a block's rank, the whole cluster's barrier, and another
+// block's shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; orders shared-memory writes
+// before it (release) with reads after it (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the address in block `rank`'s shared memory of `addr` in this block's
+__device__ __forceinline__ uint32_t map_to(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into another block's shared memory (`addr` from map_to),
+// asynchronously: they count as transaction bytes toward that block's
+// barrier `bar` (from map_to), whose wait then sees them
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -329,9 +404,71 @@ template <> struct Wgmma<256> {
   }
 };
 
+// m64nNk8 in TF32 with fp32 accumulators d (N / 2 a thread), the A operand
+// in registers (fp32 words, read as TF32: the low 13 bits dropped), b a
+// K-major descriptor. scale_d 0 overwrites d, 1 adds to it
+template <int N> struct WgmmaTf32;
+
+template <> struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
 // ---------------------------------------------------------------------------
 // tiles of the head dim, the roles of a block's warpgroups
 // ---------------------------------------------------------------------------
+
+// a fp32 tile of R rows (R a multiple of 8) in regions of 32 columns,
+// rows of 128 bytes with the 128-byte swizzle, as TMA writes it from a
+// tile_map_f32 map: the byte offset of element (row, col), and the K-major
+// descriptor of all R rows at k-step kk (columns 8 kk .. 8 kk + 7)
+template <int R> struct F32Tile {
+  static constexpr uint32_t REGION = R * 128;
+  static __device__ __forceinline__ uint32_t at(int row, int col) {
+    return (col >> 5) * REGION + row * 128 +
+           ((((col >> 2) & 7) ^ (row & 7)) << 4) + ((col & 3) << 2);
+  }
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+    return smem_desc(tile + (kk >> 2) * REGION + (kk & 3) * 32, 16, 1024, 1);
+  }
+};
 
 // the shared-memory layout of a tile of the head dim padded to DP (see the
 // top of this file): regions of COLS columns, rows of SW bytes
@@ -427,9 +564,9 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (BH, S, d) bf16 tensor as a rank-3 map (d, S, BH) read in boxes of
-// (COLS, rows, 1) with the swizzle of HeadDim<DP>; outside the tensor the
-// box fills with zeros. False when the map does not encode.
+// a (BH, S, d) tensor of `esize`-byte elements as a rank-3 map (d, S, BH)
+// read in boxes of (cols, rows, 1) with the given swizzle; outside the
+// tensor the box fills with zeros. False when the map does not encode.
 // The map holds the tensor's address and travels as a __grid_constant__
 // parameter, so a CUDA graph that captures the launch (a train step's,
 // train/graphs.py) replays the map as it was encoded. That is sound only
@@ -438,21 +575,36 @@ inline EncodeTiled encode_tiled() {
 // replay refuses a state whose tensors were rebound after the capture.
 // cudaFuncSetAttribute, called at every launch, is allowed while a stream
 // captures (the graphed steps run on the H100 with it)
-template <int DP>
-bool tile_map(CUtensorMap* map, const void* ptr, int d, int S, int BH,
-              int rows) {
+inline bool rank3_map(CUtensorMap* map, const void* ptr,
+                      CUtensorMapDataType type, int esize, int d, int S,
+                      int BH, int cols, int rows, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)S * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)HeadDim<DP>::COLS, (cuuint32_t)rows,
-                             1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * esize,
+                                 (cuuint64_t)S * d * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, HeadDim<DP>::SWIZZLE,
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a bf16 tensor in boxes of HeadDim<DP>'s regions
+template <int DP>
+bool tile_map(CUtensorMap* map, const void* ptr, int d, int S, int BH,
+              int rows) {
+  return rank3_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, d, S, BH,
+                   HeadDim<DP>::COLS, rows, HeadDim<DP>::SWIZZLE);
+}
+
+// a fp32 tensor in boxes of F32Tile's regions (32 columns, the 128-byte
+// swizzle)
+inline bool tile_map_f32(CUtensorMap* map, const void* ptr, int d, int S,
+                         int BH, int rows) {
+  return rank3_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, d, S, BH, 32,
+                   rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

@@ -10,18 +10,20 @@ when it fails:
 1. the device: torch's name for it and nvidia-smi's name and power limit;
 2. build the CUDA kernels from bmt_tpu_torch/csrc/ (one nvcc per source,
    started together; each timed), all on tensor cores at head dims padded
-   to 64 and 256: the forward in fp32 (flash_attn_fwd_tf32_kernel, 3xTF32)
-   and in bf16 (flash_attn_fwd_sm90_kernel: wgmma on TMA tiles, at 32
-   too), with flash_attn_fwd_combine_kernel<float> and <bf16>, which
-   combine the partials of a split key loop; dQ and dK/dV in fp32
-   (flash_attn_bwd_dq_tf32_kernel, flash_attn_bwd_dkv_tf32_kernel, 3xTF32)
-   and in bf16 (flash_attn_bwd_dq_sm90_kernel,
-   flash_attn_bwd_dkv_sm90_kernel: wgmma on TMA tiles, at 32 too); print
-   what ptxas reports for each and fail if one is missing or any kernel
-   spills registers; count HGMMA (wgmma), UTMALDG (TMA loads) and HMMA
-   (mma.sync) in each kernel's machine code (cuobjdump -sass) and fail if
-   a bf16 kernel (the forward and the backward pair) lacks HGMMA or
-   UTMALDG; beside them, the
+   to 64 and 256: the forward in fp32 (flash_attn_fwd_tf32_kernel, 3xTF32
+   on mma.sync) and in bf16 (flash_attn_fwd_sm90_kernel: wgmma on TMA
+   tiles, at 32 too), with flash_attn_fwd_combine_kernel<float> and
+   <bf16>, which combine the partials of a split key loop; dQ and dK/dV
+   in fp32 (flash_attn_bwd_dq_tf32_sm90_kernel,
+   flash_attn_bwd_dkv_tf32_sm90_kernel: three TF32 wgmma products on TMA
+   tiles, at 256 in clusters of two blocks) and in bf16
+   (flash_attn_bwd_dq_sm90_kernel, flash_attn_bwd_dkv_sm90_kernel: wgmma
+   on TMA tiles, at 32 too); print what ptxas reports for each and fail if
+   one is missing or any kernel spills registers; count HGMMA (wgmma),
+   UTMALDG (TMA loads) and HMMA (mma.sync) in each kernel's machine code
+   (cuobjdump -sass) and fail if a kernel on wgmma (the bf16 forward and
+   both backward pairs) lacks HGMMA or UTMALDG or holds HMMA; beside them,
+   the
    two host libraries from bmt_tpu_torch/csrc/*.cc with g++ (the feature
    loader bmt_io, the METEOR aligner meteor_align; timed), failing if
    either does not build or does not serve;
@@ -436,16 +438,19 @@ SOURCES = {KERNEL: 'bmt_tpu_torch/csrc/flash_attn_fwd.cu',
 ENTRIES = {KERNEL: ('flash_attn_fwd_tf32_kernel',
                     'flash_attn_fwd_combine_kernel',
                     'flash_attn_fwd_sm90_kernel'),
-           BWD_LIBRARY: ('flash_attn_bwd_dq_tf32_kernel',
+           BWD_LIBRARY: ('flash_attn_bwd_dq_tf32_sm90_kernel',
                          'flash_attn_bwd_dq_sm90_kernel',
-                         'flash_attn_bwd_dkv_tf32_kernel',
+                         'flash_attn_bwd_dkv_tf32_sm90_kernel',
                          'flash_attn_bwd_dkv_sm90_kernel')}
 # the opcodes counted in the kernels' machine code: wgmma, the TMA tile load
-# and mma.sync; the bf16 kernels must hold the first two
+# and mma.sync; the kernels on wgmma must hold the first two and not the
+# third
 SASS_OPS = ('HGMMA', 'UTMALDG', 'HMMA')
 HOPPER_KERNELS = ('flash_attn_fwd_sm90_kernel',
                   'flash_attn_bwd_dq_sm90_kernel',
-                  'flash_attn_bwd_dkv_sm90_kernel')
+                  'flash_attn_bwd_dkv_sm90_kernel',
+                  'flash_attn_bwd_dq_tf32_sm90_kernel',
+                  'flash_attn_bwd_dkv_tf32_sm90_kernel')
 REPLACES = {KERNEL: 'bmt_tpu/ops/pallas_attention.py:237',  # and :278
             KERNEL_DQ: 'bmt_tpu/ops/pallas_attention.py:473',
             KERNEL_DKV: 'bmt_tpu/ops/pallas_attention.py:498'}
@@ -5380,8 +5385,10 @@ def main():
         print(f'      {kname}: ' + ', '.join(f'{op} {n}' for op, n in c.items()))
     for base in HOPPER_KERNELS:
         inst = {k: c for k, c in counts.items() if k.split('<')[0] == base}
-        check(inst and all(c['HGMMA'] and c['UTMALDG'] for c in inst.values()),
-              f'{base}: no HGMMA or no UTMALDG in its machine code: {inst}')
+        check(inst and all(c['HGMMA'] and c['UTMALDG'] and not c['HMMA']
+                           for c in inst.values()),
+              f'{base}: no HGMMA, no UTMALDG or an HMMA in its machine '
+              f'code: {inst}')
 
     started[3] = round(time.perf_counter() - t_main, 1)
     print('[3] forward kernel vs plain PyTorch on the card:')

@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-'''Time the bf16 attention kernels of this checkout against those built
-from another copy of ``bmt_tpu_torch/csrc/`` (an earlier commit's, unpacked
-with ``git archive``), in turns on the same inputs, beside the library call
-and the bound: the forward with lse (``--kernels fwd``) against
+'''Time the attention kernels of this checkout against those built from
+another copy of ``bmt_tpu_torch/csrc/`` (an earlier commit's, unpacked with
+``git archive``), in turns on the same inputs, beside the library call and
+the bound: the bf16 forward with lse (``--kernels fwd``) against
 ``F.scaled_dot_product_attention``, and the backward pair, dQ and dK/dV
-(``--kernels bwd``), against one ``autograd.grad`` through it.
+(``--kernels bwd``), in bf16 or (``--dtype float32``) fp32, against one
+``autograd.grad`` through it.
 
     git archive <commit> bmt_tpu_torch/csrc | tar -x -C tmp/other
     python3 kernel_ab.py --other parent=tmp/other/bmt_tpu_torch/csrc \\
-        [--kernels fwd,bwd]
+        [--kernels fwd,bwd] [--dtype bfloat16|float32]
 
 Shapes, those ``chip_smoke.py`` times: the forward at the train cell's
 nine calls (the decoder's Sq = 21 and the two 2048-row ones included), the
 proposal cell's four at B = 16 and at B = 1 (a served video's calls, whose
 key loops this checkout splits, the combine kernel inside their time), the
-four sp shapes, H = 2 and d = 32; the backward at the train cell's seven,
-the proposal cell's four (B = 16), the sp shapes, H = 2 and d = 32.
+four sp shapes, H = 2 and d = 32; the backward in bf16 at the train cell's
+seven, the proposal cell's four (B = 16), the sp shapes, H = 2 and d = 32;
+in fp32 at the shapes of the fp32 train steps: the train cell's seven
+(B = 32, H = 4, d = 256), the proposal cell's four (B = 16) and the two
+H = 2 ones (256x256 B = 32, 800x800 B = 16).
 
 Runs from the root of a checkout on one CUDA device. ``--other NAME=DIR``
 may be given more than once. Each other library is built with the same
@@ -53,10 +57,13 @@ D32 = [('d=32 23x23 causal (decoder)', cs.TB, 4, 23, 23, 32, True),
        ('d=32 800x800 (audio encoder)', cs.TB, 4, 800, 800, 32, False)]
 
 
-def bwd_cases(dev):
-    '''(case, key lengths or None for random ones) of the backward.'''
+def bwd_cases(dev, dtype=torch.bfloat16):
+    '''(case, key lengths or None for random ones) of the backward in
+    ``dtype``.'''
     out = [(c, None) for c in cs.TRAIN_CASES[:7]]
     out += [(c, cs.prop_key_lengths(cs.PB, c[4], dev)) for c in cs.PROP_CASES]
+    if dtype == torch.float32:
+        return out + [(c, None) for c in cs.MP_TIME_CASES]
     out += [(c, None) for c in cs.SP_CASES + cs.MP_TIME_CASES + D32]
     return out
 
@@ -175,12 +182,11 @@ def time_fwd(case, lengths, others, dev, iters):
                     'others_splits': splits}}
 
 
-def time_bwd(case, lengths, others, dev, iters):
+def time_bwd(case, lengths, others, dev, iters, dtype=torch.bfloat16):
     _, b, h, sq, sk, d, _ = case
-    q, k, v, mask, _ = cs.attention_inputs(case, torch.bfloat16, dev, 1,
-                                           lengths)
+    q, k, v, mask, _ = cs.attention_inputs(case, dtype, dev, 1, lengths)
     g = torch.Generator(device=dev).manual_seed(2)
-    dout = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
     km, causal = key_mask_and_causal(mask, b, sk, dev)
     out, lse = flash_attention_forward(q, k, v, km, causal, with_lse=True)
     drow = row_dot(out, dout)
@@ -201,7 +207,7 @@ def time_bwd(case, lengths, others, dev, iters):
         fns[f'dkv {label}']()
         torch.cuda.synchronize()
         for name, x, y in zip(('dq', 'dk', 'dv'), mine, (dq_o, dk_o, dv_o)):
-            err, ok = cs.within(x, y, *cs.BWD_TOL[torch.bfloat16])
+            err, ok = cs.within(x, y, *cs.BWD_TOL[dtype])
             cs.check(ok, f'{case[0]}: {name} of this build and {label} '
                          f'differ by {err}')
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
@@ -212,9 +218,10 @@ def time_bwd(case, lengths, others, dev, iters):
     res = {'shape': f'B={b} H={h} Sq={sq} Sk={sk} d={d}'
                     f'{" causal" if causal else ""}',
            'library_ms': t['library']}
+    name = str(dtype).split('.')[-1]
     for kname, key in ((KERNEL_DQ, 'dq'), (KERNEL_DKV, 'dkv')):
         bound, by = attention_bound_ms(*attention_cost(
-            kname, b, h, sq, sk, d, 'bfloat16', causal), 'bfloat16')
+            kname, b, h, sq, sk, d, name, causal), name)
         res[key] = {'ms': t[key], 'bound_ms': bound, 'bound_by': by,
                     'share': bound / t[key],
                     'others_ms': {label: t[f'{key} {label}']
@@ -242,11 +249,19 @@ def main(argv=None):
     p.add_argument('--kernels', default='fwd,bwd',
                    help='comma-separated: fwd (the forward with lse), bwd '
                         '(dQ and dK/dV)')
+    p.add_argument('--dtype', default='bfloat16',
+                   choices=('bfloat16', 'float32'),
+                   help='the backward pair\'s dtype (the forward is timed '
+                        'in bfloat16 only)')
     p.add_argument('--iters', type=int, default=10)
     a = p.parse_args(argv)
     kernels = a.kernels.split(',')
+    dtype = getattr(torch, a.dtype)
     if not set(kernels) <= {'fwd', 'bwd'}:
         sys.exit(f'kernel_ab: --kernels takes fwd and bwd, not {a.kernels}')
+    if dtype == torch.float32 and 'fwd' in kernels:
+        sys.exit('kernel_ab: --dtype float32 times the backward pair only '
+                 '(--kernels bwd)')
     if not torch.cuda.is_available():
         sys.exit('kernel_ab: no CUDA device')
     dev = torch.device('cuda:0')
@@ -266,8 +281,8 @@ def main(argv=None):
                   + kernel_part(r, 'fwd')
                   + f'; library {r["library_ms"]:.4f}', flush=True)
     if 'bwd' in kernels:
-        for case, lengths in bwd_cases(dev):
-            r = time_bwd(case, lengths, others, dev, a.iters)
+        for case, lengths in bwd_cases(dev, dtype):
+            r = time_bwd(case, lengths, others, dev, a.iters, dtype)
             rows['bwd'].append({'name': case[0], **r})
             pair = {label: r['dq']['others_ms'][label]
                     + r['dkv']['others_ms'][label] for label in others}
@@ -275,7 +290,8 @@ def main(argv=None):
                 kernel_part(r, k) for k in ('dq', 'dkv'))
                 + f'; pair {r["dq"]["ms"] + r["dkv"]["ms"]:.4f} '
                 f'{bracket(pair)} library {r["library_ms"]:.4f}', flush=True)
-    print(json.dumps({'device': smi, 'iters': a.iters, 'rows': rows}))
+    print(json.dumps({'device': smi, 'iters': a.iters, 'dtype': a.dtype,
+                      'rows': rows}))
 
 
 if __name__ == '__main__':

@@ -218,6 +218,55 @@ def test_bf16_backward_kernels_at_tile_edges_on_card(cuda, shape, kind):
                                    rtol=rtol)
 
 
+# the fp32 backward kernels (three TF32 wgmma products on TMA tiles; 64-row
+# blocks over 32-row loop tiles; at head dims padded to 256 a cluster of two
+# blocks, one a 128-column half): the proposal cell's four calls (B = 16,
+# keys of videos shorter than the pad), S = 2048 causal, and every head dim
+# of {8, 24, 64, 72, 256} at lengths that cut the 32- and 64-row tiles or
+# fill less than one (the decoder's 21), causal with Sq != Sk among them
+FP32_BWD_CASES = (
+    [((16, 4, sq, sk, 256), 'videos')
+     for sq, sk in ((800, 800), (300, 300), (800, 300), (300, 800))]
+    + [((2, 2, 2048, 2048, 256), 'causal')]
+    + [((2, 2, sq, sk, d), kind) for d in (8, 24, 64, 72, 256)
+       for sq, sk, kind in ((21, 21, 'causal'), (65, 33, 'padding'),
+                            (129, 800, 'causal'))])
+
+
+@pytest.mark.parametrize('shape,kind', FP32_BWD_CASES)
+def test_fp32_backward_kernels_on_card(cuda, shape, kind):
+    '''The fp32 dQ and dK/dV kernels against their plain versions within
+    BWD_TOL[float32]; the forward is the plain one, so only the backward
+    kernels are under test. With "videos" the batch rows keep the keys of
+    videos of 100%, 65%, 40% and 90% of the pad in turn; in every case the
+    last batch row has every key masked, and its gradients are exactly 0
+    and never NaN.'''
+    q, k, v, dout, km, causal = _inputs(cuda, torch.float32, shape, kind)
+    if kind == 'videos':
+        B, Sk = km.shape
+        lengths = torch.tensor([Sk, int(0.65 * Sk), int(0.4 * Sk),
+                                int(0.9 * Sk)] * B, device=cuda)[:B]
+        lengths[-1] = 0
+        km = (torch.arange(Sk, device=cuda)[None, :]
+              < lengths[:, None]).int()
+    out, lse = flash_attention_lse_reference(q, k, v, km, causal)
+    drow = row_dot(out, dout)
+    args = (q, k, v, km, causal, lse, drow, dout)
+    before = (flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    got = (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    want = (flash_attention_bwd_dq_reference(*args),
+            *flash_attention_bwd_dkv_reference(*args))
+    atol, rtol = BWD_TOL[torch.float32]
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and not a.isnan().any()
+        assert (a[-1] == 0).all() and (b[-1] == 0).all()
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+
+
 # the edges of the bf16 forward's tiles (64-row halves of 128-row query
 # blocks, 64-key tiles; head dims padded to 32, 64 or 256): every length of
 # {1, 21, 63, 65, 129, 800} on the query and on the key side, causal and

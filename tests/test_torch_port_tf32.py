@@ -12,16 +12,21 @@ tile with its own softmax state, and the two halves of a row are joined at
 the end. With a key split, blocks write per-chunk (m, l, O) partials that a
 second kernel combines the same way.
 
-The backward kernels (dQ over 16-key tiles, dK/dV over 16-query tiles) take
-S and dP in two head-dim halves, each summed alone as S is above, then add
-the halves; they rebuild P = exp2(S scale log2(e) - lse log2(e)) and
-dS = P (dP - D) scale where the logit is valid (0 elsewhere), and sum each
-tile's dS K, P^T dO and dS^T Q in two 8-wide steps with the columns paired
-as in P V into a zeroed accumulator, which one fp32 add joins to dQ, dV or
-dK. (The tensor core adds each mma's sum to its accumulator truncated, not
-rounded, which this emulation cannot see; the zeroed accumulator keeps
-that drift to one tile's terms: tests/test_torch_port_cuda.py holds it at
-S = 2048, causal, on the card.)
+The backward kernels (dQ over 32-key tiles, dK/dV over 32-query tiles, on
+TF32 wgmma) split a product's register operand A in registers, hi =
+rna_tf32(x), lo = rna_tf32(x - hi), and keep its shared-memory operand B
+as the raw fp32 word, which the tensor core reads truncated to TF32, beside
+lo = rna_tf32(x - trunc(x)). Each 8-deep k-step adds lo(A) hi(B), hi(A)
+lo(B), then hi(A) hi(B) to one fp32 accumulator. At a head dim padded to 256 a cluster of two
+blocks takes S and dP over one 128-column half each and adds the other's
+(x + y, the same bits in both); at 64 one block takes all. They rebuild
+P = exp2(S scale log2(e) - lse log2(e)) and dS = P (dP - D) scale where the
+logit is valid (0 elsewhere), and sum each tile's dQ^T = K^T dS^T,
+dV^T = dO^T P and dK^T = Q^T dS into a zeroed accumulator, which one fp32
+add joins to the gradient. (The tensor core adds each product to its
+accumulator truncated, not rounded, which this emulation cannot see; the
+zeroed accumulator keeps that drift to one tile's terms:
+tests/test_torch_port_cuda.py holds it at S = 2048, causal, on the card.)
 
 This file emulates that arithmetic in numpy (a test helper, not part of the
 package): the tensor core's products of TF32 values are exact, and each
@@ -48,7 +53,7 @@ from bmt_tpu.ops.pallas_attention import (_flash_attention_tiled,
 TOL = (1e-4, 1e-5)
 LSE_TOL = (1e-5, 1e-5)
 BK = 32                      # the forward kernel's key tile
-BN = 16                      # the backward kernels' loop tile
+BN = 32                      # the backward kernels' loop tile
 LN2 = np.float32(0.693147180559945309)
 LOG2E = np.float32(1.44269504088896341)
 # mma k index -> key within an 8-key step: k = t <-> 2 t, k = t + 4 <-> 2 t + 1
@@ -296,35 +301,81 @@ def test_split_partials_combine_to_the_unsplit_result(Sk, splits, causal,
 # ---------------------------------------------------------------------------
 
 def pad_dim(x):
-    '''x with its head dim zero-padded to the kernels' DP (64 or 256).'''
+    """x with its head dim zero-padded to the kernels' DP (64 or 256)."""
     d = x.shape[-1]
     dp = 64 if d <= 64 else 256
     return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, dp - d)])
 
 
+def trunc_tf32(x):
+    """An fp32 word as the tensor core reads it in TF32: its low 13 bits
+    dropped."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_shared(x):
+    """(hi, lo) of a shared-memory operand as the products read it: the raw
+    word truncated, and x - trunc(x) (exact in fp32) rounded to TF32."""
+    hi = trunc_tf32(x)
+    return hi, rna_tf32(x - hi)
+
+
+def wg_mma(acc, a, b, products, a_right=False, small=None):
+    """acc + a b over k-steps of 8 (a (..., M, K), b (..., K, N)), as wgmma
+    adds them: lo(A) hi(B), hi(A) lo(B), hi(A) hi(B) a step with 3
+    products, hi hi alone with 1. A, the product's register operand
+    (split()), is a, or b with ``a_right``; the other is in shared memory
+    (split_shared()). The two small products go into ``small`` when it is
+    given (an accumulator of their own, returned beside acc), else into
+    acc."""
+    ahi, alo = split_shared(a) if a_right else split(a)
+    bhi, blo = split(b) if a_right else split_shared(b)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        if products == 3:
+            first = ((ahi[..., ks], blo[..., ks, :]) if a_right
+                     else (alo[..., ks], bhi[..., ks, :]))
+            second = ((alo[..., ks], bhi[..., ks, :]) if a_right
+                      else (ahi[..., ks], blo[..., ks, :]))
+            if small is None:
+                acc = mma(acc, *first)
+                acc = mma(acc, *second)
+            else:
+                small = mma(mma(small, *first), *second)
+        acc = mma(acc, ahi[..., ks], bhi[..., ks, :])
+    return acc if small is None else (acc, small)
+
+
 def halves_logits(a, b, products):
-    '''a b^T (a (BH, M, DP), b (BH, N, DP)) as the backward kernels take
-    S and dP: each head-dim half summed alone into three accumulators
-    (tf32_logits), then the two halves added.'''
-    h = a.shape[-1] // 2
-    return (tf32_logits(a[..., :h], b[..., :h].swapaxes(-1, -2), products)
-            + tf32_logits(a[..., h:], b[..., h:].swapaxes(-1, -2), products))
+    """a b^T (a (BH, M, DP), b (BH, N, DP); A = a) as the backward kernels
+    take S and dP: at DP = 256 each 128-column half (one block of the
+    cluster) summed alone from zero, its small products in an accumulator
+    of their own added last, then the halves added; at DP = 64 the whole
+    width in one."""
+    h = min(a.shape[-1], 128)
+    zero = np.zeros(a.shape[:-1] + b.shape[1:2], np.float32)
+    out = None
+    for c in range(0, a.shape[-1], h):
+        main, small = wg_mma(zero, a[..., c:c + h],
+                             b[..., c:c + h].swapaxes(-1, -2), products,
+                             small=zero)
+        part = small + main
+        out = part if out is None else out + part
+    return out
 
 
 def grad_product(acc, a, b, products):
-    '''acc + a b over one 16-wide tile (a (BH, M, 16), b (BH, 16, n)) as
-    the kernels add dS K, P^T dO and dS^T Q: two 8-wide steps with the
-    columns in KEY_ORDER into a zeroed accumulator, then one fp32 add.'''
-    t = np.zeros_like(acc)
-    for c0 in (0, 8):
-        cols = c0 + KEY_ORDER
-        t = tf32_product(t, a[..., cols], b[:, cols], products)
-    return acc + t
+    """acc + a b over one BN-wide tile (a (BH, M, BN), b (BH, BN, n)) as
+    the kernels add dQ^T = K^T dS^T, dV^T = dO^T P and dK^T = Q^T dS, b's
+    side the register operand: into a zeroed accumulator, then one fp32
+    add."""
+    return acc + wg_mma(np.zeros_like(acc), a, b, products, a_right=True)
 
 
 def probs(s, dp, ok, lse, D, scale):
-    '''(P, dS) from the logits and dP, masked where the logit is not
-    valid (never exp then mask): lse and D broadcast against s.'''
+    """(P, dS) from the logits and dP, masked where the logit is not
+    valid (never exp then mask): lse and D broadcast against s."""
     with np.errstate(invalid='ignore', over='ignore'):
         p = np.where(ok, np.exp2(s * (scale * LOG2E) - lse * LOG2E),
                      0).astype(np.float32)
@@ -333,7 +384,7 @@ def probs(s, dp, ok, lse, D, scale):
 
 
 def tile(x, r0):
-    '''Rows [r0, r0 + BN) of x (BH, S, ...), zero past S.'''
+    """Rows [r0, r0 + BN) of x (BH, S, ...), zero past S."""
     out = np.zeros((x.shape[0], BN) + x.shape[2:], x.dtype)
     n = max(0, min(BN, x.shape[1] - r0))
     out[:, :n] = x[:, r0:r0 + n]
@@ -341,11 +392,11 @@ def tile(x, r0):
 
 
 def emulate_bwd(q, k, v, km, lse, D, dout, causal=False, products=3):
-    '''The kernels' (dQ, dK, dV) for (B, H, S, d) inputs, the forward's lse
+    """The kernels' (dQ, dK, dV) for (B, H, S, d) inputs, the forward's lse
     and D (B, H, Sq). Rows are independent, so each kernel's blocks are
     emulated all at once: dQ over key tiles of BN in order, dK/dV over
     query tiles of BN in order. A tile a block skips (causal) holds no
-    valid logit and adds exact zeros here.'''
+    valid logit and adds exact zeros here."""
     B, H, Sq, d = q.shape
     Sk = k.shape[2]
     scale = np.float32(1 / np.sqrt(np.float32(d)))
@@ -383,8 +434,8 @@ def emulate_bwd(q, k, v, km, lse, D, dout, causal=False, products=3):
 
 
 def bwd_inputs(Sq, Sk, causal=False, empty_row=False, seed=0, d=256):
-    '''q, k, v, key mask (inputs()), dO, and the Pallas forward's out and
-    lse and D = rowsum(dO out) (NaN -> 0) for them.'''
+    """q, k, v, key mask (inputs()), dO, and the Pallas forward's out and
+    lse and D = rowsum(dO out) (NaN -> 0) for them."""
     q, k, v, km = inputs(Sk, seed, Sq=Sq, d=d, empty_row=empty_row)
     dout = np.random.default_rng(seed + 1).normal(
         size=q.shape).astype(np.float32)
@@ -395,7 +446,7 @@ def bwd_inputs(Sq, Sk, causal=False, empty_row=False, seed=0, d=256):
 
 
 def pallas_bwd(q, k, v, km, dout, out, lse, causal=False):
-    '''(dq, dk, dv) of the tiled Pallas backward in interpret mode.'''
+    """(dq, dk, dv) of the tiled Pallas backward in interpret mode."""
     lse8 = np.broadcast_to(lse[..., None], lse.shape + (8,))
     got = _flash_attention_tiled_bwd(
         *(jnp.asarray(x) for x in (q, k, v, km, lse8, out, dout)), causal,
@@ -413,10 +464,11 @@ BWD_CASES = {                 # (Sq, Sk, causal, empty_row, d)
 
 @pytest.mark.parametrize('case', list(BWD_CASES))
 def test_three_tf32_products_match_pallas_backward(case):
-    '''dQ, dK and dV by three products, S and dP in head-dim halves, meet
-    the fp32 tolerance against the Pallas backward: with Sk cut by the
-    16-key tiles (300), Sq by the 16- and 64-row tiles (72, 40), causal, and
-    a batch row with every key masked, whose gradients are exactly 0.'''
+    """dQ, dK and dV by three TF32 products, S and dP in the
+    cluster's head-dim halves, meet the fp32 tolerance against the Pallas
+    backward: with Sk cut by the 32-key tiles (300), Sq by the 32- and
+    64-row tiles (72, 40), causal, and a batch row with every key masked,
+    whose gradients are exactly 0."""
     Sq, Sk, causal, empty_row, d = BWD_CASES[case]
     q, k, v, km, dout, out, lse, D = bwd_inputs(Sq, Sk, causal, empty_row,
                                                 d=d)
@@ -432,10 +484,10 @@ def test_three_tf32_products_match_pallas_backward(case):
 
 @pytest.mark.parametrize('case', ['sk192', 'sk800_empty_row', 'causal'])
 def test_one_tf32_product_in_the_backward(case):
-    '''hi hi alone, for S, dP and the gradient products, leaves each of
-    dQ, dK and dV outside the fp32 tolerance against the Pallas backward
-    (read: 1.4e-4 to 2.4e-3, against 1.8e-7 to 3.3e-6 with three): this is
-    why the backward kernels take three products too.'''
+    """hi hi alone, for S, dP and the gradient products,
+    leaves each of dQ, dK and dV outside the fp32 tolerance against the
+    Pallas backward: this is why the backward kernels take three
+    products."""
     Sq, Sk, causal, empty_row, d = BWD_CASES[case]
     q, k, v, km, dout, out, lse, D = bwd_inputs(Sq, Sk, causal, empty_row,
                                                 d=d)
@@ -446,11 +498,35 @@ def test_one_tf32_product_in_the_backward(case):
 
 
 def test_halves_of_the_head_dim_sum_to_the_product():
-    '''S and dP in two head-dim halves, each with its three accumulators,
-    added: the product up to fp32 rounding.'''
+    """S and dP over the cluster's two 128-column halves, each summed alone
+    by three products, added: the product up to fp32 rounding."""
     rng = np.random.default_rng(5)
-    a = rng.normal(size=(2, 16, 256)).astype(np.float32)
-    b = rng.normal(size=(2, 16, 256)).astype(np.float32)
+    a = rng.normal(size=(2, 64, 256)).astype(np.float32)
+    b = rng.normal(size=(2, 32, 256)).astype(np.float32)
     want = a.astype(np.float64) @ b.swapaxes(-1, -2)
     np.testing.assert_allclose(halves_logits(a, b, 3), want, rtol=1e-6,
                                atol=2e-5)
+
+
+def test_split_keeps_fp32_accuracy():
+    """A register operand's hi = rna(x), lo = rna(x - hi) leave at most
+    2^-22 |x| out; a shared-memory operand's raw word, read truncated, with
+    lo = rna(x - trunc(x)) at most 2^-21 |x|; the three products of a
+    k-step sum to the exact product within fp32 rounding of its terms, in
+    either operand order; hi hi alone reads the TF32 rounding."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=4096).astype(np.float32)
+    for part, bound in ((split, 2.0 ** -22), (split_shared, 2.0 ** -21)):
+        hi, lo = part(x)
+        assert (hi.view(np.uint32) & 0x1FFF == 0).all()
+        assert (lo.view(np.uint32) & 0x1FFF == 0).all()
+        rest = np.abs(x.astype(np.float64) - hi - lo)
+        assert (rest <= bound * np.abs(x)).all()
+    a = rng.normal(size=(3, 64, 32)).astype(np.float32)
+    b = rng.normal(size=(3, 32, 48)).astype(np.float32)
+    want = a.astype(np.float64) @ b
+    zero = np.zeros((3, 64, 48), np.float32)
+    for right in (False, True):
+        np.testing.assert_allclose(wg_mma(zero, a, b, 3, right), want,
+                                   rtol=1e-6, atol=2e-5)
+    assert np.abs(wg_mma(zero, a, b, 1) - want).max() > 1e-3
