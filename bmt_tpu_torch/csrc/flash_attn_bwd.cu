@@ -234,76 +234,9 @@ template <int DP> struct Cfg {
   static constexpr int G_GRAD = MB * (BN / 8) / STEP >= 2 ? STEP : STEP / 2;
 };
 
-// 2^x by the special-function unit (ex2.approx.ftz: within 2^-22
-// relative; 0 for a result under 2^-126, a P that moves no fp32 sum):
-// exp2f's accurate path doubled the time P takes
-__device__ __forceinline__ float exp2_fast(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// fp32 -> tf32 bits, round to nearest, ties away from zero (the bits of
-// cvt.rna.tf32.f32, in two integer instructions)
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// The lo part of a B operand, whose raw word serves as hi (the tensor
-// core reads it truncated): x - trunc(x), exact in fp32, rounded to tf32
-__device__ __forceinline__ float lo_part(float x) {
-  return __uint_as_float(
-      rna_tf32(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u)));
-}
-
-// the lo parts of the BYTES of fp32 at src into dst, at the same offsets
-// (so in the same swizzled layout), by the 128 threads of a warpgroup (all
-// loads, then all stores), made visible to its products
-template <uint32_t BYTES>
-__device__ __forceinline__ void split_tile(const unsigned char* src,
-                                           unsigned char* dst, int t) {
-  constexpr int N = BYTES / (128 * 16);
-  float4 x[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    x[j] = *reinterpret_cast<const float4*>(src + (j * 128 + t) * 16);
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    *reinterpret_cast<float4*>(dst + (j * 128 + t) * 16) = make_float4(
-        lo_part(x[j].x), lo_part(x[j].y), lo_part(x[j].z), lo_part(x[j].w));
-  fence_proxy_async();
-}
-
-// the register A operand of k-step kk: rows 16 w + g (+ 8), columns
-// 8 kk + t (+ 4) of a tile of R rows (S = Q K^T reads Q so)
-template <int R>
-__device__ __forceinline__ void frag_rows(const unsigned char* tile, int w,
-                                          int lane, int, int kk,
-                                          float (&x)[4]) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    x[i] = *reinterpret_cast<const float*>(
-        tile + F32Tile<R>::at(16 * w + g + 8 * (i & 1),
-                              8 * kk + t + 4 * (i >> 1)));
-}
-
-// the same of the tile's transpose: A(m, k) = tile(k, m) with m = 64 mb +
-// 16 w + g (+ 8), k = 8 kk + t (+ 4) (dQ^T = K^T dS^T reads K so)
-template <int R>
-__device__ __forceinline__ void frag_cols(const unsigned char* tile, int w,
-                                          int lane, int mb, int kk,
-                                          float (&x)[4]) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    x[i] = *reinterpret_cast<const float*>(
-        tile + F32Tile<R>::at(8 * kk + t + 4 * (i >> 1),
-                              64 * mb + 16 * w + g + 8 * (i & 1)));
-}
-
-// the A operands in flight: two slots of K k-steps, hi = rna(x) and lo =
-// rna(x - hi), four registers each. Ring
+// the A operands in flight (product3, sm90.cuh, with the splits,
+// cluster_sum and store_grad_tile): two slots of K k-steps, hi = rna(x)
+// and lo = rna(x - hi), four registers each. Ring
 // holds STEP; RingG 2, for dQ's gradient, whose accumulators take the
 // registers; RingS 8 for dQ's S and dP, whose groups take STEP all the
 // same: with a ring of STEP there ptxas serialised dQ's products at
@@ -311,133 +244,6 @@ __device__ __forceinline__ void frag_cols(const unsigned char* tile, int w,
 typedef uint32_t Ring[2][STEP][2][4];
 typedef uint32_t RingG[2][2][2][4];
 typedef uint32_t RingS[2][8][2][4];
-
-template <int K>
-__device__ __forceinline__ void keep_slot(uint32_t (&r)[K][2][4]) {
-#pragma unroll
-  for (int s = 0; s < K; ++s) keep_live(r[s]);
-}
-template <int K>
-__device__ __forceinline__ void keep_ring(uint32_t (&r)[2][K][2][4]) {
-  keep_slot(r[0]);
-  keep_slot(r[1]);
-}
-
-// d[m] (+)= A_m B over KS k-steps for each of MB row blocks m, in three
-// TF32 products a k-step, smallest first: lo(A) hi(B), hi(A) lo(B),
-// hi(A) hi(B). With SEP the two small ones go into c[m] and the caller
-// adds c to d once the products have finished (as S and dP are taken: the
-// small terms added to a large accumulator lose their low bits, truncated,
-// at each add); else all into d[m] (pass d as c). add = false overwrites d
-// (and c). A's fragments
-// come from frag(m, kk, x) (raw fp32) and are split in registers; B is
-// K-major in shared memory, its raw tile at bhi(kk) (read truncated: hi)
-// and its lo parts at blo(kk). G k-steps make a group of products, one
-// group in flight: a group's fragments are loaded and split into one slot
-// of the ring while the group before runs from the other, then the wait
-// for that one and the issue. (With two groups in flight, wait<1>, ptxas
-// serialises every product: C7514.) A product has an even number of
-// groups, so the next one starts in the slot its predecessor's last group
-// did not use
-template <int N, int MB, int KS, int G, bool SEP, int K, class Frag,
-          class Hi, class Lo>
-__device__ __forceinline__ void product3(float (&d)[MB][N / 2],
-                                         float (&c)[MB][N / 2],
-                                         uint32_t (&ring)[2][K][2][4],
-                                         Frag frag, Hi bhi, Lo blo,
-                                         bool add) {
-  static_assert(G <= K && KS % G == 0 && (MB * KS / G) % 2 == 0,
-                "product3: an even number of whole groups");
-#pragma unroll
-  for (int m = 0; m < MB; ++m) {
-#pragma unroll
-    for (int k0 = 0; k0 < KS; k0 += G) {
-      const int slot = ((m * KS + k0) / G) & 1;
-#pragma unroll
-      for (int s = 0; s < G; ++s) {
-        float x[4];
-        frag(m, k0 + s, x);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t hi = rna_tf32(x[i]);
-          ring[slot][s][0][i] = hi;
-          ring[slot][s][1][i] = rna_tf32(x[i] - __uint_as_float(hi));
-        }
-      }
-      wgmma_wait<0>();                   // the group before
-      keep_slot(ring[slot ^ 1]);
-      wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < G; ++s) {
-        const int kk = k0 + s;
-        WgmmaTf32<N>::rs(c[m], ring[slot][s][1], bhi(kk), add || kk > 0);
-        WgmmaTf32<N>::rs(c[m], ring[slot][s][0], blo(kk), 1);
-        WgmmaTf32<N>::rs(d[m], ring[slot][s][0], bhi(kk),
-                         !SEP || add || kk > 0);
-      }
-      wgmma_commit();
-    }
-  }
-}
-
-// S or dP (NA = 1), or both (NA = 2: x and y), over this block's head-dim
-// columns plus the other block's of the cluster (CL = 2): thread t stores
-// its 16 values of each into the other block's receive buffer `recv` (4
-// float4 at q 128 + t, y 8 KB after x) by st.async, whose bytes complete
-// the other's barrier `bar`, waits for the other block's on its own, and
-// adds them. x + y is y + x, so both blocks hold the same bits
-template <int CL, int NA>
-__device__ __forceinline__ void cluster_sum(float (&x)[16], float (&y)[16],
-                                            uint32_t recv, const float4* mine,
-                                            uint32_t bar, uint32_t phase,
-                                            int t) {
-  if (CL == 1) return;
-  const uint32_t other = cluster_rank() ^ 1u;
-  const uint32_t dst = map_to(recv, other), dst_bar = map_to(bar, other);
-  if (t == 0) mbar_arrive_expect_tx(bar, NA * 128 * 16 * 4);  // the other's
-#pragma unroll
-  for (int a = 0; a < NA; ++a) {
-    const float* v = a == 0 ? x : y;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      st_async(dst + ((a * 4 + q) * 128 + t) * 16,
-               make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]),
-               dst_bar);
-  }
-  mbar_wait_cluster(bar, phase);
-#pragma unroll
-  for (int a = 0; a < NA; ++a) {
-    float* v = a == 0 ? x : y;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 z = mine[(a * 4 + q) * 128 + t];
-      v[4 * q] += z.x;
-      v[4 * q + 1] += z.y;
-      v[4 * q + 2] += z.z;
-      v[4 * q + 3] += z.w;
-    }
-  }
-}
-
-// a 64 x 32 accumulator (element 4 j + e at row 16 w + g + 8 (e / 2),
-// column 8 j + 2 t + e % 2) into a 64-row tile at hi (as it is) and lo
-// (lo_part): the K-major B operand of a gradient product
-__device__ __forceinline__ void store_grad_tile(const float (&s)[16],
-                                                unsigned char* hi,
-                                                unsigned char* lo, int w,
-                                                int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const uint32_t at = F32Tile<BM>::at(16 * w + g + 8 * hf, 8 * j + 2 * t);
-      const float a = s[4 * j + 2 * hf], b = s[4 * j + 2 * hf + 1];
-      *reinterpret_cast<float2*>(hi + at) = make_float2(a, b);
-      *reinterpret_cast<float2*>(lo + at) =
-          make_float2(lo_part(a), lo_part(b));
-    }
-}
 
 // acc += t, once a tile's products into t have finished: one rounded add
 // a tile (the tensor core adds its products to an accumulator truncated,
@@ -1015,29 +821,6 @@ flash_attn_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // launches: the tensor maps are encoded on the host at each launch
 // (sm90.cuh, tile_map_f32), and a cluster of Cfg::CL blocks along x
 // ---------------------------------------------------------------------------
-
-template <class... Params, class... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int cl,
-                            size_t smem, cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
 
 template <int DP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,

@@ -19,14 +19,15 @@
 // output of `_attn_kernel_tiled` (pallas_attention.py:199-207) without the
 // 8-lane broadcast, which only Mosaic's layout needed.
 //
-// Design. One thread block per (query tile, head, batch). The block keeps
+// Design. One thread block (in fp32 at d > 64 a cluster of two) per
+// (query tile, head, batch). The block keeps
 // its Q tile in shared memory and loops over key tiles with the
 // online-softmax recurrence (running row max m, running row sum l,
 // accumulator rescaled by exp(m_old - m_new) whenever the max grows; a row
 // whose max is still -inf gets correction 0 and p 0). With `causal`, key
 // tiles wholly above the diagonal are never loaded. Key rows >= Sk are
 // masked and their V rows are loaded as 0, so they never enter the sum.
-// The input's dtype picks one of two tensor-core kernels:
+// The input's dtype picks one of two kernels, both on wgmma:
 //
 // bf16 (the serving and training path): wgmma.mma_async (bf16 in, fp32
 // accumulators) on tiles that TMA brings into shared memory (csrc/sm90.cuh).
@@ -78,59 +79,103 @@
 // Registers and shared memory from ptxas -v and the times are in PERF.md.
 //
 // fp32 (the single-video app, whose checkpoints are fp32, and the fp32
-// train steps): tensor cores in TF32, three products per product
-// ("3xTF32", csrc/mma_tf32.cuh), so the result is as accurate as fp32 FMA:
-// one TF32 product misses the fp32 tolerances (tests/test_torch_port_tf32.py).
-// What bounds it on this card: three m16n8k8 products per fp32 product make
-// the peak 495 / 3 = 165 TFLOP/s; the app's caption batch (B=100, H=4,
-// 512x512, d=256) moves 128 FLOP per byte against the 49 at which that
-// peak and HBM's 3.35 TB/s cross, so it is bound by operations (107.4
-// GFLOP, 0.651 ms), and so are the B=1 proposal calls but 300x300. Before
-// the tensor cores come the instructions around them: every operand is
-// split in registers when its fragment loads (hi = rna(x), lo = rna(x -
-// hi): five instructions for each value a warp reads). rna is two integer
-// instructions with the bits of cvt.rna.tf32.f32: cvt itself runs on the
-// conversion unit at 16 results a clock an SM, and with two a split it set
-// the kernel's time (PERF.md, section 6). The design, with what registers
-// allow:
-// - BQ = 64 query rows a block and BK = 32-key tiles, 8 warps: warp w takes
-//   rows 16 (w % 4) .. + 15 against keys 16 (w / 4) .. + 15 of every key
-//   tile, with its own online softmax state; at the end the second key
-//   half's warps hand (m, l, O) to the first half's through shared memory,
-//   which joins them as the split's combine does. The O accumulator is
-//   16 x 256 fp32 a warp (128 registers a thread), so a block of 4 warps,
-//   one a row slice, was the most that fit; that first design ran 1.25-1.6x
-//   slower with one warp for each of an SM's four schedulers.
-// - Q K^T: the A fragment of Q and the B fragments of K by ldmatrix.x4 on
-//   the fp32 tiles (one instruction fills four fp32 fragment registers),
-//   loaded one k-step ahead of their products; lo hi, hi lo and hi hi into
-//   three fp32 accumulators, so no mma waits on the one just before it,
-//   summed (lh + hl) + hh.
-// - P stays in registers and is not rounded (the Pallas kernel casts p to
-//   v's dtype, fp32 here): the S accumulator gives lane (group, tig) keys
-//   2 tig and 2 tig + 1, and the A fragment wants k = tig and tig + 4. P V
-//   sums over keys, so the k index is mapped to keys in that order on both
-//   sides: the B fragment's k = tig reads V's row 2 tig, k = tig + 4 row
-//   2 tig + 1 (scalar reads, free of bank conflicts at the padded stride).
-//   The products run in groups of four 8-column tiles of O, product by
-//   product.
-// - Rows padded by 4 floats (16 bytes). Q, K, V and the key validity arrive
-//   by 16- and 4-byte cp.async copies, K/V in a ring of two stages, so tile
-//   t + 1 loads while tile t computes.
-// - The softmax on the fragments: quad shuffles, base-2 units, no
-//   rescale while no row maximum grows.
-// - Head dim padded to DP = 64 or 256. At DP = 256 shared memory
-//   is 199,936 bytes (Q 66,560, each K or V stage 33,280): one block an SM.
-//   ptxas -v (sm_90a, CUDA 12.8): 244 registers (144 at DP = 64), no spills.
-// - Key split: B H ceil(Sq / 64) blocks fill 132 SMs only from B ~ 3 at the
-//   proposal shapes (B=1, H=4: 52 blocks at 800 query rows, 20 at 300). The
-//   wrapper (ops/flash_attention.py, `fp32_key_splits`) then splits each
-//   row's key loop over splits = min(key tiles, SMs // blocks) blocks,
-//   cut to ceil(tiles / ceil(tiles / splits)) so no split is empty, which
-//   makes at most one wave. Each split writes its (m, l, unnormalised O) to
-//   fp32 scratch that the wrapper allocates; flash_attn_fwd_combine_kernel
+// train steps): TF32 wgmma.mma_async on tiles that TMA brings into shared
+// memory, three products for each product, lo(A) hi(B) + hi(A) lo(B) +
+// hi(A) hi(B), so the result keeps fp32 accuracy: one TF32 product misses
+// the fp32 tolerances (tests/test_torch_port_tf32.py emulates both). What
+// bounds it on this card: three TF32 products per fp32 product make the
+// peak 495 / 3 = 165 TFLOP/s; the train cell's 256x256 calls (B=32, H=4,
+// d=256; 8.6 GFLOP, 0.052 ms) and the app's caption batch (B=100, 512x512:
+// 107.4 GFLOP, 0.651 ms) move ~128 FLOP per byte against the 49 at which
+// that peak and HBM's 3.35 TB/s cross, so operations bound them, and so
+// do the proposal calls but the B=1 300x300 one. Before the tensor cores
+// come the steps between the products: the operands' splits, the softmax,
+// P's tiles, the cluster's exchange. The design (alike in its roles to the
+// fp32 dQ kernel of flash_attn_bwd.cu, whose header has the reasons):
+// - Operands. TF32 wgmma reads a shared-memory operand K-major only, and
+//   an A operand from registers in any layout.
+//   S = Q K^T: A = Q, B = K, both K-major (the head dim is k). Q is the
+//   same for the block's whole key loop, so warpgroup 0 splits it once
+//   into registers, hi = rna(x), lo = rna(x - hi) (its 64 rows x 128
+//   columns: 128 registers a thread), and the products (m64n32k8) read it
+//   there: no split a tile, and B's 1 KB a product is all they read from
+//   shared memory. (Q's hi and lo as shared-memory tiles read by
+//   descriptor would make each product read 3 KB there, 24 clocks at 128
+//   bytes a clock, against its 16 clocks of tensor-core work.) K's raw
+//   tile serves as hi (read truncated) beside its lo parts rna(x -
+//   trunc(x)), which the producer warpgroup's warps 9-11 write into a
+//   lo tile of each stage. hi(Q) lo(K) and lo(Q) hi(K) go into an
+//   accumulator of their own, added to hi(Q) hi(K) once the products
+//   have finished. (The two small products' order is the one whose bits
+//   keep chip_smoke's phase 23a, the mp-2 LoRA steps against one process,
+//   on one side of a ReLU tie: PERF.md, section 6. The other order is as
+//   accurate.)
+//   O += P V would need V as a K-major B operand (keys as k), which V's
+//   rows are not, so the block computes O^T += V^T P^T (m64n64k8, M the
+//   head dim, N the 64 query rows, k the keys): A = V^T from registers,
+//   read by columns from V's raw tile and split there (hi = rna(x), lo =
+//   rna(x - hi); sm90.cuh, frag_cols and product3); B = P, written by
+//   warpgroup 1 from its softmax registers as a 64 x 32 tile (query rows,
+//   key columns: K-major), hi the raw word beside lo = rna(p - trunc(p)).
+//   P is not rounded: the Pallas kernel casts p to v's dtype, fp32 here.
+// - Shared memory and clusters. A 64 x 256 fp32 tile takes 64 KB; Q, three
+//   stages of K, V and K's lo parts and P's tiles would take 352 KB. So at
+//   DP = 256 a cluster of two blocks shares the 64 query rows, each with
+//   128 head-dim columns: Q (32 KB), three stages of K, V and K's lo
+//   (144 KB), P's two tiles (16 KB), the S hand-over (8 KB) and the
+//   receive buffers (16 KB): 222,952 bytes with the masks and barriers.
+//   Each block takes S over its columns and sends its partial (64 x 32) to
+//   the other by st.async, which completes the other's mbarrier; both add,
+//   x + y being y + x, so both hold the same S, softmax and P, and each
+//   computes its columns of O^T. At DP = 64 one block takes all (DH = 64,
+//   four stages).
+// - Roles: 384 threads, setmaxnreg 40 / 232 (168 at launch). Warp 8 loads
+//   each item's Q and each 32-key K and V tile with its key validity (TMA
+//   from rank-3 maps of fp32 (d, S, B H), regions of 32 columns with the
+//   128-byte swizzle, tile_map_f32; the mask by cp.async, 0 past Sk); warps
+//   9-11 write K's lo parts and complete the stage's lo barrier. Warpgroup 0:
+//   S, the cluster's sum, S handed to warpgroup 1 through shared memory
+//   (thread t of either warpgroup holds the same elements). Warpgroup 1, a
+//   tile behind: the mask and the online softmax, P's tiles, O^T += V^T
+//   P^T, whose products run under the next tile's S.
+// - The online softmax, as in the bf16 kernel: base-2 units, the running
+//   max m and the thread's share of l, a row whose max is still -inf gets
+//   correction 0 and p 0; exp2 on the special-function unit
+//   (ex2.approx.ftz, within 2^-22). The corrections go through shared
+//   memory to the threads that hold each query's column of O^T.
+// - O's drift. A tile's products go into a zeroed accumulator (the tensor
+//   core adds each product to its accumulator truncated, and long runs of
+//   small terms drift); one fma per element then folds it in, acc = acc
+//   corr + tile, the rescale with it (corr = 1 while no row max grows).
+// - Causal: key tiles wholly above the block's last row are never loaded;
+//   the compare by position masks the rest. Rows past Sq load as 0 and are
+//   not stored.
+// - Persistent clusters: a launch's work is ceil(Sq / 64) H B splits items
+//   (query tile, head, batch row, split), and min(items, SMs / CL)
+//   clusters (66 at DP = 256 on 132 SMs, one block an SM) each take every
+//   clusters-th item, query tiles fastest so that the clusters at work
+//   share their heads' K and V in L2. The K and V ring, the S hand-over
+//   and the cluster's exchange run on across a cluster's items, and the
+//   producer loads an item's Q as soon as warpgroup 0 has split the last
+//   one's into registers: an item's first tiles load and its S runs while
+//   warpgroup 1 folds and stores the item before. (A block for each item,
+//   as the bf16 kernel launches, ran 1.20x slower at 256x256 B=32, whose
+//   items have 8 key tiles each, and 1.09x at 800x800 B=16, but took 0.76x
+//   the time at S=2048 causal, whose items differ in length up to 32-fold
+//   and fall to the clusters in a fixed order: PERF.md.) The
+//   decoder's 21-row calls (B=32, H=4) have 128 items of one to eight key
+//   tiles, two a cluster, where the mma.sync kernel launched 128 blocks
+//   of 8 warps: their times beside that kernel's are in PERF.md.
+// - Key split: when the blocks (a cluster's two counted) do not fill one
+//   wave, as the app's B=1 proposal calls at 300 query rows do (40 blocks),
+//   the wrapper (ops/flash_attention.py, `fp32_key_splits`) splits each
+//   row's key loop over splits = min(key tiles, SMs // blocks) blocks, cut
+//   to ceil(tiles / ceil(tiles / splits)) so no split is empty, which makes
+//   at most one wave. Each split writes its (m, l, unnormalised O) to fp32
+//   scratch that the wrapper allocates; flash_attn_fwd_combine_kernel
 //   weighs the partials by exp2(m_s - max m) in split order and writes out
 //   and lse. No atomics: the same bits in every run.
+// Registers and shared memory from ptxas -v and the times are in PERF.md.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v (bmt_tpu_torch/ops/_build.py). No
@@ -142,10 +187,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "mma_bf16.cuh"
-#include "mma_tf32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -208,311 +253,476 @@ flash_attn_fwd_combine_kernel(const float* __restrict__ part,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: tensor cores in TF32, three products (mma.sync m16n8k8), cp.async
-// tiles, optional key split with a combine kernel
+// fp32: TF32 wgmma, three products, on TMA tiles; at DP = 256 a cluster of
+// two blocks, each with half the head dim; optional key split with a
+// combine kernel
 // ---------------------------------------------------------------------------
 
 namespace tf32 {
 
-using namespace mma_tf32;
+using namespace sm90;
 using mma_bf16::cp_async4;
-using mma_bf16::cp_async_commit;
-using mma_bf16::cp_async_wait;
 using mma_bf16::quad_max;
 using mma_bf16::quad_sum;
 
-constexpr int BQ = 64;               // query rows per block, 16 per warp
-constexpr int BK = 32;               // key rows per tile, 16 per warp
-constexpr int THREADS = 256;         // 8 warps: 4 row slices x 2 key halves
-constexpr int NG = 4;                // O column tiles per group of P V products
+constexpr int CONSUMERS = 256;       // two consumer warpgroups
+constexpr int THREADS = 384;         // and the producer warpgroup
+constexpr int LO_THREADS = 96;       // its warps 9-11: K's lo parts
+constexpr int BQ = 64;               // query rows a block (a cluster)
+constexpr int BK = 32;               // key rows a tile
+constexpr float LOG2E = 1.44269504088896341f;
+// named barriers (0 is __syncthreads): the S hand-over from warpgroup 0
+// to warpgroup 1, and each consumer warpgroup's own (WG_BAR + its index)
+constexpr int HO_READY = 1, HO_FREE = 2, WG_BAR = 3;
 
-// Q tile, two stages of K and V tiles (head dim padded to DP), two stages
-// of the tile's key validity
-template <int DP> constexpr size_t smem_bytes() {
-  return (size_t)(BQ + 4 * BK) * pad_f32(DP) * sizeof(float) +
-         2 * BK * sizeof(int32_t);
+template <int DP> struct Fwd {
+  static constexpr int CL = DP == 256 ? 2 : 1;     // blocks a cluster
+  static constexpr int DH = DP / CL;               // head-dim columns a block
+  static constexpr int MB = DH / 64;               // 64-row blocks of O^T
+  static constexpr int STAGES = DP == 256 ? 3 : 4;
+  static constexpr uint32_t OWN = BQ * DH * 4;     // Q's tile
+  static constexpr uint32_t LOOP = BK * DH * 4;    // a K or V tile
+  static constexpr uint32_t P_TILE = BQ * BK * 4;  // a 64 x 32 fp32 tile
+  // byte offsets from the 1024-aligned base: Q, STAGES of K, of V and of
+  // K's lo parts, P's hi and lo tiles, the S hand-over, the receive buffers
+  // of a cluster ([parity]), the rows' corrections (then 1 / l), STAGES of
+  // the key mask, the barriers own_full, own_empty, full[STAGES],
+  // lo_full[STAGES], empty[STAGES], recv[parity]
+  static constexpr uint32_t Q_OFF = 0;
+  static constexpr uint32_t K_OFF = OWN;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * LOOP;
+  static constexpr uint32_t KLO_OFF = V_OFF + STAGES * LOOP;
+  static constexpr uint32_t P_OFF = KLO_OFF + STAGES * LOOP;
+  static constexpr uint32_t HO_OFF = P_OFF + 2 * P_TILE;
+  static constexpr uint32_t RECV_OFF = HO_OFF + P_TILE;
+  static constexpr uint32_t CORR_OFF = RECV_OFF + (CL > 1 ? 2 * P_TILE : 0);
+  static constexpr uint32_t MASK_OFF = CORR_OFF + BQ * 4;
+  static constexpr uint32_t BAR_OFF = MASK_OFF + STAGES * BK * 4;
+  static constexpr size_t SMEM = BAR_OFF + (4 + 3 * STAGES) * 8 + 1024;
+  static_assert(SMEM <= 232448, "fp32 forward: shared memory");
+};
+
+// the work of one (query tile, head, batch row, split) of a launch: its
+// first query row, b H + h, batch row, split, first key tile and key tiles
+// (under causal, none wholly above the diagonal; a split may be left with
+// none: it writes an empty partial)
+struct Item {
+  int q0, bh, b, sp, t0, count;
+};
+
+__device__ __forceinline__ Item item_of(int w, int H, int Sq, int Sk,
+                                        int causal, int splits, int chunk) {
+  const int qt = (Sq + BQ - 1) / BQ;
+  Item it;
+  it.q0 = (w % qt) * BQ;
+  const int hz = w / qt, h = hz % H, z = hz / H;
+  it.b = z / splits;
+  it.sp = z % splits;
+  it.bh = it.b * H + h;
+  it.t0 = it.sp * chunk;
+  int t1 = min((Sk + BK - 1) / BK, it.t0 + chunk);
+  if (causal) t1 = min(t1, (min(it.q0 + BQ, Sq) - 1) / BK + 1);
+  it.count = max(t1 - it.t0, 0);
+  return it;
 }
 
-// DP: the head dim the tiles are padded to (a multiple of 32, >= d).
-// Block (x, y, z) takes query tile x of head y, batch z / splits, and the
-// key tiles [s chunk, (s + 1) chunk) with s = z % splits. Warp w takes the
-// tile's rows 16 (w % 4) .. + 15 against key half w / 4 of every key tile,
-// with its own softmax state; at the end the two halves of each row are
-// joined through shared memory. With `part` null (splits = 1) the block
-// writes out and lse; else its partial (m in base-2 units, l, unnormalised
-// O) into `part` (see flash_attn_fwd_split).
+// Persistent clusters of CL blocks along x: cluster c takes the items c,
+// c + clusters, ... of the launch's ceil(Sq / 64) H B splits (query tiles
+// fastest, so that the clusters at work share their heads' K and V in L2),
+// each block head-dim columns [DH (x % CL), + DH) of them. The K and V
+// ring, the S hand-over and the cluster's receive buffers run on across
+// the items, and so does the producer: it loads an item's Q once
+// warpgroup 0 has split the last one's into registers, so that a block's
+// next item starts while warpgroup 1 still folds and stores the last.
+// Warpgroup 0 splits each item's Q into registers, then takes S = Q K^T
+// over the block's columns and sums it with the other block's; warpgroup
+// 1 takes the online softmax, P's tiles and O^T += V^T P^T a tile behind;
+// warp 8 (the first of warpgroup 2) loads the tiles, warps 9-11 write K's
+// lo parts. With `part` null (splits = 1) a block writes out and lse;
+// else each item's partial (m in base-2 units, l, unnormalised O) into
+// `part` (see flash_attn_fwd_split)
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_attn_fwd_tf32_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           const int32_t* __restrict__ key_mask,
-                           float* __restrict__ out, float* __restrict__ lse,
-                           float* __restrict__ part, int H, int Sq, int Sk,
-                           int d, int causal, int splits, int chunk,
-                           float scale) {
-  constexpr int LD = pad_f32(DP);
-  constexpr int NS = 2;              // 8-key tiles of S: the warp's 16 keys
-  constexpr int NO = DP / 8;         // 8-wide column tiles of O
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);                  // BQ x LD
-  float* Ks = Qs + BQ * LD;                                         // 2 x BK x LD
-  float* Vs = Ks + 2 * BK * LD;                                     // 2 x BK x LD
-  int32_t* valid_s = reinterpret_cast<int32_t*>(Vs + 2 * BK * LD);  // 2 x BK
+flash_attn_fwd_tf32_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const int32_t* __restrict__ key_mask,
+                                float* __restrict__ out,
+                                float* __restrict__ lse,
+                                float* __restrict__ part, int B, int H,
+                                int Sq, int Sk, int d, int causal,
+                                int splits, int chunk, float scale) {
+  using L = Fwd<DP>;
+  constexpr int S = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = aligned_base(smem_raw);
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t own_full = base + L::BAR_OFF, own_empty = own_full + 8;
+  const uint32_t full0 = own_empty + 8, lo_full0 = full0 + 8 * S;
+  const uint32_t empty0 = lo_full0 + 8 * S, recv_bar0 = empty0 + 8 * S;
+  int32_t* mask_s = reinterpret_cast<int32_t*>(smem + L::MASK_OFF);
+  float* ho = reinterpret_cast<float*>(smem + L::HO_OFF);
+  float* corr_s = reinterpret_cast<float*>(smem + L::CORR_OFF);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int group = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
-  const size_t bh = (size_t)b * H + h;
-  const float* kb = k + bh * Sk * d;
-  const float* vb = v + bh * Sk * d;
-  const int32_t* mb = key_mask + (size_t)b * Sk;
-
-  // this block's key tiles [t0, t1); under causal, none wholly above the
-  // diagonal. A split may be left with none: it writes an empty partial
-  const int t0 = sp * chunk;
-  int t1 = min((Sk + BK - 1) / BK, t0 + chunk);
-  if (causal) t1 = min(t1, (min(q0 + BQ, Sq) - 1) / BK + 1);
-
-  // key tile t into stage (t - t0) & 1: K, V rows (0 past Sk), validity
-  auto load_kv = [&](int t) {
-    const int k0 = t * BK, st = (t - t0) & 1;
-    load_rows_async<DP, THREADS>(Ks + st * BK * LD, kb, k0, BK, Sk, d, tid);
-    load_rows_async<DP, THREADS>(Vs + st * BK * LD, vb, k0, BK, Sk, d, tid);
-    if (tid < BK) {
-      const bool in = k0 + tid < Sk;
-      cp_async4(valid_s + st * BK + tid, in ? mb + k0 + tid : mb, in);
-    }
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int c0 = (blockIdx.x % L::CL) * L::DH;
+  const int items = (Sq + BQ - 1) / BQ * H * B * splits;
+  const int w0 = blockIdx.x / L::CL, dw = gridDim.x / L::CL;
+  auto item = [&](int w) {
+    return item_of(w, H, Sq, Sk, causal, splits, chunk);
   };
-  if (t0 < t1) {
-    load_rows_async<DP, THREADS>(Qs, q + bh * Sq * d, q0, BQ, Sq, d, tid);
-    load_kv(t0);
+
+  if (tid == 0) {
+    mbar_init(own_full, 1);
+    mbar_init(own_empty, 128);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(lo_full0 + 8 * s, LO_THREADS);
+      mbar_init(empty0 + 8 * s, CONSUMERS);
+    }
+    for (int r = 0; r < 2; ++r) mbar_init(recv_bar0 + 8 * r, 1);
+    fence_barrier_init();
   }
-  cp_async_commit();
+  // the other block's barriers are ready before either block uses them
+  if (L::CL > 1) cluster_sync(); else __syncthreads();
 
-  const int m0 = (warp & 3) * 16;    // the warp's rows within the Q tile
-  const int kw = (warp >> 2) * 16;   // its keys within each key tile
-  const int row0 = q0 + m0 + group;  // this thread's two query rows
-  const int row1 = row0 + 8;
-  // logits in base-2 units, s log2(e) / sqrt(d), as in the bf16 kernel
-  const float scale2 = scale * 1.44269504088896341f;
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-
-  for (int t = t0; t < t1; ++t) {
-    if (t + 1 < t1) load_kv(t + 1);        // overlaps this tile's products
-    cp_async_commit();
-    cp_async_wait<1>();                    // Q and tile t have landed
-    __syncthreads();
-    const int k0 = t * BK + kw, st = (t - t0) & 1;  // the warp's first key
-    const float* Kt = Ks + (st * BK + kw) * LD;
-    const float* Vt = Vs + (st * BK + kw) * LD;
-    const int32_t* vt = valid_s + st * BK + kw;
-    // warp-uniform skip: the warp's rows all lie past Sq, or (causal) all
-    // its keys lie above them; the state is then unchanged
-    if (q0 + m0 < Sq && !(causal && k0 > q0 + m0 + 15)) {
-      // S = Q K^T, 16 rows x 16 keys, 3xTF32: lo hi, hi lo and hi hi in
-      // three accumulators, so that consecutive products never feed one
-      // another, summed small terms first. The fragments of k-step kk + 1
-      // are loaded before the products of step kk
-      float s[NS][4], slh[NS][4], shl[NS][4];
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = slh[j][e] = shl[j][e] = 0.f;
-      uint32_t fq[2][4], fk[2][4];
-      ldmatrix_x4(fq[0], frag_a(Qs, LD, m0, 0, lane));
-      ldmatrix_x4(fk[0], frag_b_nk(Kt, LD, 0, 0, lane));
-#pragma unroll
-      for (int kk = 0; kk < DP / 8; ++kk) {
-        const int cur = kk & 1;
-        if (kk + 1 < DP / 8) {
-          ldmatrix_x4(fq[cur ^ 1], frag_a(Qs, LD, m0, kk * 8 + 8, lane));
-          ldmatrix_x4(fk[cur ^ 1], frag_b_nk(Kt, LD, 0, kk * 8 + 8, lane));
+  const int wgi = warpgroup(tid);
+  if (wgi == 2) {
+    setmaxnreg_dec<40>();
+    if (warp_of(tid) == 8) {
+      // the producer warp: each item's Q once its buffer is free, then
+      // each of its key tiles' K and V (by TMA) and key validity (by
+      // cp.async, 0 past Sk) as soon as its stage is free; the full
+      // barrier waits for both. n counts the key tiles, nq the Q tiles
+      int n = 0, nq = 0;
+      for (int w = w0; w < items; w += dw) {
+        const Item it = item(w);
+        if (it.count == 0) continue;
+        if (lane == 0) {
+          if (nq > 0) mbar_wait(own_empty, (nq - 1) & 1);
+          mbar_arrive_expect_tx(own_full, L::OWN);
+          for (int r = 0; r < L::DH / 32; ++r)
+            tma_load_3d(base + L::Q_OFF + r * F32Tile<BQ>::REGION, &tm_q,
+                        own_full, c0 + 32 * r, it.q0, it.bh);
         }
-        uint32_t ah[4], al[4], bhi[NS][2], blo[NS][2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          split(fq[cur][i], ah[i], al[i]);
-          split(fk[cur][i], bhi[i >> 1][i & 1], blo[i >> 1][i & 1]);
-        }
-#pragma unroll
-        for (int j = 0; j < NS; ++j) mma(slh[j], al, bhi[j][0], bhi[j][1]);
-#pragma unroll
-        for (int j = 0; j < NS; ++j) mma(shl[j], ah, blo[j][0], blo[j][1]);
-#pragma unroll
-        for (int j = 0; j < NS; ++j) mma(s[j], ah, bhi[j][0], bhi[j][1]);
-      }
-      // scale (to base-2 units) and mask (-inf), then the online softmax
-      // on the fragments: element e of s[j] is row e < 2 ? row0 : row1, key
-      // k0 + j 8 + 2 tig + e % 2
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + 2 * tig + (e & 1);
-          const bool ok =
-              vt[c] != 0 && (!causal || k0 + c <= (e < 2 ? row0 : row1));
-          const float x = (slh[j][e] + shl[j][e]) + s[j][e];
-          s[j][e] = ok ? x * scale2 : -INFINITY;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-        }
-      }
-      float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
-        // a row whose max is still -inf: correction 0 and p 0
-        corr[r] = m_new == -INFINITY ? 0.f : exp2f(m_run[r] - m_new);
-        m_run[r] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float mr = m_run[e >> 1];
-          const float p = mr == -INFINITY ? 0.f : exp2f(s[j][e] - mr);
-          s[j][e] = p;
-          sum[e >> 1] += p;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        l_run[r] = corr[r] * l_run[r] + quad_sum(sum[r]);
-      // once the row maxima stop growing, every correction is 1
-      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          o[n][0] *= corr[0];
-          o[n][1] *= corr[0];
-          o[n][2] *= corr[1];
-          o[n][3] *= corr[1];
-        }
-      }
-      // O += P V, 3xTF32, p in fp32. Step kk takes the warp's keys
-      // 8 kk .. 8 kk + 7 with k = tig <-> key 2 tig and k = tig + 4 <->
-      // key 2 tig + 1: the A fragment is s[kk] as it stands (a0..a3 = c0,
-      // c2, c1, c3) and the B fragment reads V's rows 2 tig and 2 tig + 1
-#pragma unroll
-      for (int kk = 0; kk < NS; ++kk) {
-        uint32_t ph[4], pl[4];
-        split(s[kk][0], ph[0], pl[0]);
-        split(s[kk][2], ph[1], pl[1]);
-        split(s[kk][1], ph[2], pl[2]);
-        split(s[kk][3], ph[3], pl[3]);
-        const float* v0 = Vt + (kk * 8 + 2 * tig) * LD + group;
-#pragma unroll
-        for (int n0 = 0; n0 < NO; n0 += NG) {
-          uint32_t vh[NG][2], vl[NG][2];
-#pragma unroll
-          for (int g = 0; g < NG; ++g) {
-            split(v0[(n0 + g) * 8], vh[g][0], vl[g][0]);
-            split(v0[LD + (n0 + g) * 8], vh[g][1], vl[g][1]);
+        ++nq;
+        const int32_t* mask_g = key_mask + (size_t)it.b * Sk;
+        for (int i = 0; i < it.count; ++i, ++n) {
+          const int st = n % S, k0 = (it.t0 + i) * BK;
+          const uint32_t full = full0 + 8 * st;
+          if (n >= S) mbar_wait(empty0 + 8 * st, (n / S - 1) & 1);
+          const bool in = k0 + lane < Sk;
+          cp_async4(mask_s + st * BK + lane,
+                    in ? mask_g + k0 + lane : mask_g, in);
+          cp_async_mbar_arrive(full);
+          __syncwarp();
+          if (lane == 0) {
+            mbar_arrive_expect_tx(full, 2 * L::LOOP);
+            for (int r = 0; r < L::DH / 32; ++r) {
+              const uint32_t off = st * L::LOOP + r * F32Tile<BK>::REGION;
+              tma_load_3d(base + L::K_OFF + off, &tm_k, full, c0 + 32 * r,
+                          k0, it.bh);
+              tma_load_3d(base + L::V_OFF + off, &tm_v, full, c0 + 32 * r,
+                          k0, it.bh);
+            }
           }
-#pragma unroll
-          for (int g = 0; g < NG; ++g) mma(o[n0 + g], pl, vh[g][0], vh[g][1]);
-#pragma unroll
-          for (int g = 0; g < NG; ++g) mma(o[n0 + g], ph, vl[g][0], vl[g][1]);
-#pragma unroll
-          for (int g = 0; g < NG; ++g) mma(o[n0 + g], ph, vh[g][0], vh[g][1]);
+        }
+      }
+    } else {
+      // warps 9-11: K's lo parts of each tile into the stage's lo tile, at
+      // the same offsets (so in the same swizzled layout). A stage's lo
+      // tile is free when its K is: S, which reads both, finished before
+      // the stage was released and refilled
+      const int u = tid - (THREADS - LO_THREADS);
+      int n = 0;
+      for (int w = w0; w < items; w += dw) {
+        const int count = item(w).count;
+        for (int i = 0; i < count; ++i, ++n) {
+          const int st = n % S;
+          const unsigned char* src = smem + L::K_OFF + st * L::LOOP;
+          unsigned char* dst = smem + L::KLO_OFF + st * L::LOOP;
+          mbar_wait(full0 + 8 * st, (n / S) & 1);
+#pragma unroll 2
+          for (int j = u; j < (int)(L::LOOP / 16); j += LO_THREADS) {
+            const float4 x = *reinterpret_cast<const float4*>(src + j * 16);
+            *reinterpret_cast<float4*>(dst + j * 16) = make_float4(
+                lo_part(x.x), lo_part(x.y), lo_part(x.z), lo_part(x.w));
+          }
+          fence_proxy_async();
+          mbar_arrive(lo_full0 + 8 * st);
         }
       }
     }
-    __syncthreads();   // every read of this stage is done before its refill
-  }
-  cp_async_wait<0>();
-
-  // join the key halves: the second half's warps hand their (m, l, O) to
-  // the first half's through the K stages' memory (BQ x LD floats), which
-  // no warp reads any more
-  float* Oh = Ks;
-  float* ml = Vs;                    // BQ maxima, then BQ sums
-  const int r0 = m0 + group, r1 = r0 + 8;
-  if (kw != 0) {
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int c = n * 8 + 2 * tig;
-      *reinterpret_cast<float2*>(Oh + r0 * LD + c) =
-          make_float2(o[n][0], o[n][1]);
-      *reinterpret_cast<float2*>(Oh + r1 * LD + c) =
-          make_float2(o[n][2], o[n][3]);
-    }
-    if (tig == 0) {
-      ml[r0] = m_run[0], ml[r1] = m_run[1];
-      ml[BQ + r0] = l_run[0], ml[BQ + r1] = l_run[1];
-    }
-  }
-  __syncthreads();
-  if (kw != 0 || q0 + m0 >= Sq) return;
-  float w[2], wh[2];                 // weights of this half and the other
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = r ? r1 : r0;
-    const float mh = ml[rr], m_new = fmaxf(m_run[r], mh);
-    w[r] = m_run[r] == -INFINITY ? 0.f : exp2f(m_run[r] - m_new);
-    wh[r] = mh == -INFINITY ? 0.f : exp2f(mh - m_new);
-    l_run[r] = w[r] * l_run[r] + wh[r] * ml[BQ + rr];
-    m_run[r] = m_new;
-  }
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + 2 * tig;
-    const float2 x0 = *reinterpret_cast<const float2*>(Oh + r0 * LD + c);
-    const float2 x1 = *reinterpret_cast<const float2*>(Oh + r1 * LD + c);
-    o[n][0] = w[0] * o[n][0] + wh[0] * x0.x;
-    o[n][1] = w[0] * o[n][1] + wh[0] * x0.y;
-    o[n][2] = w[1] * o[n][2] + wh[1] * x1.x;
-    o[n][3] = w[1] * o[n][3] + wh[1] * x1.y;
-  }
-
-  if (part == nullptr) {
-    if (lse != nullptr && tig == 0) {  // empty row: -inf + log(0) = -inf
-      if (row0 < Sq) lse[bh * Sq + row0] = m_run[0] * LN2 + logf(l_run[0]);
-      if (row1 < Sq) lse[bh * Sq + row1] = m_run[1] * LN2 + logf(l_run[1]);
-    }
-    float* ob = out + bh * Sq * d;
-    // empty row: l = 0, o = 0, so o (1 / l) = 0 inf = NaN
-    const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int c = n * 8 + 2 * tig;
-      if (c >= d) continue;
-      if (row0 < Sq)
-        *reinterpret_cast<float2*>(ob + (size_t)row0 * d + c) =
-            make_float2(o[n][0] * inv0, o[n][1] * inv0);
-      if (row1 < Sq)
-        *reinterpret_cast<float2*>(ob + (size_t)row1 * d + c) =
-            make_float2(o[n][2] * inv1, o[n][3] * inv1);
-    }
+    if (L::CL > 1) cluster_sync();   // neither block leaves while the other
+                                     // may still write to it
     return;
   }
-  // the partial of split sp: O (splits, B H Sq, d), then m and l (splits,
-  // B H Sq) each
-  const size_t rows = (size_t)(gridDim.z / splits) * H * Sq;
-  const size_t p0 = sp * rows + bh * Sq;
-  float* po = part + p0 * d;
-  float* pm = part + (size_t)splits * rows * d + p0;
-  float* pl = pm + (size_t)splits * rows;
-  if (tig == 0) {
-    if (row0 < Sq) pm[row0] = m_run[0], pl[row0] = l_run[0];
-    if (row1 < Sq) pm[row1] = m_run[1], pl[row1] = l_run[1];
-  }
+
+  setmaxnreg_inc<232>();
+  const int t = tid & 127, warp = t >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  if (wgi == 0) {
+    // S = Q K^T, 64 query rows x BK keys over this block's DH columns: A
+    // = Q from registers, split once for each item's whole key loop (hi =
+    // rna(x), lo = rna(x - hi)); B = K, its raw tile (hi) and lo parts
+    // from shared memory. hi(Q) lo(K) and lo(Q) hi(K) into spc (in this
+    // order: see the header), hi(Q) hi(K) into sp, added once the
+    // products have finished
+    float sp[16], spc[16];
+    uint32_t qa[L::DH / 8][2][4];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + 2 * tig;
-    if (c >= d) continue;
-    if (row0 < Sq)
-      *reinterpret_cast<float2*>(po + (size_t)row0 * d + c) =
-          make_float2(o[n][0], o[n][1]);
-    if (row1 < Sq)
-      *reinterpret_cast<float2*>(po + (size_t)row1 * d + c) =
-          make_float2(o[n][2], o[n][3]);
+    for (int e = 0; e < 16; ++e) sp[e] = spc[e] = 0.f;
+    int n = 0, nq = 0;                 // key tiles and Q tiles so far
+    for (int w = w0; w < items; w += dw) {
+      const int count = item(w).count;
+      if (count == 0) continue;
+      mbar_wait(own_full, nq & 1);
+#pragma unroll
+      for (int kk = 0; kk < L::DH / 8; ++kk) {
+        float x[4];
+        frag_rows<BQ>(smem + L::Q_OFF, warp, lane, 0, kk, x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[kk][0][e] = rna_tf32(x[e]);
+          qa[kk][1][e] = rna_tf32(x[e] - __uint_as_float(qa[kk][0][e]));
+        }
+      }
+      mbar_arrive(own_empty);          // Q's buffer: the next item's
+      ++nq;
+      for (int i = 0; i < count; ++i, ++n) {
+        const int st = n % S;
+        const uint32_t k_tile = base + L::K_OFF + st * L::LOOP;
+        const uint32_t klo = base + L::KLO_OFF + st * L::LOOP;
+        mbar_wait(full0 + 8 * st, (n / S) & 1);
+        mbar_wait(lo_full0 + 8 * st, (n / S) & 1);
+        fence_operands(sp);
+        fence_operands(spc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < L::DH / 8; ++kk) {
+          WgmmaTf32<32>::rs(spc, qa[kk][0], F32Tile<BK>::kmajor(klo, kk),
+                            kk > 0);
+          WgmmaTf32<32>::rs(spc, qa[kk][1],
+                            F32Tile<BK>::kmajor(k_tile, kk), 1);
+          WgmmaTf32<32>::rs(sp, qa[kk][0], F32Tile<BK>::kmajor(k_tile, kk),
+                            kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(sp);
+        fence_operands(spc);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) sp[e] = spc[e] + sp[e];
+        mbar_arrive(empty0 + 8 * st);
+        // the other block's S over its columns (st.async into this
+        // block's receive buffer of tile n's parity), added
+        const uint32_t recv = base + L::RECV_OFF + (n & 1) * L::P_TILE;
+        cluster_sum<L::CL, 1>(sp, sp, recv,
+                              reinterpret_cast<const float4*>(
+                                  smem + (recv - base)),
+                              recv_bar0 + 8 * (n & 1), (n >> 1) & 1, t);
+        // hand S to warpgroup 1, whose thread t takes the same places,
+        // once it has read the last tile's
+        if (n > 0) bar_sync(HO_FREE, CONSUMERS);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) ho[e * 128 + t] = sp[e];
+        bar_arrive(HO_READY, CONSUMERS);
+      }
+    }
+    // warpgroup 1 frees the hand-over after each tile: the last one's too
+    if (n > 0) bar_sync(HO_FREE, CONSUMERS);
+  } else {
+    // logits in base-2 units, s log2(e) / sqrt(d): p = 2^(s2 - m2) is
+    // exp(s / sqrt(d) - m), and m is kept in these units
+    const float scale2 = scale * LOG2E;
+    const uint32_t p_hi = base + L::P_OFF, p_lo = p_hi + L::P_TILE;
+    // O^T (DH x 64: the block's head-dim columns x the query rows), and a
+    // tile's P V^T, summed from zero and folded into it once finished
+    float acc[L::MB][32], tmp[L::MB][32];
+    uint32_t ring[2][2][2][4];
+#pragma unroll
+    for (int m = 0; m < L::MB; ++m)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) tmp[m][e] = 0.f;
+    // acc = acc c + tmp, c the correction of each query column (in corr_s
+    // from the tile of tmp's P): one fp32 rounding a tile (the tensor core
+    // adds its products to an accumulator truncated, and long runs of
+    // small terms into a large one drift), and the rescale with it
+    auto fold = [&]() {
+#pragma unroll
+      for (int m = 0; m < L::MB; ++m) {
+        fence_operands(tmp[m]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 c =
+              *reinterpret_cast<const float2*>(corr_s + 8 * j + 2 * tig);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[m][4 * j + e] =
+                fmaf(acc[m][4 * j + e], (e & 1) ? c.y : c.x, tmp[m][4 * j + e]);
+        }
+      }
+    };
+    int n = 0;                         // key tiles so far
+    for (int w = w0; w < items; w += dw) {
+      const Item it = item(w);
+      // the thread's two query rows (those of its S fragments)
+      int row[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        row[hf] = it.q0 + 16 * warp + g + 8 * hf;
+#pragma unroll
+      for (int m = 0; m < L::MB; ++m)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[m][e] = 0.f;
+      // the running row max (base-2 units) and the thread's share of the
+      // row sum: the four threads of a row hold the same max, so their
+      // shares are added only at the end
+      float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+      for (int i = 0; i < it.count; ++i, ++n) {
+        const int st = n % S, k0 = (it.t0 + i) * BK;
+        float s[16];
+        bar_sync(HO_READY, CONSUMERS);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) s[e] = ho[e * 128 + t];
+        bar_arrive(HO_FREE, CONSUMERS);
+        // scale (to base-2 units) and mask (-inf): element 4 j + e is
+        // query row row[e / 2], key k0 + 8 j + 2 tig + e % 2
+        const int32_t* valid = mask_s + st * BK;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const int kl = 8 * j + 2 * tig;
+          const int2 vm = *reinterpret_cast<const int2*>(valid + kl);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hf = e >> 1;
+            const bool ok = ((e & 1) ? vm.y : vm.x) != 0 &&
+                            (!causal || k0 + kl + (e & 1) <= row[hf]);
+            const float x = ok ? s[4 * j + e] * scale2 : -INFINITY;
+            s[4 * j + e] = x;
+            mx[hf] = fmaxf(mx[hf], x);
+          }
+        }
+        // the online softmax: a row whose max is still -inf gets
+        // correction 0 and p 0
+        float corr[2], neg[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float m_new = fmaxf(m_run[hf], quad_max(mx[hf]));
+          corr[hf] = m_new == -INFINITY ? 0.f : exp2_fast(m_run[hf] - m_new);
+          neg[hf] = m_new == -INFINITY ? 0.f : -m_new;
+          m_run[hf] = m_new;
+        }
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int hf = (e >> 1) & 1;
+          const float p = exp2_fast(s[e] + neg[hf]);
+          s[e] = p;
+          sum[hf] += p;
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          l_run[hf] = corr[hf] * l_run[hf] + sum[hf];
+        // the last tile's product has finished: fold it in with its tile's
+        // corrections; then, once every warp has, this tile's P (query
+        // rows, key columns: O^T's K-major B operand, not rounded, as fp32
+        // is v's dtype) and corrections
+        wgmma_wait<0>();
+        keep_ring(ring);
+        if (i > 0) fold();
+        bar_sync(WG_BAR + 1, 128);
+        store_grad_tile(s, smem + L::P_OFF, smem + L::P_OFF + L::P_TILE,
+                        warp, lane);
+        if (tig == 0) {
+          corr_s[16 * warp + g] = corr[0];
+          corr_s[16 * warp + g + 8] = corr[1];
+        }
+        fence_proxy_async();
+        bar_sync(WG_BAR + 1, 128);
+        // O^T += V^T P^T: this block's DH columns x 64 query rows over the
+        // tile's keys, into tmp; A = V^T (registers, from V's tile)
+        product3<64, L::MB, BK / 8, 2, false>(
+            tmp, tmp, ring,
+            [&](int m, int kk, float (&x)[4]) {
+              frag_cols<BK>(smem + L::V_OFF + st * L::LOOP, warp, lane, m,
+                            kk, x);
+            },
+            [&](int kk) { return F32Tile<BQ>::kmajor(p_hi, kk); },
+            [&](int kk) { return F32Tile<BQ>::kmajor(p_lo, kk); }, false);
+        mbar_arrive(empty0 + 8 * st);
+      }
+      wgmma_wait<0>();
+      keep_ring(ring);
+      if (it.count > 0) fold();
+      // each query column's 1 / l (an empty row: l = 0, o = 0, so o (1 /
+      // l) = 0 inf = NaN), through corr_s once every warp has folded
+      float l[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) l[hf] = quad_sum(l_run[hf]);
+      bar_sync(WG_BAR + 1, 128);
+      if (tig == 0) {
+        corr_s[16 * warp + g] = part == nullptr ? 1.f / l[0] : 1.f;
+        corr_s[16 * warp + g + 8] = part == nullptr ? 1.f / l[1] : 1.f;
+      }
+      bar_sync(WG_BAR + 1, 128);
+      // lse (or the partial's m and l): from the first block of a
+      // cluster, both of which hold the same rows' m and l. The partial
+      // of split sp: O (splits, B H Sq, d), then m and l (splits, B H Sq)
+      // each
+      const size_t rows = (size_t)B * H * Sq;
+      const size_t p0 = it.sp * rows + (size_t)it.bh * Sq;
+      if (c0 == 0 && tig == 0) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          if (row[hf] >= Sq) continue;
+          if (part == nullptr) {      // empty row: -inf + log(0) = -inf
+            if (lse != nullptr)
+              lse[(size_t)it.bh * Sq + row[hf]] =
+                  m_run[hf] * LN2 + logf(l[hf]);
+          } else {
+            float* pm = part + (size_t)splits * rows * d + p0;
+            pm[row[hf]] = m_run[hf];
+            pm[(size_t)splits * rows + row[hf]] = l[hf];
+          }
+        }
+      }
+      // O (or the partial's unnormalised O): element 4 j + e of acc[m] is
+      // head-dim column c0 + 64 m + 16 warp + g + 8 (e / 2), query row q0
+      // + 8 j + 2 tig + e % 2
+      float* ob =
+          part == nullptr ? out + (size_t)it.bh * Sq * d : part + p0 * d;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 inv =
+            *reinterpret_cast<const float2*>(corr_s + 8 * j + 2 * tig);
+#pragma unroll
+        for (int m = 0; m < L::MB; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 64 * m + 16 * warp + g + 8 * (e >> 1);
+            const int r = it.q0 + 8 * j + 2 * tig + (e & 1);
+            if (r < Sq && col < d)
+              ob[(size_t)r * d + col] =
+                  acc[m][4 * j + e] * ((e & 1) ? inv.y : inv.x);
+          }
+      }
+    }
   }
+  if (L::CL > 1) cluster_sync();
+}
+
+// the SMs of the current device, read once
+inline int sm_count() {
+  static int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 1;
+    return sms;
+  }();
+  return n;
 }
 
 template <int DP>
@@ -520,20 +730,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* key_mask, void* out, float* lse, float* part,
                    int B, int H, int Sq, int Sk, int d, int causal,
                    int splits, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_fwd_tf32_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  using L = Fwd<DP>;
+  CUtensorMap tq, tk, tv;
+  // maps baked into a CUDA graph that captures this launch (sm90.cuh)
+  if (!tile_map_f32(&tq, q, d, Sq, B * H, BQ) ||
+      !tile_map_f32(&tk, k, d, Sk, B * H, BK) ||
+      !tile_map_f32(&tv, v, d, Sk, B * H, BK))
+    return cudaErrorInvalidValue;
   const int tiles = (Sk + BK - 1) / BK;
   const int chunk = (tiles + splits - 1) / splits;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B * splits);
-  flash_attn_fwd_tf32_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int32_t*>(key_mask),
-      static_cast<float*>(out), lse, splits > 1 ? part : nullptr, H, Sq, Sk,
-      d, causal, splits, chunk, 1.0f / sqrtf((float)d));
-  err = cudaGetLastError();
+  // one cluster for each item, at most one a CL SMs: one wave
+  const long long items = (long long)((Sq + BQ - 1) / BQ) * H * B * splits;
+  const int clusters =
+      (int)std::min<long long>(items, std::max(1, sm_count() / L::CL));
+  cudaError_t err = launch_clusters(
+      flash_attn_fwd_tf32_sm90_kernel<DP>, dim3(L::CL * clusters), L::CL,
+      L::SMEM, stream, tq, tk, tv, static_cast<const int32_t*>(key_mask),
+      static_cast<float*>(out), lse, splits > 1 ? part : nullptr, B, H, Sq,
+      Sk, d, causal, splits, chunk, 1.0f / sqrtf((float)d));
   if (err != cudaSuccess || splits == 1) return err;
   const long long rows = (long long)B * H * Sq;
   flash_attn_fwd_combine_kernel<<<(unsigned)((rows + 3) / 4), 128, 0,
@@ -978,10 +1192,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // q: (B, H, Sq, d), k/v: (B, H, Sk, d), out: (B, H, Sq, d), all contiguous,
 // 16-byte aligned and of one dtype (is_bf16 ? bfloat16 : float32);
 // key_mask: (B, Sk) int32, nonzero = attend; lse: null (no write) or
-// (B, H, Sq) float32. The dtype picks the kernel, both on tensor cores:
-// 3xTF32 for fp32 (the head dim padded to 64 or 256), wgmma for bf16
-// (padded to 32, 64 or 256; its tensor maps are encoded here, and one that
-// does not encode returns cudaErrorInvalidValue). Launches on `stream`,
+// (B, H, Sq) float32. The dtype picks the kernel, both on wgmma: three
+// TF32 products for fp32 (the head dim padded to 64 or 256; clusters of
+// two blocks at 256), bf16 for bf16 (padded to 32, 64 or 256). The tensor
+// maps are encoded here, and one that does not encode returns
+// cudaErrorInvalidValue. Launches on `stream`,
 // allocates nothing, does not synchronise. Returns the cudaError_t of the
 // launch (0 = success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,

@@ -50,50 +50,56 @@ KERNEL_DQ = 'flash_attn_bwd_dq'
 KERNEL_DKV = 'flash_attn_bwd_dkv'
 MAX_HEAD_DIM = 256
 # H100 SXM peaks (NVIDIA's data sheet, dense) and HBM3. bf16: the tensor
-# cores' bf16 rate. float32: the TF32 rate over three, because fp32 work on
-# the tensor cores takes three TF32 products for each fp32 product to keep
-# fp32 accuracy (csrc/mma_tf32.cuh), as the fp32 kernels do
+# cores' bf16 rate. float32: the TF32 rate over three, because the fp32
+# kernels take three TF32 wgmma products for each fp32 product to keep fp32
+# accuracy (csrc/sm90.cuh, product3)
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 495e12 / 3}
 PEAK_BYTES_PER_S = 3.35e12
-# the forward kernels' tiles: query rows a block, keys a tile
-FP32_BQ, FP32_BK = 64, 32
+# the forward kernels' tiles: query rows a block (in fp32 at d > 64 a
+# cluster of FP32_CLUSTER blocks, each with part of the head dim), keys a
+# tile
+FP32_BQ, FP32_BK, FP32_CLUSTER = 64, 32, 2
 BF16_BQ, BF16_BK = 128, 64
 
 
-def fp32_key_splits(B: int, H: int, Sq: int, Sk: int, n_sms: int) -> int:
-    '''How many blocks share each query tile's key loop in the fp32
-    forward. B H ceil(Sq / 64) blocks that fill the card's ``n_sms`` SMs
-    (one block an SM at d = 256) take 1. Fewer take min(key tiles, n_sms //
-    blocks), so that all blocks still run in one wave, cut to the least
-    count that gives the same number of key tiles a block (none empty).'''
-    blocks = B * H * -(-Sq // FP32_BQ)
-    tiles = -(-Sk // FP32_BK)
-    if blocks >= n_sms:
+def one_wave_splits(blocks: int, tiles: int, wave: int) -> int:
+    '''How many blocks share each key loop of ``tiles`` key tiles when a
+    launch has ``blocks`` blocks and the card runs ``wave`` at once: 1 when
+    they fill the wave, else min(tiles, wave // blocks), so that all blocks
+    still run in one wave, cut to the least count that gives the same
+    number of key tiles a block (none empty).'''
+    if blocks >= wave:
         return 1
-    splits = min(tiles, max(1, n_sms // blocks))
+    splits = min(tiles, max(1, wave // blocks))
     return -(-tiles // -(-tiles // splits))
+
+
+def fp32_key_splits(B: int, H: int, Sq: int, Sk: int, d: int,
+                    n_sms: int) -> int:
+    '''How many blocks share each query tile's key loop in the fp32
+    forward: its B H ceil(Sq / 64) query tiles take a cluster of two blocks
+    each at d > 64 (one at d <= 64), one block an SM of the card's
+    ``n_sms`` (``one_wave_splits``).'''
+    blocks = B * H * -(-Sq // FP32_BQ) * (FP32_CLUSTER if d > 64 else 1)
+    return one_wave_splits(blocks, -(-Sk // FP32_BK), n_sms)
 
 
 def bf16_key_splits(B: int, H: int, Sq: int, Sk: int, d: int,
                     n_sms: int) -> int:
     '''How many blocks share each query tile's key loop in the bf16
-    forward: ``fp32_key_splits``'s rule with the bf16 kernel's 128-row
-    blocks and 64-key tiles, and its blocks an SM (two at d <= 32, one
-    above), so that H ceil(Sq / 128) blocks that fill one wave take 1;
-    for a launch of one batch row only (a served video's calls). A split
-    rounds each chunk's p against the chunk's own max, so a row's bits
-    would otherwise hang on how many rows share its launch, and in bf16
-    that moves a train step's gradients past what rounding explains: the
-    flagship encoder's 8-row microbatches read 2.9% (relative L2) from the
-    32-row batch's gradients with the split, 0.36% without (on an H100;
-    PERF.md, section 6).'''
-    blocks = B * H * -(-Sq // BF16_BQ)
-    tiles = -(-Sk // BF16_BK)
-    wave = n_sms * (2 if d <= 32 else 1)
-    if B > 1 or blocks >= wave:
+    forward: ``one_wave_splits`` with the bf16 kernel's 128-row blocks and
+    64-key tiles, and its blocks an SM (two at d <= 32, one above), so that
+    H ceil(Sq / 128) blocks that fill one wave take 1; for a launch of one
+    batch row only (a served video's calls). A split rounds each chunk's p
+    against the chunk's own max, so a row's bits would otherwise hang on
+    how many rows share its launch, and in bf16 that moves a train step's
+    gradients past what rounding explains: the flagship encoder's 8-row
+    microbatches read 2.9% (relative L2) from the 32-row batch's gradients
+    with the split, 0.36% without (on an H100; PERF.md, section 6).'''
+    if B > 1:
         return 1
-    splits = min(tiles, max(1, wave // blocks))
-    return -(-tiles // -(-tiles // splits))
+    return one_wave_splits(H * -(-Sq // BF16_BQ), -(-Sk // BF16_BK),
+                           n_sms * (2 if d <= 32 else 1))
 
 
 def key_splits(B: int, H: int, Sq: int, Sk: int, d: int, dtype,
@@ -101,7 +107,7 @@ def key_splits(B: int, H: int, Sq: int, Sk: int, d: int, dtype,
     '''The forward's key splits for a call of ``dtype`` on ``n_sms`` SMs.'''
     if dtype == torch.bfloat16:
         return bf16_key_splits(B, H, Sq, Sk, d, n_sms)
-    return fp32_key_splits(B, H, Sq, Sk, n_sms)
+    return fp32_key_splits(B, H, Sq, Sk, d, n_sms)
 
 
 def key_mask_and_causal(mask: torch.Tensor | None, B: int, Sk: int,
@@ -302,7 +308,7 @@ def attention_bound_ms(flops: int, nbytes: int, dtype: str):
 # ---------------------------------------------------------------------------
 # kernel wrappers: plain version on the CPU, the kernel on CUDA, else raise.
 # The dtype picks the kernel behind each C entry point; every kernel runs on
-# tensor cores: 3xTF32 for float32, bf16 for bfloat16. Both are
+# wgmma: three TF32 products for float32, bf16 for bfloat16. Both are
 # hand-written kernels of the same function; the choice is the input's
 # type, not a fallback.
 # ---------------------------------------------------------------------------

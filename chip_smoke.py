@@ -9,21 +9,21 @@ when it fails:
 
 1. the device: torch's name for it and nvidia-smi's name and power limit;
 2. build the CUDA kernels from bmt_tpu_torch/csrc/ (one nvcc per source,
-   started together; each timed), all on tensor cores at head dims padded
-   to 64 and 256: the forward in fp32 (flash_attn_fwd_tf32_kernel, 3xTF32
-   on mma.sync) and in bf16 (flash_attn_fwd_sm90_kernel: wgmma on TMA
-   tiles, at 32 too), with flash_attn_fwd_combine_kernel<float> and
-   <bf16>, which combine the partials of a split key loop; dQ and dK/dV
-   in fp32 (flash_attn_bwd_dq_tf32_sm90_kernel,
+   started together; each timed), all on wgmma at head dims padded to 64
+   and 256: the forward in fp32 (flash_attn_fwd_tf32_sm90_kernel: three
+   TF32 wgmma products on TMA tiles, at 256 in clusters of two blocks) and
+   in bf16 (flash_attn_fwd_sm90_kernel: wgmma on TMA tiles, at 32 too),
+   with flash_attn_fwd_combine_kernel<float> and <bf16>, which combine the
+   partials of a split key loop; dQ and dK/dV in fp32
+   (flash_attn_bwd_dq_tf32_sm90_kernel,
    flash_attn_bwd_dkv_tf32_sm90_kernel: three TF32 wgmma products on TMA
    tiles, at 256 in clusters of two blocks) and in bf16
    (flash_attn_bwd_dq_sm90_kernel, flash_attn_bwd_dkv_sm90_kernel: wgmma
    on TMA tiles, at 32 too); print what ptxas reports for each and fail if
    one is missing or any kernel spills registers; count HGMMA (wgmma),
-   UTMALDG (TMA loads) and HMMA (mma.sync) in each kernel's machine code
-   (cuobjdump -sass) and fail if a kernel on wgmma (the bf16 forward and
-   both backward pairs) lacks HGMMA or UTMALDG or holds HMMA; beside them,
-   the
+   UTMALDG (TMA loads) and HMMA (the older mma.sync) in each kernel's
+   machine code (cuobjdump -sass) and fail if an attention kernel lacks
+   HGMMA or UTMALDG, or any kernel holds HMMA; beside them, the
    two host libraries from bmt_tpu_torch/csrc/*.cc with g++ (the feature
    loader bmt_io, the METEOR aligner meteor_align; timed), failing if
    either does not build or does not serve;
@@ -284,7 +284,10 @@ when it fails:
     process (22a's runs for the first two) within STEP_TOL and
     PROP_STEP_TOL, each rank's memory_allocated after init and after the
     steps beside one process's and beside the share of the leaves it holds
-    (``mp_share``); (23b) the decode cell with mp-2 parameters in fp32
+    (``mp_share``), and the LoRA cell's ReLU inputs within KINK of 0 in
+    one process and those the ranks put on the other side, by step (forward
+    hooks on each fc1: such a tie moves the adapters' gradient, and its
+    norm, by ~1e-4); (23b) the decode cell with mp-2 parameters in fp32
     (its step log-probs along one process's trajectory within
     LOGPROB_TOL) and bf16 (its tokens one process's, or a near-tie within
     BF16_GAP_TOL), captions/s beside one process's; (23c) the flagship
@@ -433,9 +436,9 @@ from bmt_tpu_torch.utils import (get_corner_coords,
 SOURCES = {KERNEL: 'bmt_tpu_torch/csrc/flash_attn_fwd.cu',
            KERNEL_DQ: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu',
            KERNEL_DKV: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu'}
-# the kernels each library holds, all on tensor cores: 3xTF32 for fp32 (the
-# forward with its split's combine) and bf16
-ENTRIES = {KERNEL: ('flash_attn_fwd_tf32_kernel',
+# the kernels each library holds, all on wgmma: three TF32 products for
+# fp32 and bf16 (the forward with its split's combine)
+ENTRIES = {KERNEL: ('flash_attn_fwd_tf32_sm90_kernel',
                     'flash_attn_fwd_combine_kernel',
                     'flash_attn_fwd_sm90_kernel'),
            BWD_LIBRARY: ('flash_attn_bwd_dq_tf32_sm90_kernel',
@@ -443,10 +446,11 @@ ENTRIES = {KERNEL: ('flash_attn_fwd_tf32_kernel',
                          'flash_attn_bwd_dkv_tf32_sm90_kernel',
                          'flash_attn_bwd_dkv_sm90_kernel')}
 # the opcodes counted in the kernels' machine code: wgmma, the TMA tile load
-# and mma.sync; the kernels on wgmma must hold the first two and not the
-# third
+# and mma.sync; the attention kernels must hold the first two, and no
+# kernel the third
 SASS_OPS = ('HGMMA', 'UTMALDG', 'HMMA')
-HOPPER_KERNELS = ('flash_attn_fwd_sm90_kernel',
+HOPPER_KERNELS = ('flash_attn_fwd_tf32_sm90_kernel',
+                  'flash_attn_fwd_sm90_kernel',
                   'flash_attn_bwd_dq_sm90_kernel',
                   'flash_attn_bwd_dkv_sm90_kernel',
                   'flash_attn_bwd_dq_tf32_sm90_kernel',
@@ -997,7 +1001,7 @@ def phase_train_timing(dev, smi):
     torch.cuda.empty_cache()
 
     # the three kernels against their plain versions and the library at
-    # the step's seven attention shapes, in bf16 and in fp32 (3xTF32); the
+    # the step's seven attention shapes, in bf16 and in fp32 (TF32); the
     # first (encoder 256x256) goes into the report. The library's backward
     # computes dQ, dK and dV together: it compares with the sum of the two
     # backward kernels
@@ -1874,13 +1878,13 @@ def phase_single_video_app(dev, smi):
                                       ('self-attn video', sv, sv, 'video'),
                                       ('cross audio->video', sa, sv, 'video'),
                                       ('cross video->audio', sv, sa, 'audio'))]
-    print(f'    the fp32 forward kernel (3xTF32) at the app\'s shapes (H=4, '
-          f'd=256; {smi}):')
+    print(f'    the fp32 forward kernel (TF32 wgmma) at the app\'s shapes '
+          f'(H=4, d=256; {smi}):')
     app_ms = {}
     for i, (case, keys) in enumerate(cases):
         t = forward_times(case, dev, 600 + i, keys, torch.float32)
         splits = fp32_key_splits(
-            *case[1:5], torch.cuda.get_device_properties(dev)
+            *case[1:6], torch.cuda.get_device_properties(dev)
             .multi_processor_count)
         print(f'    B={case[1]:<3d} {case[0]:28s} Sq={case[3]:3d} '
               f'Sk={case[4]:3d} key splits {splits}: '
@@ -4089,10 +4093,15 @@ def shard_step_worker(cells, grid, fsdp, out_dir, device):
         sync()
         init_bytes = allocated(device) - base
         seen = collections.Counter()
+        kinks = {}
+        hooks = (kink_hooks(state.model, kinks, dp.mp_rank)
+                 if cell.get('lora') else [])
         reset_launch_counts()
         with launch_shapes(seen):
             metrics, ms = dp_steps(state, step, batches, dp)
         launches = launch_counts()
+        for h in hooks:
+            h.remove()
         state.optimizer.zero_grad()
         gc.collect()
         sync()
@@ -4100,7 +4109,8 @@ def shard_step_worker(cells, grid, fsdp, out_dir, device):
         out['cells'][name] = {
             'metrics': metrics, 'ms': ms, 'launches': launches,
             'shapes': dict(seen), 'init_bytes': init_bytes,
-            'step_bytes': allocated(device) - base, 'held': held}
+            'step_bytes': allocated(device) - base, 'held': held,
+            'kinks': kinks}
         with dp.whole(everything=True):
             if dp.is_main:
                 torch.save({n: p.detach().cpu() for n, p in
@@ -4306,20 +4316,25 @@ def step_errors(ranks_cell, single, got, want):
 
 def single_run(kind, cell, dev):
     '''One process's run of a ``dp_cells`` cell: its metrics, ms, bytes
-    after init and after the steps, and its parameters after them (on the
-    host).'''
+    after init and after the steps, its parameters after them (on the
+    host), and, for the LoRA cell, its ReLU inputs near 0
+    (``kink_hooks``).'''
     gc.collect()
     sync()
     base = allocated(dev)              # what earlier phases still hold
     state, step, batches = dp_cell(kind, cell, dev)
     sync()
     init_bytes = allocated(dev) - base
+    kinks = {}
+    hooks = kink_hooks(state.model, kinks) if cell.get('lora') else []
     metrics, ms = dp_steps(state, step, batches)
+    for h in hooks:
+        h.remove()
     state.optimizer.zero_grad()
     gc.collect()
     sync()
     out = {'metrics': metrics, 'ms': ms, 'init_bytes': init_bytes,
-           'step_bytes': allocated(dev) - base,
+           'step_bytes': allocated(dev) - base, 'kinks': kinks,
            'want': {n: p.detach().cpu()
                     for n, p in state.model.named_parameters()}}
     del state, step
@@ -4567,9 +4582,10 @@ MP_DECODE_ROUNDS = 3                    # 23b: timed decodes a path
 DRYRUN_N = 4                            # 23d's ranks (sp 2 x mp 2)
 # 23c, relative L2 against the sequential stack in one process: (the
 # outputs, each layer's gradient as one vector). fp32: the microbatches'
-# products (8 rows, where the fp32 forward also splits its key loop at
-# Sq = 96) and the weight gradients' sums over them run in another order;
-# the outputs move ~6e-7, and a ReLU input within that of 0 falls on the
+# products (8 rows) and the weight gradients' sums over them run in
+# another order; the outputs moved ~6e-7 (with the fp32 forward on
+# mma.sync, which split its key loop at 8 rows x 96), and a ReLU input
+# within that of 0 falls on the
 # other side. 23c counts them with hooks on every fc1: on an H100, 2 of
 # layer 1's 12,582,912 video feed-forward inputs, |x| <= 2.2e-7, and none
 # elsewhere. Each flip adds or drops one token's term in a row of fc1's
@@ -4663,6 +4679,48 @@ def relu_input_hooks(layers, record):
                 record.setdefault(key, []).append(out.detach())
             hooks.append(getattr(layer, ff).fc1.register_forward_hook(keep))
     return hooks
+
+
+KINK = 1e-5                             # 23a: a ReLU input this near 0
+
+
+def kink_hooks(model, record, rank=0):
+    """Forward hooks on every fc1 of ``model`` (its output is the ReLU's
+    input): at each call, the (row, column, value) of the outputs within
+    KINK of 0 are appended to ``record[name]`` on the host, the columns
+    numbered in the whole layer (mp rank ``rank`` holds the rank-th block
+    of its columns)."""
+    hooks = []
+    for name, module in model.named_modules():
+        if name.endswith('fc1'):
+            def keep(module, inputs, out, key=name):
+                x = out.detach().reshape(-1, out.shape[-1])
+                at = (x.abs() < KINK).nonzero()
+                record.setdefault(key, []).append(
+                    (at[:, 0].cpu(), (at[:, 1] + rank * x.shape[1]).cpu(),
+                     x[at[:, 0], at[:, 1]].cpu()))
+            hooks.append(module.register_forward_hook(keep))
+    return hooks
+
+
+def kink_flips(one, ranks):
+    """The ReLU inputs within KINK of 0 in one process (``one``, from
+    ``kink_hooks``) and those of them that the mp ranks (each with its
+    column block) put on the other side of 0: (count, [(fc1, call, row,
+    column, one process's value, the ranks'), ...])."""
+    near, flips = 0, []
+    for key, calls in one.items():
+        for c, (rows, cols, vals) in enumerate(calls):
+            near += len(vals)
+            theirs = {}
+            for rank in ranks:
+                for a, b, v in zip(*(x.tolist() for x in rank[key][c])):
+                    theirs[a, b] = v
+            for a, b, v in zip(rows.tolist(), cols.tolist(), vals.tolist()):
+                w = theirs.get((a, b))
+                if w is not None and (v > 0) != (w > 0):
+                    flips.append((key, c, a, b, v, w))
+    return near, flips
 
 
 def pp_reference(dev, dtype, path, spec):
@@ -4939,6 +4997,19 @@ def phase_tensor_pipeline(dev, smi, ctx, seen):
             check(any(sh[2] == 4 // MP for sh in r['shapes']),
                   f'23a mp {name}: no launch at H = {4 // MP}')
         if name == 'lora':
+            # the ReLU inputs near 0 (a tie that the two runs' rounding may
+            # put on either side moves the adapters' gradient: ROADMAP.md,
+            # section 3)
+            near, flips = kink_flips(one['kinks'],
+                                     [r['kinks'] for r in mine])
+            last = [(k, a, b, f'{v:.2e}', f'{w:.2e}')
+                    for k, c, a, b, v, w in flips if c + 1 == DP_STEPS]
+            print(f'      [23a] lora: {near} ReLU inputs within {KINK} of 0 '
+                  f'in one process\'s {DP_STEPS} steps, {len(flips)} of '
+                  f'them on the other side under mp {MP}, '
+                  f'{len(flips) - len(last)} before step {DP_STEPS}; at '
+                  f'step {DP_STEPS} (fc1, row, unit, one process, mp): '
+                  f'{last}')
             base = {n: w for n, w in one['want'].items() if 'lora' not in n}
             moved = [n for n in base if not torch.equal(got[n], base[n])]
             check(not moved, f'23a mp lora: base leaves moved: {moved[:3]}')
@@ -5389,6 +5460,8 @@ def main():
                            for c in inst.values()),
               f'{base}: no HGMMA, no UTMALDG or an HMMA in its machine '
               f'code: {inst}')
+    check(not any(c['HMMA'] for c in counts.values()),
+          f'a kernel issues mma.sync (HMMA): {counts}')
 
     started[3] = round(time.perf_counter() - t_main, 1)
     print('[3] forward kernel vs plain PyTorch on the card:')

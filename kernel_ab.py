@@ -2,10 +2,10 @@
 '''Time the attention kernels of this checkout against those built from
 another copy of ``bmt_tpu_torch/csrc/`` (an earlier commit's, unpacked with
 ``git archive``), in turns on the same inputs, beside the library call and
-the bound: the bf16 forward with lse (``--kernels fwd``) against
+the bound: the forward with lse (``--kernels fwd``) against
 ``F.scaled_dot_product_attention``, and the backward pair, dQ and dK/dV
-(``--kernels bwd``), in bf16 or (``--dtype float32``) fp32, against one
-``autograd.grad`` through it.
+(``--kernels bwd``), against one ``autograd.grad`` through it, in bf16 or
+(``--dtype float32``) fp32.
 
     git archive <commit> bmt_tpu_torch/csrc | tar -x -C tmp/other
     python3 kernel_ab.py --other parent=tmp/other/bmt_tpu_torch/csrc \\
@@ -14,23 +14,29 @@ the bound: the bf16 forward with lse (``--kernels fwd``) against
 Shapes, those ``chip_smoke.py`` times: the forward at the train cell's
 nine calls (the decoder's Sq = 21 and the two 2048-row ones included), the
 proposal cell's four at B = 16 and at B = 1 (a served video's calls, whose
-key loops this checkout splits, the combine kernel inside their time), the
-four sp shapes, H = 2 and d = 32; the backward in bf16 at the train cell's
-seven, the proposal cell's four (B = 16), the sp shapes, H = 2 and d = 32;
-in fp32 at the shapes of the fp32 train steps: the train cell's seven
-(B = 32, H = 4, d = 256), the proposal cell's four (B = 16) and the two
-H = 2 ones (256x256 B = 32, 800x800 B = 16).
+key loops a build may split, the combine kernel inside their time), then
+in bf16 the four sp shapes, H = 2 and d = 32, in fp32 the two H = 2 ones
+(256x256 B = 32, 800x800 B = 16) and the single-video app's caption batch
+(B = 100: 512x512, 192x192, 512x192, 192x512); the backward in bf16 at the
+train cell's seven, the proposal cell's four (B = 16), the sp shapes, H =
+2 and d = 32; in fp32 at the shapes of the fp32 train steps: the train
+cell's seven (B = 32, H = 4, d = 256), the proposal cell's four (B = 16)
+and the two H = 2 ones.
 
 Runs from the root of a checkout on one CUDA device. ``--other NAME=DIR``
 may be given more than once. Each other library is built with the same
 nvcc flags into ``build/kernels/``; its outputs are held to this
-checkout's within chip_smoke's TOL and BWD_TOL before it is timed. An other
-forward takes a call as its C entry points take it: split by this
-checkout's ``key_splits`` where its split entry accepts bf16, whole where
-it refuses (a build before the bf16 split). Device ms by
-``chip_smoke.device_ms``, mean of two rounds of ``--iters`` calls in turns
-(this, the others, the library, then back). Prints a line a shape, the
-others' ms in brackets, and, last, one JSON object of every number.
+checkout's within chip_smoke's TOL (and the forward's lse within LSE_TOL)
+and BWD_TOL before it is timed. An other bf16 forward takes a call as its
+C entry points take it: split by this checkout's ``key_splits`` where its
+split entry accepts bf16, whole where it refuses (a build before the bf16
+split). An other fp32 forward is split as its own geometry would split it
+(``--other_fp32_geometry``: query rows a block, keys a tile and blocks a
+query tile, the ``mma.sync`` kernel's 64,32,1 by default), by the rule of
+``fp32_key_splits``. Device ms by ``chip_smoke.device_ms``, mean of two
+rounds of ``--iters`` calls in turns (this, the others, the library, then
+back). Prints a line a shape, the others' ms in brackets, and, last, one
+JSON object of every number.
 '''
 from __future__ import annotations
 
@@ -51,7 +57,8 @@ from bmt_tpu_torch.ops import _build
 from bmt_tpu_torch.ops.flash_attention import (
     KERNEL, KERNEL_DKV, KERNEL_DQ, _run, _sm_count, attention_bound_ms,
     attention_cost, flash_attention_bwd_dkv, flash_attention_bwd_dq,
-    flash_attention_forward, key_mask_and_causal, key_splits, row_dot)
+    flash_attention_forward, key_mask_and_causal, key_splits,
+    one_wave_splits, row_dot)
 
 D32 = [('d=32 23x23 causal (decoder)', cs.TB, 4, 23, 23, 32, True),
        ('d=32 800x800 (audio encoder)', cs.TB, 4, 800, 800, 32, False)]
@@ -68,14 +75,30 @@ def bwd_cases(dev, dtype=torch.bfloat16):
     return out
 
 
-def fwd_cases(dev):
-    '''(case, key lengths or None for random ones) of the forward.'''
+# the single-video app's caption batch (fp32): the encoder's four calls
+APP_CASES = [(f'app caption {sq}x{sk}', 100, 4, sq, sk, 256, False)
+             for sq, sk in ((512, 512), (192, 192), (512, 192), (192, 512))]
+
+
+def fwd_cases(dev, dtype=torch.bfloat16):
+    '''(case, key lengths or None for random ones) of the forward in
+    ``dtype``.'''
     out = [(c, None) for c in cs.TRAIN_CASES]
     for b in (cs.PB, 1):
         out += [((f'{c[0]} B={b}', b) + c[2:],
                  cs.prop_key_lengths(b, c[4], dev)) for c in cs.PROP_CASES]
+    if dtype == torch.float32:
+        return out + [(c, None) for c in cs.MP_TIME_CASES + APP_CASES]
     out += [(c, None) for c in cs.SP_CASES + cs.MP_TIME_CASES + D32]
     return out
+
+
+def geometry_splits(geometry, B, H, Sq, Sk, n_sms):
+    '''The key splits of ``fp32_key_splits``'s rule for a forward of
+    another geometry: (query rows a block, keys a tile, blocks a query
+    tile).'''
+    bq, bk, cl = geometry
+    return one_wave_splits(B * H * -(-Sq // bq) * cl, -(-Sk // bk), n_sms)
 
 
 def build_lib(csrc: str, name: str) -> ctypes.CDLL:
@@ -120,16 +143,19 @@ def build_other(csrc: str, kernels) -> dict:
     return fns
 
 
-def other_forward(fns, q, k, v, km, causal, dev):
-    '''A call of another build's forward with lse at this checkout's key
-    splits, or whole where its split entry refuses bf16: (fn, out, lse,
-    splits).'''
+def other_forward(fns, q, k, v, km, causal, dev, geometry):
+    '''A call of another build's forward with lse: in bf16 at this
+    checkout's key splits, or whole where its split entry refuses bf16; in
+    fp32 at the splits of its own ``geometry``: (fn, out, lse, splits).'''
     b, h, sq, d = q.shape
     sk = k.shape[2]
     out, lse = torch.empty_like(q), q.new_empty((b, h, sq),
                                                 dtype=torch.float32)
     dims = (b, h, sq, sk, d, int(causal))
-    splits = key_splits(b, h, sq, sk, d, q.dtype, _sm_count(dev))
+    if q.dtype == torch.float32:
+        splits = geometry_splits(geometry, b, h, sq, sk, _sm_count(dev))
+    else:
+        splits = key_splits(b, h, sq, sk, d, q.dtype, _sm_count(dev))
     if splits > 1:
         part = torch.empty(splits * b * h * sq * (d + 2),
                            dtype=torch.float32, device=dev)
@@ -146,10 +172,10 @@ def other_forward(fns, q, k, v, km, causal, dev):
     return fn, out, lse, 1
 
 
-def time_fwd(case, lengths, others, dev, iters):
+def time_fwd(case, lengths, others, dev, iters, dtype=torch.bfloat16,
+             geometry=None):
     _, b, h, sq, sk, d, _ = case
-    q, k, v, mask, _ = cs.attention_inputs(case, torch.bfloat16, dev, 1,
-                                           lengths)
+    q, k, v, mask, _ = cs.attention_inputs(case, dtype, dev, 1, lengths)
     km, causal = key_mask_and_causal(mask, b, sk, dev)
     mine = flash_attention_forward(q, k, v, km, causal, with_lse=True)
     fns = {'fwd': lambda: flash_attention_forward(q, k, v, km, causal,
@@ -157,25 +183,32 @@ def time_fwd(case, lengths, others, dev, iters):
     splits = {}
     for label, o in others.items():
         fn, out, lse, splits[label] = other_forward(o, q, k, v, km, causal,
-                                                    dev)
+                                                    dev, geometry)
         torch.cuda.synchronize()
         cs.check(torch.equal(out.isnan(), mine[0].isnan()),
                  f'{case[0]}: NaN rows of this build and {label} differ')
         err, ok = cs.within(out.nan_to_num(0.0), mine[0].nan_to_num(0.0),
-                            *cs.TOL[torch.bfloat16])
+                            *cs.TOL[dtype])
         cs.check(ok, f'{case[0]}: forward of this build and {label} differ '
                      f'by {err}')
+        cs.check(torch.equal(lse.isneginf(), mine[1].isneginf()),
+                 f'{case[0]}: -inf lse rows of this build and {label} '
+                 f'differ')
+        err, ok = cs.within(lse.nan_to_num(neginf=0.0),
+                            mine[1].nan_to_num(neginf=0.0), *cs.LSE_TOL)
+        cs.check(ok, f'{case[0]}: lse of this build and {label} differ by '
+                     f'{err}')
         fns[f'fwd {label}'] = fn
     fns['library'] = lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask)
     t = cs.alternating_ms(fns, iters, cs.device_ms)
+    name = str(dtype).split('.')[-1]
     bound, by = attention_bound_ms(*attention_cost(
-        KERNEL, b, h, sq, sk, d, 'bfloat16', causal), 'bfloat16')
+        KERNEL, b, h, sq, sk, d, name, causal), name)
     return {'shape': f'B={b} H={h} Sq={sq} Sk={sk} d={d}'
                      f'{" causal" if causal else ""}',
             'library_ms': t['library'],
-            'splits': key_splits(b, h, sq, sk, d, torch.bfloat16,
-                                 _sm_count(dev)),
+            'splits': key_splits(b, h, sq, sk, d, dtype, _sm_count(dev)),
             'fwd': {'ms': t['fwd'], 'bound_ms': bound, 'bound_by': by,
                     'share': bound / t['fwd'],
                     'others_ms': {lb: t[f'fwd {lb}'] for lb in others},
@@ -251,17 +284,22 @@ def main(argv=None):
                         '(dQ and dK/dV)')
     p.add_argument('--dtype', default='bfloat16',
                    choices=('bfloat16', 'float32'),
-                   help='the backward pair\'s dtype (the forward is timed '
-                        'in bfloat16 only)')
+                   help='the kernels\' dtype')
+    p.add_argument('--other_fp32_geometry', default='64,32,1',
+                   metavar='BQ,BK,CL',
+                   help='the other builds\' fp32 forward: query rows a '
+                        'block, keys a tile, blocks a query tile (their '
+                        'key splits follow from it; default: the mma.sync '
+                        'kernel\'s)')
     p.add_argument('--iters', type=int, default=10)
     a = p.parse_args(argv)
     kernels = a.kernels.split(',')
     dtype = getattr(torch, a.dtype)
+    geometry = tuple(int(x) for x in a.other_fp32_geometry.split(','))
     if not set(kernels) <= {'fwd', 'bwd'}:
         sys.exit(f'kernel_ab: --kernels takes fwd and bwd, not {a.kernels}')
-    if dtype == torch.float32 and 'fwd' in kernels:
-        sys.exit('kernel_ab: --dtype float32 times the backward pair only '
-                 '(--kernels bwd)')
+    if len(geometry) != 3:
+        sys.exit('kernel_ab: --other_fp32_geometry takes BQ,BK,CL')
     if not torch.cuda.is_available():
         sys.exit('kernel_ab: no CUDA device')
     dev = torch.device('cuda:0')
@@ -273,8 +311,9 @@ def main(argv=None):
     print(f'others in brackets: {", ".join(others)}')
     rows = {'fwd': [], 'bwd': []}
     if 'fwd' in kernels:
-        for case, lengths in fwd_cases(dev):
-            r = time_fwd(case, lengths, others, dev, a.iters)
+        for case, lengths in fwd_cases(dev, dtype):
+            r = time_fwd(case, lengths, others, dev, a.iters, dtype,
+                         geometry)
             rows['fwd'].append({'name': case[0], **r})
             print(f'fwd {case[0]:32s} {r["shape"]:30s} splits '
                   f'{r["splits"]} {r["fwd"]["others_splits"]}; '

@@ -6,7 +6,8 @@ import torch
 
 from bmt_tpu_torch.ops import _build
 from bmt_tpu_torch.ops.flash_attention import (BF16_BK, BF16_BQ, FP32_BK,
-                                               FP32_BQ, KERNEL, KERNEL_DKV,
+                                               FP32_BQ, FP32_CLUSTER, KERNEL,
+                                               KERNEL_DKV,
                                                KERNEL_DQ, attention_bound_ms,
                                                attention_cost,
                                                bf16_key_splits,
@@ -67,15 +68,17 @@ def test_bound_takes_the_slower_of_operations_and_bytes():
 
 
 @pytest.mark.parametrize('B,Sq,Sk,splits', [
-    (1, 800, 800, 2), (1, 300, 300, 5), (1, 800, 300, 2), (1, 300, 800, 5),
-    (100, 512, 512, 1), (100, 192, 192, 1), (2, 64, 64, 2), (1, 64, 2048, 32)])
+    (1, 800, 800, 1), (1, 300, 300, 3), (1, 800, 300, 1), (1, 300, 800, 3),
+    (100, 512, 512, 1), (100, 192, 192, 1), (2, 64, 64, 2), (1, 64, 2048, 16)])
 def test_fp32_key_splits_fill_one_wave(B, Sq, Sk, splits):
-    '''The fp32 forward at H=4 on 132 SMs: the app's B=1 proposal calls
-    split their key loops (52 blocks at 800 query rows take 2 splits of 13
-    key tiles; 20 blocks at 300 rows take 5), its B=100 caption calls do
-    not, and no split is empty.'''
-    assert fp32_key_splits(B, 4, Sq, Sk, 132) == splits
-    blocks, tiles = B * 4 * -(-Sq // FP32_BQ), -(-Sk // FP32_BK)
+    '''The fp32 forward at H=4, d=256 on 132 SMs, a cluster of two blocks
+    a 64-row query tile: the app's B=1 proposal calls at 300 query rows
+    split their key loops (40 blocks take 3 splits of 4 key tiles), those
+    at 800 rows (104 blocks) and its B=100 caption calls do not, and no
+    split is empty.'''
+    assert fp32_key_splits(B, 4, Sq, Sk, 256, 132) == splits
+    blocks = B * 4 * -(-Sq // FP32_BQ) * FP32_CLUSTER
+    tiles = -(-Sk // FP32_BK)
     chunk = -(-tiles // splits)
     assert blocks * splits <= max(blocks, 132)
     assert (splits - 1) * chunk < tiles <= splits * chunk
@@ -83,9 +86,10 @@ def test_fp32_key_splits_fill_one_wave(B, Sq, Sk, splits):
 
 def test_fp32_key_splits_never_exceed_the_key_tiles():
     for Sk in (1, 31, 32, 33, 95):
-        for n_sms in (1, 8, 132, 1000):
-            splits = fp32_key_splits(1, 1, 1, Sk, n_sms)
-            assert 1 <= splits <= -(-Sk // FP32_BK)
+        for d in (32, 64, 256):
+            for n_sms in (1, 8, 132, 1000):
+                splits = fp32_key_splits(1, 1, 1, Sk, d, n_sms)
+                assert 1 <= splits <= -(-Sk // FP32_BK)
 
 
 @pytest.mark.parametrize('B,Sq,Sk,d', [
@@ -134,8 +138,8 @@ def test_bf16_key_splits_never_exceed_the_key_tiles():
 def test_key_splits_pick_the_rule_by_dtype():
     assert key_splits(1, 4, 800, 800, 256, torch.bfloat16, 132) == \
         bf16_key_splits(1, 4, 800, 800, 256, 132) == 4
-    assert key_splits(1, 4, 800, 800, 256, torch.float32, 132) == \
-        fp32_key_splits(1, 4, 800, 800, 132) == 2
+    assert key_splits(1, 4, 300, 800, 256, torch.float32, 132) == \
+        fp32_key_splits(1, 4, 300, 800, 256, 132) == 3
 
 
 def test_library_path_changes_with_any_header(tmp_path, monkeypatch):
@@ -159,15 +163,18 @@ def test_library_path_changes_with_any_header(tmp_path, monkeypatch):
 
 
 def test_the_real_sources_hash_their_header():
-    '''Both kernel sources include the shared header, which exists; the
-    forward also includes the TF32 one.'''
+    '''Both kernel sources include the shared headers, which exist: the
+    small one (cp.async of the masks, quad reductions) and the Hopper one
+    (wgmma, TMA, the TF32 products and the tensor-map builder), which the
+    fp32 forward includes too. The mma.sync header of the fp32 forward's
+    earlier kernel is gone.'''
     header = _build.CSRC_DIR / 'mma_bf16.cuh'
     assert header.exists()
     for name in ('flash_attn_fwd', 'flash_attn_bwd'):
         assert '#include "mma_bf16.cuh"' in (
             _build.CSRC_DIR / f'{name}.cu').read_text()
-    assert (_build.CSRC_DIR / 'mma_tf32.cuh').exists()
-    assert '#include "mma_tf32.cuh"' in (
+    assert not (_build.CSRC_DIR / 'mma_tf32.cuh').exists()
+    assert 'mma_tf32' not in (
         _build.CSRC_DIR / 'flash_attn_fwd.cu').read_text()
     # the shared Hopper header (wgmma, TMA and the tensor-map builder)
     assert (_build.CSRC_DIR / 'sm90.cuh').exists()

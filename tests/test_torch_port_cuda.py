@@ -311,6 +311,72 @@ def test_bf16_forward_kernel_at_tile_edges_on_card(cuda, shape, kind,
                                    atol=LSE_TOL[0], rtol=LSE_TOL[1])
 
 
+# the edges of the fp32 forward's tiles (three TF32 wgmma products; 64-row
+# query blocks, at head dims padded to 256 a cluster of two blocks of 128
+# columns, 32-key tiles): lengths that cut them or fill less than one, the
+# decoder's 21 rows, causal with Sq != Sk, at every head dim of {8, 24, 64,
+# 72, 256} (64: one block; 72: the second block's columns all zero fill)
+FP32_FWD_EDGE_CASES = [((2, 2, sq, sk, d), kind) for d in (8, 24, 64, 72, 256)
+                       for sq, sk, kind in ((1, 65, 'padding'),
+                                            (21, 21, 'causal'),
+                                            (65, 33, 'padding'),
+                                            (129, 800, 'causal'),
+                                            (800, 65, 'causal'))]
+
+
+def _check_fp32_forward(q, k, v, km, causal, with_lse=True):
+    '''The fp32 forward once against its plain version: out within
+    KERNEL_TOL, lse within LSE_TOL, the batch row with every key masked
+    NaN with lse -inf in both.'''
+    before = flash_attention.launches
+    got = flash_attention_forward(q, k, v, km, causal, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    out, lse = got if with_lse else (got, None)
+    ref_out, ref_lse = flash_attention_lse_reference(q, k, v, km, causal)
+    atol, rtol = KERNEL_TOL[torch.float32]
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref_out, atol=atol, rtol=rtol,
+                               equal_nan=True)
+    assert out[-1].isnan().all() and not out[0].isnan().any()
+    if with_lse:
+        assert torch.equal(lse.isneginf(), ref_lse.isneginf())
+        assert lse[-1].isneginf().all()
+        torch.testing.assert_close(lse.nan_to_num(neginf=0.0),
+                                   ref_lse.nan_to_num(neginf=0.0),
+                                   atol=LSE_TOL[0], rtol=LSE_TOL[1])
+
+
+@pytest.mark.parametrize('with_lse', [True, False])
+@pytest.mark.parametrize('shape,kind', FP32_FWD_EDGE_CASES)
+def test_fp32_forward_kernel_at_tile_edges_on_card(cuda, shape, kind,
+                                                   with_lse):
+    '''The fp32 forward (TF32 wgmma on TMA tiles) against its plain
+    version at query and key lengths that cut its tiles or fill less than
+    one, head dims that leave part of a 32-column region (or a cluster
+    block's whole half) to TMA's zero fill, causal with Sq != Sk, ragged
+    key masks and a batch row with every key masked (NaN, lse -inf), with
+    and without lse. (Launches of several rows here fill few blocks, so
+    the small ones split their key loops.)'''
+    q, k, v, _, km, causal = _inputs(cuda, torch.float32, shape, kind)
+    _check_fp32_forward(q, k, v, km, causal, with_lse)
+
+
+@pytest.mark.parametrize('shape,kind', [
+    ((32, 4, 21, 21, 256), 'causal'), ((32, 4, 21, 256, 256), 'padding'),
+    ((32, 4, 21, 96, 256), 'padding'), ((32, 4, 256, 256, 256), 'padding'),
+    ((2, 2, 2048, 2048, 256), 'causal'), ((2, 4, 2048, 2048, 64), 'causal')])
+def test_fp32_forward_at_decoder_and_long_shapes_on_card(cuda, shape, kind):
+    '''The fp32 forward where the fp32 train step launches it (the
+    decoder's 21-row calls at B=32, whose 128 query tiles take 256 blocks,
+    and the encoder's 256x256) and at S = 2048 causal, where a first row's
+    long run of small terms would show the tensor core's truncated adds if
+    O were not summed a tile at a time, at head dims padded to 256 (the
+    cluster) and 64 (one block).'''
+    q, k, v, _, km, causal = _inputs(cuda, torch.float32, shape, kind)
+    _check_fp32_forward(q, k, v, km, causal)
+
+
 # the tensor-parallel shapes: the flagship's H = 4 heads over mp 2 (H = 2)
 # and mp 4 (H = 1) at d = 256 (the train cell B = 32: 256 audio, 96 video
 # rows, 22 caption tokens; the proposal cell B = 16: 800 and 300 rows), and
@@ -388,15 +454,16 @@ def test_fp32_forward_at_the_app_shapes_on_card(cuda, B, Sq, Sk):
 
 
 @pytest.mark.parametrize('shape,kind,n_sms,splits', [
-    ((1, 4, 800, 800, 256), 'none', None, 2),
-    ((1, 4, 300, 300, 256), 'none', 200, 10),
-    ((2, 4, 300, 800, 256), 'padding', 120, 3),
+    ((1, 4, 300, 300, 256), 'none', None, 3),
+    ((1, 4, 800, 800, 256), 'none', 300, 2),
+    ((2, 4, 300, 800, 256), 'padding', 250, 3),
     ((2, 2, 129, 129, 64), 'causal', 60, 5)])
 def test_fp32_key_split_is_deterministic_on_card(cuda, monkeypatch, shape,
                                                  kind, n_sms, splits):
-    '''The fp32 forward with each row's key loop split over blocks: the
-    count the rule picks for this card at B=1 (2 at 800 query rows), or one
-    forced by giving the rule another SM count. Out and lse are the same
+    '''The fp32 forward with each row's key loop split over blocks (a
+    cluster's two blocks counted at d > 64): the count the rule picks for
+    this card at B=1 (3 at 300 query rows), or one forced by giving the
+    rule another SM count. Out and lse are the same
     bits in two launches (no atomics), agree with the unsplit kernel (one
     SM: no split) and the plain version, and a batch row with every key
     masked is NaN with lse -inf. Under causal the last splits of the first
@@ -408,7 +475,8 @@ def test_fp32_key_split_is_deterministic_on_card(cuda, monkeypatch, shape,
     if n_sms is not None:
         monkeypatch.setattr(fa, '_sm_count', lambda device: n_sms)
     B, H, Sq, Sk, _ = shape
-    assert fp32_key_splits(B, H, Sq, Sk, fa._sm_count(q.device)) == splits
+    assert fp32_key_splits(B, H, Sq, Sk, shape[4],
+                           fa._sm_count(q.device)) == splits
     before = flash_attention.launches
     first, second = (flash_attention_forward(q, k, v, km, causal,
                                              with_lse=True)

@@ -1,32 +1,39 @@
 '''The numerical plan of the fp32 attention kernels on tensor cores
-(csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu, csrc/mma_tf32.cuh), held
-to the JAX package on the CPU.
+(csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu, csrc/sm90.cuh), held to
+the JAX package on the CPU.
 
-The kernels run fp32 products on the tensor cores in TF32: each operand x is
-split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and each m16n8k8
-step adds lo hi, hi lo, then hi hi into fp32 accumulators: three for
-S = Q K^T, summed (lh + hl) + hh at the end, and O itself for P V. P V pairs
-P's key columns 2 t, 2 t + 1 with the mma's k = t, t + 4, and reads V's
-rows in the same order. Each warp takes one half (16 keys) of every 32-key
-tile with its own softmax state, and the two halves of a row are joined at
-the end. With a key split, blocks write per-chunk (m, l, O) partials that a
-second kernel combines the same way.
+The kernels run every fp32 product as three TF32 wgmma products: each
+8-deep k-step adds lo(A) hi(B), hi(A) lo(B), then hi(A) hi(B) to fp32
+accumulators. An operand in registers (A) is split hi = rna_tf32(x), lo =
+rna_tf32(x - hi); one in shared memory (B) keeps its raw fp32 word, which
+the tensor core reads truncated to TF32, beside lo = rna_tf32(x -
+trunc(x)). The forward's Q, loaded once for the whole key loop, is split
+once in shared memory as a register operand is (hi = rna(x) in place, lo
+beside it), so the tensor core reads it exactly. At a head dim padded to
+256 a cluster of two blocks takes S (and in the backward dP) over one
+128-column half each, its small products in an accumulator of their own
+added last, and adds the other's (x + y, the same bits in both); at 64 one
+block takes all.
 
-The backward kernels (dQ over 32-key tiles, dK/dV over 32-query tiles, on
-TF32 wgmma) split a product's register operand A in registers, hi =
-rna_tf32(x), lo = rna_tf32(x - hi), and keep its shared-memory operand B
-as the raw fp32 word, which the tensor core reads truncated to TF32, beside
-lo = rna_tf32(x - trunc(x)). Each 8-deep k-step adds lo(A) hi(B), hi(A)
-lo(B), then hi(A) hi(B) to one fp32 accumulator. At a head dim padded to 256 a cluster of two
-blocks takes S and dP over one 128-column half each and adds the other's
-(x + y, the same bits in both); at 64 one block takes all. They rebuild
-P = exp2(S scale log2(e) - lse log2(e)) and dS = P (dP - D) scale where the
-logit is valid (0 elsewhere), and sum each tile's dQ^T = K^T dS^T,
-dV^T = dO^T P and dK^T = Q^T dS into a zeroed accumulator, which one fp32
-add joins to the gradient. (The tensor core adds each product to its
-accumulator truncated, not rounded, which this emulation cannot see; the
-zeroed accumulator keeps that drift to one tile's terms:
-tests/test_torch_port_cuda.py holds it at S = 2048, causal, on the card.)
+The forward (64 query rows a block, 32-key tiles in order) takes S = Q K^T
+so, then the online softmax in base-2 units (corrections 0 and p 0 while a
+row's max is -inf), and O^T += V^T P^T: V the register operand, P (not
+rounded) written to shared memory as the B operand. A tile's product goes
+into a zeroed accumulator, folded into O by one fma with the tile's
+corrections, acc corr + tile. With a key split, blocks write per-chunk (m,
+l, O) partials that a second kernel combines.
+
+The backward kernels (dQ over 32-key tiles, dK/dV over 32-query tiles)
+rebuild P = exp2(S scale log2(e) - lse log2(e)) and dS = P (dP - D) scale
+where the logit is valid (0 elsewhere), and sum each tile's dQ^T = K^T
+dS^T, dV^T = dO^T P and dK^T = Q^T dS into a zeroed accumulator, which one
+fp32 add joins to the gradient.
+
+The tensor core adds each product to its accumulator truncated, not
+rounded, which the emulations below do not model (they round);
+``test_tile_sums_keep_the_truncation_drift_down`` models it to show why the
+kernels sum each tile from zero, and tests/test_torch_port_cuda.py holds the
+kernels at S = 2048, causal, on the card.
 
 This file emulates that arithmetic in numpy (a test helper, not part of the
 package): the tensor core's products of TF32 values are exact, and each
@@ -38,9 +45,8 @@ tests/test_pallas_attention.py runs them.
 Tolerances are those the kernels are held to on the card (chip_smoke.py
 ``TOL[float32]``, ``LSE_TOL``, ``BWD_TOL[float32]``;
 tests/test_torch_port_cuda.py): out and the gradients within
-1e-4 + 1e-5 |ref|, lse within 1e-5 + 1e-5 |ref|. Forward: three products
-read 2-9e-7 against Pallas; one product reads 1.8-4.1e-4 on out and 1e-4 to
-1.9e-4 on lse, outside both, which is why the kernel takes three.
+1e-4 + 1e-5 |ref|, lse within 1e-5 + 1e-5 |ref|. One product alone misses
+them, which is why the kernels take three.
 '''
 import numpy as np
 import pytest
@@ -56,8 +62,6 @@ BK = 32                      # the forward kernel's key tile
 BN = 32                      # the backward kernels' loop tile
 LN2 = np.float32(0.693147180559945309)
 LOG2E = np.float32(1.44269504088896341)
-# mma k index -> key within an 8-key step: k = t <-> 2 t, k = t + 4 <-> 2 t + 1
-KEY_ORDER = np.array([0, 2, 4, 6, 1, 3, 5, 7])
 
 
 def rna_tf32(x):
@@ -81,225 +85,6 @@ def mma(acc, a, b):
             ).astype(np.float32)
 
 
-def tf32_product(acc, a, b, products):
-    '''acc + a b over k-steps of 8, one accumulator (P V): lo hi, hi lo,
-    hi hi with 3 products, hi hi alone with 1.'''
-    ahi, alo = split(a)
-    bhi, blo = split(b)
-    for k0 in range(0, a.shape[-1], 8):
-        ks = slice(k0, k0 + 8)
-        if products == 3:
-            acc = mma(acc, alo[..., ks], bhi[..., ks, :])
-            acc = mma(acc, ahi[..., ks], blo[..., ks, :])
-        acc = mma(acc, ahi[..., ks], bhi[..., ks, :])
-    return acc
-
-
-def tf32_logits(a, b, products):
-    '''a b over k-steps of 8 into three accumulators (Q K^T): lo hi, hi lo
-    and hi hi each summed alone, then (lh + hl) + hh.'''
-    ahi, alo = split(a)
-    bhi, blo = split(b)
-    zero = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
-    lh, hl, hh = zero, zero, zero
-    for k0 in range(0, a.shape[-1], 8):
-        ks = slice(k0, k0 + 8)
-        if products == 3:
-            lh = mma(lh, alo[..., ks], bhi[..., ks, :])
-            hl = mma(hl, ahi[..., ks], blo[..., ks, :])
-        hh = mma(hh, ahi[..., ks], bhi[..., ks, :])
-    return (lh + hl) + hh
-
-
-def half_partial(q, k, v, valid, tiles, half, causal, products):
-    '''(m in base-2 units, l, unnormalised O) of one query tile (all of q's
-    rows) over key half ``half`` (16 keys) of each key tile in ``tiles``,
-    as one warp computes them: q (BH, Sq, d), k/v (BH, Sk, d), valid (BH,
-    Sk) bool.'''
-    BH, Sq, d = q.shape
-    Sk = k.shape[1]
-    W = BK // 2
-    scale2 = np.float32(1 / np.sqrt(np.float32(d))) * LOG2E
-    o = np.zeros((BH, Sq, d), np.float32)
-    m = np.full((BH, Sq), -np.inf, np.float32)
-    l = np.zeros((BH, Sq), np.float32)
-    rows = np.arange(Sq)[:, None]
-    for t in tiles:
-        k0 = t * BK + half * W
-        n = max(0, min(W, Sk - k0))
-        kt, vt = (np.zeros((BH, W, d), np.float32) for _ in range(2))
-        ok = np.zeros((BH, 1, W), bool)
-        kt[:, :n], vt[:, :n] = k[:, k0:k0 + n], v[:, k0:k0 + n]
-        ok[:, 0, :n] = valid[:, k0:k0 + n]
-        if causal:
-            ok = ok & (k0 + np.arange(W)[None, :] <= rows)
-        s = tf32_logits(q, kt.transpose(0, 2, 1), products)
-        s = np.where(ok, s * scale2, np.float32(-np.inf))
-        m_new = np.maximum(m, s.max(-1))
-        empty = m_new == -np.inf
-        with np.errstate(invalid='ignore'):
-            corr = np.where(empty, 0, np.exp2(m - m_new)).astype(np.float32)
-            p = np.where(empty[..., None], 0,
-                         np.exp2(s - m_new[..., None])).astype(np.float32)
-        m = m_new
-        l = corr * l + p.sum(-1, dtype=np.float32)
-        o = o * corr[..., None]
-        for kk in range(0, W, 8):
-            keys = kk + KEY_ORDER
-            o = tf32_product(o, p[..., keys], vt[:, keys, :], products)
-    return m, l, o
-
-
-def merge(parts):
-    '''(m, l, O) of partials over disjoint keys, each weighed by
-    exp2(m_s - max m) (0 where m_s is -inf) and summed in order: how a block
-    joins its two key halves and how flash_attn_fwd_combine_kernel joins
-    the splits.'''
-    m = np.max([p[0] for p in parts], axis=0)
-    l = np.zeros_like(m)
-    o = np.zeros_like(parts[0][2])
-    with np.errstate(invalid='ignore'):
-        for ms, ls, os_ in parts:
-            w = np.where(ms == -np.inf, 0, np.exp2(ms - m)).astype(np.float32)
-            l = l + w * ls
-            o = o + w[..., None] * os_
-    return m, l, o
-
-
-def kernel_partial(q, k, v, valid, tiles, causal=False, products=3):
-    '''One block's (m, l, O) over key tiles ``tiles``: its two key halves
-    joined.'''
-    return merge([half_partial(q, k, v, valid, tiles, half, causal, products)
-                  for half in (0, 1)])
-
-
-def finish(m, l, o):
-    '''(out, lse) from (m, l, O), as the kernel writes them.'''
-    with np.errstate(divide='ignore', invalid='ignore'):
-        return o * (np.float32(1) / l)[..., None], m * LN2 + np.log(l)
-
-
-def inputs(Sk, seed=0, B=2, H=2, Sq=64, d=256, empty_row=False):
-    '''q, k, v (B, H, S, d) fp32 and the (B, Sk) int32 key mask: batch row 1
-    keeps 65% of its keys (or none, with ``empty_row``).'''
-    rng = np.random.default_rng(seed)
-    q, k, v = (rng.normal(size=(B, H, S, d)).astype(np.float32)
-               for S in (Sq, Sk, Sk))
-    km = np.ones((B, Sk), np.int32)
-    km[1, 0 if empty_row else int(0.65 * Sk):] = 0
-    return q, k, v, km
-
-
-def emulate(q, k, v, km, causal=False, products=3, splits=1):
-    '''The kernel's (out, lse) for (B, H, Sq, d) inputs, key tiles split
-    into ``splits`` chunks of ceil(tiles / splits) (one: no split).'''
-    B, H, Sq, d = q.shape
-    Sk = k.shape[2]
-    valid = np.repeat(km[:, None, :] != 0, H, axis=1).reshape(B * H, Sk)
-    flat = [x.reshape(B * H, -1, d) for x in (q, k, v)]
-    tiles = -(-Sk // BK)
-    chunk = -(-tiles // splits)
-    if causal:                       # no tile wholly above the diagonal
-        tiles = min(tiles, (Sq - 1) // BK + 1)
-    parts = [kernel_partial(*flat, valid,
-                            range(s * chunk, min(tiles, (s + 1) * chunk)),
-                            causal, products) for s in range(splits)]
-    out, lse = finish(*merge(parts))
-    return out.reshape(q.shape), lse.reshape(B, H, Sq)
-
-
-def pallas(q, k, v, km, causal=False):
-    out, lse = _flash_attention_tiled(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(km),
-        causal, interpret=True, block_k=128, with_lse=True)
-    return np.asarray(out), np.asarray(lse)[..., 0]
-
-
-def outside(got, want, tol):
-    '''How many elements lie outside atol + rtol |want|.'''
-    return int((np.abs(got - want) > tol[0] + tol[1] * np.abs(want)).sum())
-
-
-def test_rna_tf32_rounds_to_nearest_ties_away():
-    ulp = 2.0 ** -10                                 # TF32 at 1.0
-    x = np.array([1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4, -(1 + ulp / 2),
-                  1 + ulp / 2 - 2.0 ** -23, 0.0, 3.0], np.float32)
-    want = np.array([1 + ulp, 1, 1 + ulp, -(1 + ulp), 1, 0, 3], np.float32)
-    np.testing.assert_array_equal(rna_tf32(x), want)
-    hi, lo = split(np.float32([np.pi, -1 / 3]))
-    assert (hi.view(np.uint32) & 0x1FFF == 0).all()
-    assert (lo.view(np.uint32) & 0x1FFF == 0).all()
-    np.testing.assert_allclose(hi.astype(np.float64) + lo,
-                               np.float32([np.pi, -1 / 3]), rtol=2 ** -21)
-
-
-@pytest.mark.parametrize('Sk', [192, 512, 800])
-def test_three_tf32_products_match_pallas_fp32(Sk):
-    '''Three products, with P V over the permuted keys, meet the fp32
-    tolerances against the Pallas forward and lse (read: 2-9e-7).'''
-    q, k, v, km = inputs(Sk)
-    out, lse = emulate(q, k, v, km)
-    jout, jlse = pallas(q, k, v, km)
-    assert outside(out, jout, TOL) == 0
-    assert outside(lse, jlse, LSE_TOL) == 0
-    np.testing.assert_allclose(out, jout, atol=2e-6)
-
-
-@pytest.mark.parametrize('Sk', [192, 512, 800])
-def test_one_tf32_product_misses_the_fp32_tolerance(Sk):
-    '''hi hi alone leaves out and lse outside the fp32 tolerances: this is
-    why the kernel takes three products.'''
-    q, k, v, km = inputs(Sk)
-    out, lse = emulate(q, k, v, km, products=1)
-    jout, jlse = pallas(q, k, v, km)
-    assert outside(out, jout, TOL) > 0
-    assert outside(lse, jlse, LSE_TOL) > 0
-
-
-def test_permuted_keys_give_the_same_product():
-    '''P V with P's columns and V's rows both in KEY_ORDER sums the same
-    terms: the result differs only by rounding.'''
-    rng = np.random.default_rng(3)
-    p = rng.random((2, 16, 8)).astype(np.float32)
-    v = rng.normal(size=(2, 8, 24)).astype(np.float32)
-    zero = np.zeros((2, 16, 24), np.float32)
-    permuted = tf32_product(zero, p[..., KEY_ORDER], v[:, KEY_ORDER], 3)
-    np.testing.assert_allclose(permuted, tf32_product(zero, p, v, 3),
-                               rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(permuted, p.astype(np.float64) @ v,
-                               rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize('Sk,splits,causal,empty_row', [
-    (800, 2, False, False), (300, 5, False, False), (800, 5, False, True),
-    (192, 3, True, False)])
-def test_split_partials_combine_to_the_unsplit_result(Sk, splits, causal,
-                                                      empty_row):
-    '''Per-chunk (m, l, O) partials combined as the combine kernel does give
-    the unsplit result up to rounding, and the Pallas one within the fp32
-    tolerances. An empty batch row is NaN with lse -inf either way; under
-    causal the last split has no key tile left and writes an empty
-    partial.'''
-    q, k, v, km = inputs(Sk, empty_row=empty_row)
-    out, lse = emulate(q, k, v, km, causal)
-    got, got_lse = emulate(q, k, v, km, causal, splits=splits)
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(out))
-    np.testing.assert_array_equal(np.isneginf(got_lse), np.isneginf(lse))
-    assert np.isnan(got[1]).all() == empty_row
-    np.testing.assert_allclose(got, out, atol=1e-6, rtol=1e-6)
-    np.testing.assert_allclose(got_lse, lse, atol=1e-6, rtol=1e-6)
-    jout, jlse = pallas(q, k, v, km, causal)
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(jout))
-    fin = ~np.isnan(jout)
-    assert outside(got[fin], jout[fin], TOL) == 0
-    fin = ~np.isneginf(jlse)
-    assert outside(got_lse[fin], jlse[fin], LSE_TOL) == 0
-
-
-# ---------------------------------------------------------------------------
-# the backward: dQ, dK, dV
-# ---------------------------------------------------------------------------
-
 def pad_dim(x):
     """x with its head dim zero-padded to the kernels' DP (64 or 256)."""
     d = x.shape[-1]
@@ -321,14 +106,15 @@ def split_shared(x):
     return hi, rna_tf32(x - hi)
 
 
-def wg_mma(acc, a, b, products, a_right=False, small=None):
+def wg_mma(acc, a, b, products, a_right=False, small=None,
+           lo_b_first=False):
     """acc + a b over k-steps of 8 (a (..., M, K), b (..., K, N)), as wgmma
     adds them: lo(A) hi(B), hi(A) lo(B), hi(A) hi(B) a step with 3
-    products, hi hi alone with 1. A, the product's register operand
-    (split()), is a, or b with ``a_right``; the other is in shared memory
-    (split_shared()). The two small products go into ``small`` when it is
-    given (an accumulator of their own, returned beside acc), else into
-    acc."""
+    products (hi(A) lo(B) first with ``lo_b_first``, as the forward's S),
+    hi hi alone with 1. A, the product's register operand (split()), is a,
+    or b with ``a_right``; the other is in shared memory (split_shared()).
+    The two small products go into ``small`` when it is given (an
+    accumulator of their own, returned beside acc), else into acc."""
     ahi, alo = split_shared(a) if a_right else split(a)
     bhi, blo = split(b) if a_right else split_shared(b)
     for k0 in range(0, a.shape[-1], 8):
@@ -338,6 +124,8 @@ def wg_mma(acc, a, b, products, a_right=False, small=None):
                      else (alo[..., ks], bhi[..., ks, :]))
             second = ((alo[..., ks], bhi[..., ks, :]) if a_right
                       else (ahi[..., ks], blo[..., ks, :]))
+            if lo_b_first:
+                first, second = second, first
             if small is None:
                 acc = mma(acc, *first)
                 acc = mma(acc, *second)
@@ -347,23 +135,280 @@ def wg_mma(acc, a, b, products, a_right=False, small=None):
     return acc if small is None else (acc, small)
 
 
-def halves_logits(a, b, products):
-    """a b^T (a (BH, M, DP), b (BH, N, DP); A = a) as the backward kernels
-    take S and dP: at DP = 256 each 128-column half (one block of the
-    cluster) summed alone from zero, its small products in an accumulator
-    of their own added last, then the halves added; at DP = 64 the whole
-    width in one."""
+def halves_logits(a, b, products, lo_b_first=False):
+    """a b^T (a (BH, M, DP), b (BH, N, DP); A = a) as the kernels take S
+    (and the backward dP): at DP = 256 each 128-column half (one block of
+    the cluster) summed alone from zero, its small products in an
+    accumulator of their own (the forward's with hi(A) lo(B) first) added
+    last, then the halves added; at DP = 64 the whole width in one."""
     h = min(a.shape[-1], 128)
     zero = np.zeros(a.shape[:-1] + b.shape[1:2], np.float32)
     out = None
     for c in range(0, a.shape[-1], h):
         main, small = wg_mma(zero, a[..., c:c + h],
                              b[..., c:c + h].swapaxes(-1, -2), products,
-                             small=zero)
+                             small=zero, lo_b_first=lo_b_first)
         part = small + main
         out = part if out is None else out + part
     return out
 
+
+def tile(x, r0):
+    """Rows [r0, r0 + BN) of x (BH, S, ...), zero past S."""
+    out = np.zeros((x.shape[0], BN) + x.shape[2:], x.dtype)
+    n = max(0, min(BN, x.shape[1] - r0))
+    out[:, :n] = x[:, r0:r0 + n]
+    return out
+
+
+def block_partial(qf, kf, vf, valid, tiles, scale, causal, products):
+    """(m in base-2 units, l, unnormalised O) of the query rows of qf (BH,
+    Sq, DP; padded head dim) over the key tiles ``tiles`` in order, as the
+    forward's blocks compute them: S in the cluster's halves, the online
+    softmax, each tile's P V summed from zero (P the shared-memory operand,
+    V the register one) and folded in by acc corr + tile in one rounding.
+    A tile that holds no valid key for a row leaves its (m, l, O) as they
+    were, so the blocks' causal cut by query block need not be
+    emulated."""
+    BH, Sq, DP = qf.shape
+    scale2 = np.float32(scale) * LOG2E
+    o = np.zeros((BH, Sq, DP), np.float32)
+    m = np.full((BH, Sq), -np.inf, np.float32)
+    l = np.zeros((BH, Sq), np.float32)
+    rows = np.arange(Sq)[:, None]
+    for t in tiles:
+        k0 = t * BK
+        ok = tile(valid, k0)[:, None, :]
+        if causal:
+            ok = ok & (k0 + np.arange(BK)[None, :] <= rows)
+        s = halves_logits(qf, tile(kf, k0), products, lo_b_first=True)
+        x = np.where(ok, s * scale2, np.float32(-np.inf))
+        m_new = np.maximum(m, x.max(-1))
+        empty = m_new == -np.inf
+        with np.errstate(invalid='ignore'):
+            corr = np.where(empty, 0, np.exp2(m - m_new)).astype(np.float32)
+            p = np.where(empty[..., None], 0,
+                         np.exp2(x - m_new[..., None])).astype(np.float32)
+        m = m_new
+        l = corr * l + p.sum(-1, dtype=np.float32)
+        part = wg_mma(np.zeros_like(o), p, tile(vf, k0), products,
+                      a_right=True)
+        o = (o.astype(np.float64) * corr[..., None] + part).astype(np.float32)
+    return m, l, o
+
+
+def merge(parts):
+    """(m, l, O) of partials over disjoint keys, each weighed by
+    exp2(m_s - max m) (0 where m_s is -inf) and summed in order: how
+    flash_attn_fwd_combine_kernel joins the splits."""
+    m = np.max([p[0] for p in parts], axis=0)
+    l = np.zeros_like(m)
+    o = np.zeros_like(parts[0][2])
+    with np.errstate(invalid='ignore'):
+        for ms, ls, os_ in parts:
+            w = np.where(ms == -np.inf, 0, np.exp2(ms - m)).astype(np.float32)
+            l = l + w * ls
+            o = o + w[..., None] * os_
+    return m, l, o
+
+
+def finish(m, l, o):
+    """(out, lse) from (m, l, O), as the kernel writes them."""
+    with np.errstate(divide='ignore', invalid='ignore'):
+        return o * (np.float32(1) / l)[..., None], m * LN2 + np.log(l)
+
+
+def inputs(Sk, seed=0, B=2, H=2, Sq=64, d=256, empty_row=False):
+    """q, k, v (B, H, S, d) fp32 and the (B, Sk) int32 key mask: batch row 1
+    keeps 65% of its keys (or none, with ``empty_row``)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(B, H, S, d)).astype(np.float32)
+               for S in (Sq, Sk, Sk))
+    km = np.ones((B, Sk), np.int32)
+    km[1, 0 if empty_row else int(0.65 * Sk):] = 0
+    return q, k, v, km
+
+
+def emulate(q, k, v, km, causal=False, products=3, splits=1):
+    """The kernel's (out, lse) for (B, H, Sq, d) inputs, key tiles split
+    into ``splits`` chunks of ceil(tiles / splits) (one: no split)."""
+    B, H, Sq, d = q.shape
+    Sk = k.shape[2]
+    valid = np.repeat(km[:, None, :] != 0, H, axis=1).reshape(B * H, Sk)
+    flat = [pad_dim(x).reshape(B * H, x.shape[2], -1) for x in (q, k, v)]
+    scale = 1 / np.sqrt(np.float32(d))
+    tiles = -(-Sk // BK)
+    chunk = -(-tiles // splits)
+    if causal:                       # no tile wholly above the diagonal
+        tiles = min(tiles, (Sq - 1) // BK + 1)
+    parts = [block_partial(*flat, valid,
+                           range(s * chunk, min(tiles, (s + 1) * chunk)),
+                           scale, causal, products) for s in range(splits)]
+    out, lse = finish(*merge(parts))
+    return out[..., :d].reshape(q.shape), lse.reshape(B, H, Sq)
+
+
+def pallas(q, k, v, km, causal=False):
+    out, lse = _flash_attention_tiled(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(km),
+        causal, interpret=True, block_k=128, with_lse=True)
+    return np.asarray(out), np.asarray(lse)[..., 0]
+
+
+def outside(got, want, tol):
+    """How many elements lie outside atol + rtol |want|."""
+    return int((np.abs(got - want) > tol[0] + tol[1] * np.abs(want)).sum())
+
+
+def test_rna_tf32_rounds_to_nearest_ties_away():
+    ulp = 2.0 ** -10                                 # TF32 at 1.0
+    x = np.array([1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4, -(1 + ulp / 2),
+                  1 + ulp / 2 - 2.0 ** -23, 0.0, 3.0], np.float32)
+    want = np.array([1 + ulp, 1, 1 + ulp, -(1 + ulp), 1, 0, 3], np.float32)
+    np.testing.assert_array_equal(rna_tf32(x), want)
+    hi, lo = split(np.float32([np.pi, -1 / 3]))
+    assert (hi.view(np.uint32) & 0x1FFF == 0).all()
+    assert (lo.view(np.uint32) & 0x1FFF == 0).all()
+    np.testing.assert_allclose(hi.astype(np.float64) + lo,
+                               np.float32([np.pi, -1 / 3]), rtol=2 ** -21)
+
+
+FWD_CASES = {                 # (Sq, Sk, causal, empty_row, d)
+    'sk192': (64, 192, False, False, 256),
+    'sk512': (64, 512, False, False, 256),
+    'sk800': (64, 800, False, False, 256),
+    'causal_sq72': (72, 72, True, False, 256),
+    'd64_sk300_empty_row': (40, 300, False, True, 64),
+    'd40_causal_sq21': (21, 21, True, False, 40)}
+
+
+@pytest.mark.parametrize('case', list(FWD_CASES))
+def test_three_tf32_products_match_pallas_fp32(case):
+    """Three products, S in the cluster's head-dim halves (one block at a
+    head dim padded to 64) and O^T = V^T P^T summed a tile at a time, meet
+    the fp32 tolerances against the Pallas forward and lse: with Sk cut by
+    the 32-key tiles (300), Sq by the 64-row blocks (72, 40, 21), causal,
+    and a batch row with every key masked (NaN, lse -inf in both)."""
+    Sq, Sk, causal, empty_row, d = FWD_CASES[case]
+    q, k, v, km = inputs(Sk, Sq=Sq, d=d, empty_row=empty_row)
+    out, lse = emulate(q, k, v, km, causal)
+    jout, jlse = pallas(q, k, v, km, causal)
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(jout))
+    np.testing.assert_array_equal(np.isneginf(lse), np.isneginf(jlse))
+    assert np.isnan(out[1]).all() == empty_row
+    fin = ~np.isnan(jout)
+    assert outside(out[fin], jout[fin], TOL) == 0
+    fin = ~np.isneginf(jlse)
+    assert outside(lse[fin], jlse[fin], LSE_TOL) == 0
+    np.testing.assert_allclose(out[~np.isnan(out)], jout[~np.isnan(jout)],
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize('Sk', [192, 512, 800])
+def test_one_tf32_product_misses_the_fp32_tolerance(Sk):
+    """hi hi alone, in S and in O^T, leaves out and lse outside the fp32
+    tolerances: this is why the kernel takes three products."""
+    q, k, v, km = inputs(Sk)
+    out, lse = emulate(q, k, v, km, products=1)
+    jout, jlse = pallas(q, k, v, km)
+    assert outside(out, jout, TOL) > 0
+    assert outside(lse, jlse, LSE_TOL) > 0
+
+
+def test_q_split_once_in_shared_memory_is_read_exactly():
+    """Q's split in shared memory, hi = rna(x) in place and lo = rna(x - hi)
+    beside it, holds TF32 values, so the tensor core, which reads a
+    shared-memory word truncated, reads them exactly: the products equal
+    those of Q split in registers (A), bit for bit: at most 2^-23 |x| left
+    out, where the raw word read truncated with its lo beside it (B's way)
+    leaves up to 2^-22 |x|."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(4, 64, 128)).astype(np.float32)
+    hi, lo = split(x)
+    np.testing.assert_array_equal(trunc_tf32(hi), hi)
+    np.testing.assert_array_equal(trunc_tf32(lo), lo)
+    k = rng.normal(size=(4, 32, 128)).astype(np.float32)
+    zero = np.zeros((4, 64, 32), np.float32)
+    from_registers = wg_mma(zero, x, k.swapaxes(-1, -2), 3)
+    in_shared = zero
+    khi, klo = split_shared(k.swapaxes(-1, -2))
+    for k0 in range(0, 128, 8):
+        ks = slice(k0, k0 + 8)
+        in_shared = mma(in_shared, trunc_tf32(lo[..., ks]), khi[..., ks, :])
+        in_shared = mma(in_shared, trunc_tf32(hi[..., ks]), klo[..., ks, :])
+        in_shared = mma(in_shared, trunc_tf32(hi[..., ks]), khi[..., ks, :])
+    np.testing.assert_array_equal(in_shared, from_registers)
+    rest_rna = np.abs(x.astype(np.float64) - hi - lo)
+    raw_hi, raw_lo = split_shared(x)
+    rest_raw = np.abs(x.astype(np.float64) - raw_hi - raw_lo)
+    assert (rest_rna <= 2.0 ** -23 * np.abs(x)).all()
+    assert (rest_raw > 2.0 ** -23 * np.abs(x)).any()
+
+
+def trunc_add(acc, x):
+    """acc + x (float64) rounded to fp32 toward zero: how the tensor core
+    adds a k-step's products to its accumulator."""
+    exact = acc.astype(np.float64) + x
+    r = exact.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(exact)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def test_tile_sums_keep_the_truncation_drift_down():
+    """O over 2048 keys (64 tiles of 32, 4 k-steps each) with each k-step
+    added truncated, as the tensor core adds: straight into O the
+    truncations drift one way, 2048 / 8 of them a row; summed from zero a
+    tile at a time and folded in by one rounded add (the kernels' way),
+    only 4 a tile are truncated, at the tile's smaller magnitude. The
+    folded sums' error is a fraction of the straight ones'."""
+    rng = np.random.default_rng(4)
+    p = rng.random((64, 2048)).astype(np.float32)
+    v = rng.normal(size=(2048, 64)).astype(np.float32)
+    exact = p.astype(np.float64) @ v
+    straight = np.zeros((64, 64), np.float32)
+    folded = np.zeros((64, 64), np.float32)
+    for t in range(0, 2048, BK):
+        part = np.zeros((64, 64), np.float32)
+        for k in range(t, t + BK, 8):
+            step = p[:, k:k + 8].astype(np.float64) @ v[k:k + 8]
+            straight = trunc_add(straight, step)
+            part = trunc_add(part, step)
+        folded = (folded.astype(np.float64) + part).astype(np.float32)
+    err_straight = np.abs(straight - exact).max()
+    err_folded = np.abs(folded - exact).max()
+    assert err_folded < err_straight / 5
+
+
+@pytest.mark.parametrize('Sk,splits,causal,empty_row', [
+    (800, 2, False, False), (300, 5, False, False), (800, 5, False, True),
+    (192, 3, True, False)])
+def test_split_partials_combine_to_the_unsplit_result(Sk, splits, causal,
+                                                      empty_row):
+    """Per-chunk (m, l, O) partials combined as the combine kernel does give
+    the unsplit result up to rounding, and the Pallas one within the fp32
+    tolerances. An empty batch row is NaN with lse -inf either way; under
+    causal the last split has no key tile left and writes an empty
+    partial."""
+    q, k, v, km = inputs(Sk, empty_row=empty_row)
+    out, lse = emulate(q, k, v, km, causal)
+    got, got_lse = emulate(q, k, v, km, causal, splits=splits)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(out))
+    np.testing.assert_array_equal(np.isneginf(got_lse), np.isneginf(lse))
+    assert np.isnan(got[1]).all() == empty_row
+    np.testing.assert_allclose(got, out, atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(got_lse, lse, atol=1e-6, rtol=1e-6)
+    jout, jlse = pallas(q, k, v, km, causal)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(jout))
+    fin = ~np.isnan(jout)
+    assert outside(got[fin], jout[fin], TOL) == 0
+    fin = ~np.isneginf(jlse)
+    assert outside(got_lse[fin], jlse[fin], LSE_TOL) == 0
+
+
+# ---------------------------------------------------------------------------
+# the backward: dQ, dK, dV
+# ---------------------------------------------------------------------------
 
 def grad_product(acc, a, b, products):
     """acc + a b over one BN-wide tile (a (BH, M, BN), b (BH, BN, n)) as
@@ -381,14 +426,6 @@ def probs(s, dp, ok, lse, D, scale):
                      0).astype(np.float32)
         ds = np.where(ok, p * (dp - D) * scale, 0).astype(np.float32)
     return p, ds
-
-
-def tile(x, r0):
-    """Rows [r0, r0 + BN) of x (BH, S, ...), zero past S."""
-    out = np.zeros((x.shape[0], BN) + x.shape[2:], x.dtype)
-    n = max(0, min(BN, x.shape[1] - r0))
-    out[:, :n] = x[:, r0:r0 + n]
-    return out
 
 
 def emulate_bwd(q, k, v, km, lse, D, dout, causal=False, products=3):
