@@ -8,9 +8,11 @@ from such a dict, or from the attributes of the pickled Config of a reference
 ``.pt`` checkpoint. The flags and derived fields are the JAX package's, so a
 config dict written by either package loads in the other. One field differs:
 ``device`` is ``'cuda'`` where the JAX package writes ``'tpu'``. The flags
-that only the JAX package reads (``--attention_impl {xla,pallas}``,
-``--prng_impl``, ``--ckpt_format``, the mesh sizes) are parsed and kept, so a
-dict round-trips, and the port ignores them.
+that only the JAX package reads (``--ckpt_format``, the mesh sizes) are
+parsed and kept, so a dict round-trips, and the port ignores them.
+``--attention_impl {xla,pallas}`` reads as the port's plain or kernel
+attention, and ``--prng_impl`` picks the trainers' dropout PRNG as in JAX
+(``train.options``).
 '''
 from __future__ import annotations
 
@@ -400,7 +402,9 @@ def build_parser() -> argparse.ArgumentParser:
                              'writes npz only)')
     parser.add_argument('--prng_impl', type=str, default='rbg',
                         choices=['threefry2x32', 'rbg', 'unsafe_rbg'],
-                        help='the JAX package\'s dropout PRNG')
+                        help='the dropout PRNG: threefry2x32 draws the '
+                             'JAX package\'s masks bit for bit, rbg and '
+                             'unsafe_rbg the port\'s Philox generator')
     parser.add_argument('--optim_mu_dtype', type=str, default='float32',
                         choices=['float32', 'bfloat16'],
                         help='dtype of Adam\'s first moment')

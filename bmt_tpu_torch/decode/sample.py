@@ -5,22 +5,26 @@ The log-probs are divided by the temperature, cut to the top-k tokens and/or
 the smallest nucleus whose probability mass exceeds top_p, and a token is
 drawn from what is left, through the greedy loop's ``select_fn``.
 
-Determinism: each step draws from its own ``torch.Generator`` on the
-log-probs' device, seeded from (seed, call, step), where ``call`` counts the
-calls of a bound sampler (``make_bimodal_sample_fn``); so a seed reproduces
-its captions. Each step draws the noise of the whole batch; a decode of a
-block of its rows (data parallelism, ``rows``) keeps its rows of it, so a
-split batch samples the captions of the undivided one. The draws are not JAX's (its PRNG is another), so the two
-packages agree on the filter (``filter_logits``, exactly) and on the
-sampler's invariants, not on the tokens drawn.
+Determinism and the draws: JAX's, from its threefry2x32 PRNG
+(``ops.prng``). A bound sampler (``make_bimodal_sample_fn``) keys its
+n-th call fold_in(PRNGKey(seed), n), and step t of a decode draws
+``categorical(fold_in(key, t), logits)``: argmax of the filtered logits
+plus Gumbel noise made from the key's uniform floats (JAX
+``decode/sample.py:85-88, 144-150``). So a seed reproduces its captions,
+and they are JAX's up to near ties (the noise's log may differ from
+XLA's in its last bits). Each step draws the noise of the whole batch by
+each element's global index; a decode of a block of its rows (data
+parallelism, ``rows``) draws only its rows of it, so a split batch samples
+the captions of the undivided one. On the card the bits come from
+``threefry_bits32_kernel``.
 '''
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from bmt_tpu_torch.decode.greedy import (_greedy_core, bimodal_step_setup,
                                          stacks_device, unimodal_step_setup)
+from bmt_tpu_torch.ops import prng
 
 # the nucleus is cut inside the top _TOP_P_SUPPORT tokens (see filter_logits)
 _TOP_P_SUPPORT = 512
@@ -57,35 +61,38 @@ def filter_logits(log_probs: torch.Tensor, top_k: int = 0,
     return filtered
 
 
-def _step_generator(seed: tuple, step: int, device) -> torch.Generator:
-    words = np.random.SeedSequence([*seed, step]).generate_state(2)
-    g = torch.Generator(device=device)
-    g.manual_seed(int(words[0]) << 31 | int(words[1]) >> 1)
-    return g
+def _key(seed, device) -> prng.Key:
+    '''The decode's key: ``seed`` an int (PRNGKey(seed)), a tuple (seed,
+    data, ...) (PRNGKey(seed) with the data folded in: a bound sampler's
+    (seed, call)), or a key tensor or ``prng.Key``.'''
+    if isinstance(seed, prng.Key):
+        return prng.Key(seed.base.to(device), seed.path)
+    if isinstance(seed, torch.Tensor):
+        return prng.Key(seed.to(device))
+    seed = tuple(seed) if isinstance(seed, (tuple, list)) else (int(seed),)
+    return prng.Key(prng.key(seed[0], device), tuple(seed[1:]))
 
 
 def make_sample_select_fn(seed, temperature: float = 1.0, top_k: int = 0,
                           top_p: float = 1.0, rows=None):
-    '''The per-step sampler for ``_greedy_core``: Gumbel-max over the
-    filtered log-probs (a draw from their softmax). ``seed``: an int or a
-    tuple of ints. ``rows``: (lo, B) when the log-probs are rows lo.. of a
-    B-row batch; the step's noise is drawn for the B rows and these rows
-    keep theirs.'''
+    '''The per-step sampler for ``_greedy_core``: step t draws
+    ``categorical(fold_in(key, t), filtered log-probs)``, JAX's draw.
+    ``seed``: the decode's key (``_key``). ``rows``: (lo, B) when the
+    log-probs are rows lo.. of a B-row batch: the step's noise is that
+    block of the B rows' draw.'''
     if temperature <= 0:
         raise ValueError(
             f'temperature must be > 0, got {temperature} (use greedy '
             f'decoding for argmax behaviour)')
     t = float(temperature)
-    seed = tuple(seed) if isinstance(seed, (tuple, list)) else (int(seed),)
+    keys = {}             # {device: the decode's key there}
 
     def select(log_probs, step):
         logits = filter_logits(log_probs.float() / t, top_k, top_p)
-        g = _step_generator(seed, step, logits.device)
-        n, V = logits.shape
-        lo, B = (0, n) if rows is None else rows
-        u = torch.rand((B, V), generator=g, device=logits.device)[lo:lo + n]
-        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-        return (logits + gumbel).argmax(dim=-1)
+        if logits.device not in keys:
+            keys[logits.device] = _key(seed, logits.device)
+        return prng.categorical(keys[logits.device].fold_in(step), logits,
+                                rows)
 
     return select
 
@@ -130,10 +137,12 @@ def make_bimodal_sample_fn(dims, max_len: int, start_idx: int, end_idx: int,
     batches draw fresh samples, reproducibly for a run. Dispatches on
     ``dims.modality``, as the JAX binder does.
 
-    ``fn.for_batch()`` takes one call's number and returns part(model,
-    feature_stacks, rows) for the blocks of that batch (``rows`` = (lo,
-    B)): data parallelism binds a batch once, on the caller's thread, so
-    which replica or rank decodes a block changes no draw.'''
+    The n-th call's key is fold_in(PRNGKey(seed), n), as JAX's binder
+    keys it. ``fn.for_batch()`` takes one call's number and returns
+    part(model, feature_stacks, rows) for the blocks of that batch
+    (``rows`` = (lo, B)): data parallelism binds a batch once, on the
+    caller's thread, so which replica or rank decodes a block changes no
+    draw.'''
     make_sample_select_fn(seed, temperature)       # a bad temperature raises
     decode = (sample_decode_bimodal if dims.modality == 'audio_video'
               else sample_decode_unimodal)

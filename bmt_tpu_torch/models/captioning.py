@@ -163,8 +163,14 @@ class BiModalTransformer(nn.Module):
         the logits in the compute dtype with ``return_logits``. ``aux_out``
         gains the MoE load-balance losses: one per encoder layer (the sum
         of its two FFNs'), then one per decoder layer.'''
-        Av, Va = self.encode(src, masks, attention_impl, aux_out)
-        C = self.dropout(positional_encode(self.pe_C, self.emb_C(trg)))
+        # the caption embedding's key comes third, after the features'
+        # (JAX :164-166), though it is drawn after the encoder
+        A, V = self._embed_av(src)
+        key_C = self.dropout.take()
+        Av, Va = self.encoder(A, V, masks['A_mask'], masks['V_mask'],
+                              attention_impl, aux_out)
+        C = self.dropout(positional_encode(self.pe_C, self.emb_C(trg)),
+                         key=key_C)
         C = self.decoder(C, Av, Va, masks['A_mask'], masks['V_mask'],
                          masks['C_mask'], attention_impl, aux_out)
         logits = self.generator(C)
@@ -250,8 +256,11 @@ class UniModalTransformer(nn.Module):
         '''Teacher-forced forward, as ``BiModalTransformer.forward``;
         ``aux_out`` gains the encoder's MoE losses, then the decoder's.'''
         src_mask = self.src_mask(masks)
-        memory = self.encode(src, src_mask, attention_impl, aux_out)
-        t = self.dropout(positional_encode(self.pe, self.trg_emb(trg)))
+        x = self.dropout(positional_encode(self.pe, self._source(src)))
+        key_t = self.dropout.take()       # second, as JAX :308-309
+        memory = self.encoder(x, src_mask, attention_impl, aux_out)
+        t = self.dropout(positional_encode(self.pe, self.trg_emb(trg)),
+                         key=key_t)
         out = self.decoder(t, memory, src_mask, masks['C_mask'],
                            attention_impl, aux_out)
         logits = self.generator(out)

@@ -35,7 +35,7 @@ from torch import nn
 
 from bmt_tpu_torch.ops.attention import MultiheadAttention
 from bmt_tpu_torch.ops.layers import (Dropout, LayerNorm, checkpoint,
-                                      residual)
+                                      key_stream, next_key, residual)
 from bmt_tpu_torch.ops.moe import ffn_apply, ffn_or_moe
 from bmt_tpu_torch.parallel import seq
 
@@ -55,10 +55,11 @@ class EncoderLayer(nn.Module):
         def self_att(y):
             kv = seq.keys(y, src_mask)
             return self.self_att(y, kv, kv, src_mask, attention_impl)
-        x = residual(self.res[0], x, self_att, self.dropout)
+        part = seq.part_of(x, src_mask)
+        x = residual(self.res[0], x, self_att, self.dropout, part)
         return residual(self.res[1], x,
                         lambda y: ffn_apply(self.ff, y, aux_out, True),
-                        self.dropout)
+                        self.dropout, part)
 
 
 class Encoder(nn.Module):
@@ -111,31 +112,44 @@ class BiModalEncoderLayer(nn.Module):
         self.dropout = Dropout(dout_p)
 
     def forward(self, M1, M2, M1_mask, M2_mask, attention_impl='torch',
-                with_aux: bool = False):
+                with_aux: bool = False, key=None):
         '''(M1m2, M2m1), and with ``with_aux`` the sum of the layer's MoE
-        load-balance losses third (0 for dense FFNs).'''
+        load-balance losses third (0 for dense FFNs). ``key``: the layer's
+        dropout sites draw from a stream of it (JAX's per-layer
+        ``_rng_stream(key)``); None keeps the active stream or
+        generator.'''
+        with key_stream(key):
+            return self._forward(M1, M2, M1_mask, M2_mask, attention_impl,
+                                 with_aux)
+
+    def _forward(self, M1, M2, M1_mask, M2_mask, attention_impl, with_aux):
         drop = self.dropout
         aux = [] if with_aux else None
-        def att(mha, mask, kv=None):
+        # (i, n) when a modality is this rank's block of its sequence
+        p1, p2 = seq.part_of(M1, M1_mask), seq.part_of(M2, M2_mask)
+
+        def att(mha, mask, part, kv=None):
             def run(y):
                 k = seq.keys(y if kv is None else kv, mask)
-                return mha(y, k, k, mask, attention_impl)
+                return mha(y, k, k, mask, attention_impl, part)
             return run
         # 1. self-attention
-        M1 = residual(self.res_M1[0], M1, att(self.self_att_M1, M1_mask),
-                      drop)
-        M2 = residual(self.res_M2[0], M2, att(self.self_att_M2, M2_mask),
-                      drop)
+        M1 = residual(self.res_M1[0], M1,
+                      att(self.self_att_M1, M1_mask, p1), drop, p1)
+        M2 = residual(self.res_M2[0], M2,
+                      att(self.self_att_M2, M2_mask, p2), drop, p2)
         # 2. cross-attention: each modality queries the other
         M1m2 = residual(self.res_M1[1], M1,
-                        att(self.cross_att_M1, M2_mask, M2), drop)
+                        att(self.cross_att_M1, M2_mask, p1, M2), drop, p1)
         M2m1 = residual(self.res_M2[1], M2,
-                        att(self.cross_att_M2, M1_mask, M1), drop)
+                        att(self.cross_att_M2, M1_mask, p2, M1), drop, p2)
         # 3. feed-forward
         M1m2 = residual(self.res_M1[2], M1m2,
-                        lambda y: ffn_apply(self.ff_M1, y, aux), drop)
+                        lambda y: ffn_apply(self.ff_M1, y, aux, seq=p1),
+                        drop, p1)
         M2m1 = residual(self.res_M2[2], M2m1,
-                        lambda y: ffn_apply(self.ff_M2, y, aux), drop)
+                        lambda y: ffn_apply(self.ff_M2, y, aux, seq=p2),
+                        drop, p2)
         if not with_aux:
             return M1m2, M2m1
         return M1m2, M2m1, (sum(aux) if aux
@@ -166,10 +180,13 @@ class BiModalEncoder(nn.Module):
                       or any(p.requires_grad for p in self.parameters())))
         args = (A_mask, V_mask, attention_impl, aux_out is not None)
         for layer in self.layers:
+            # one key a layer, its sites a stream of it (JAX :181), so a
+            # recompute draws the same masks
+            key = next_key()
             if remat:
-                out = checkpoint(layer, A, V, *args)
+                out = checkpoint(layer, A, V, *args, key)
             else:
-                out = layer(A, V, *args)
+                out = layer(A, V, *args, key)
             A, V = out[:2]
             if aux_out is not None:
                 aux_out.append(out[2])

@@ -44,8 +44,9 @@ from torch import nn
 from bmt_tpu_torch.models.captioning import build_device
 from bmt_tpu_torch.models.encoders import BiModalEncoder, Encoder
 from bmt_tpu_torch.ops.layers import (Dropout, FeatureEmbedder, LayerNorm,
-                                      positional_encode,
-                                      positional_encoding_table)
+                                      next_key, positional_encode,
+                                      positional_encoding_table,
+                                      stream_block)
 from bmt_tpu_torch.parallel import seq
 from bmt_tpu_torch.params import init_params
 
@@ -137,11 +138,15 @@ class ProposalHead(nn.Module):
                     if with_layer_norm else None)
         self.dropout = Dropout(dout_p)
 
-    def forward(self, x: torch.Tensor, whole: int | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, whole: int | None = None,
+                key=None) -> torch.Tensor:
         '''``whole``: the sequence's length when ``x`` is a block of it
         (sequence parallelism); the first conv then reads a halo of the
-        neighbouring blocks instead of zero padding.'''
+        neighbouring blocks instead of zero padding. ``key``: the head's
+        ``prng.Key``; conv n's dropout draws fold_in(key, n) for the
+        (B, S, D) view whose element order JAX's bits follow (the kernel
+        reads the (B, D, S) output in place).'''
+        part = seq.part(x.shape[1], whole) if whole else None
         x = x.transpose(1, 2)                       # (B, D, S) for Conv1d
         last = len(self.convs) - 1
         for n, conv in enumerate(self.convs):
@@ -152,7 +157,11 @@ class ProposalHead(nn.Module):
                       else None)
             x = (conv(x) if haloed is None
                  else F.conv1d(haloed, conv.weight, conv.bias))
-            if n < last:
+            if n < last and key is not None:
+                x = F.relu(self.dropout(
+                    x.transpose(1, 2), (stream_block(1, part),),
+                    key.fold_in(n)).transpose(1, 2))
+            elif n < last:
                 x = F.relu(self.dropout(x))
         return x.transpose(1, 2)
 
@@ -302,12 +311,13 @@ def _heads(dims, d_in, conv_layers, anchors_num, kernel_sizes, device):
 
 
 def _modality_heads(dims, heads, x, anchors, stride, dense_targets, denoms,
-                    whole: int | None = None):
+                    whole: int | None = None, key=None):
     '''Every head of one modality; the targets are made once, since they
     depend only on (grid size, stride, anchors). ``whole``: the sequence's
     length when ``x`` is a block of it (sequence parallelism): the targets
     are the block's cells of the whole grid's, and predictions without
-    targets are gathered whole.'''
+    targets are gathered whole. ``key``: the modality's ``prng.Key``; head
+    i draws from fold_in(key, i) (JAX :353).'''
     S = x.shape[1]
     whole = whole or S
     first = seq.offset(S, whole)
@@ -317,8 +327,10 @@ def _modality_heads(dims, heads, x, anchors, stride, dense_targets, denoms,
         if S != whole:
             targets = tuple(t[..., first:first + S] for t in targets)
     preds, total, terms = [], 0.0, {}
-    for head in heads:
-        decoded = yolo_decode(head(x, whole), anchors, stride, first)
+    for i, head in enumerate(heads):
+        decoded = yolo_decode(
+            head(x, whole, None if key is None else key.fold_in(i)),
+            anchors, stride, first)
         p = decoded['predictions']
         if targets is None and S != whole:
             p = seq.gather(p.view(p.shape[0], -1, S, 3), whole, 2)
@@ -403,19 +415,21 @@ class MultimodalProposalGenerator(nn.Module):
         if dims.use_linear_embedder:
             A, V = self.emb_A(A), self.emb_V(V)
         A = self.dropout(positional_encode(self.pe_A, A,
-                                           seq.offset(A.shape[1], Sa)))
+                                           seq.offset(A.shape[1], Sa)),
+                         (stream_block(1, seq.part(A.shape[1], Sa)),))
         V = self.dropout(positional_encode(self.pe_V, V,
-                                           seq.offset(V.shape[1], Sv)))
+                                           seq.offset(V.shape[1], Sv)),
+                         (stream_block(1, seq.part(V.shape[1], Sv)),))
         Av, Va = self.encoder(A, V, masks['A_mask'], masks['V_mask'],
                               attention_impl)
         denoms_A, denoms_V = (loss_denoms if loss_denoms is not None
                               else (None, None))
         preds_A, loss_A, losses_A = _modality_heads(
             dims, self.heads_A, Av, self.anchors_A, dims.stride_A,
-            dense_targets, denoms_A, Sa)
+            dense_targets, denoms_A, Sa, next_key())
         preds_V, loss_V, losses_V = _modality_heads(
             dims, self.heads_V, Va, self.anchors_V, dims.stride_V,
-            dense_targets, denoms_V, Sv)
+            dense_targets, denoms_V, Sv, next_key())
         return (torch.cat([preds_A, preds_V], dim=1), loss_A + loss_V,
                 losses_A, losses_V)
 
@@ -478,10 +492,11 @@ class UnimodalProposalGenerator(nn.Module):
         if dims.use_linear_embedder:
             x = self.emb(x)
         x = self.dropout(positional_encode(self.pe, x,
-                                           seq.offset(x.shape[1], S)))
+                                           seq.offset(x.shape[1], S)),
+                         (stream_block(1, seq.part(x.shape[1], S)),))
         x = self.encoder(x, src_mask, attention_impl)
         return _modality_heads(dims, self.heads, x, self.anchors, self.stride,
-                               dense_targets, loss_denoms, S)
+                               dense_targets, loss_denoms, S, next_key())
 
 
 def proposal_class(dims: PropModelDims):

@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from bmt_tpu_torch.ops.flash_attention import flash_attention
-from bmt_tpu_torch.ops.layers import Dropout
+from bmt_tpu_torch.ops.layers import Dropout, stream_block
 from bmt_tpu_torch.ops.quant import per_127
 from bmt_tpu_torch.parallel import tensor
 from bmt_tpu_torch.parallel.tensor import (ColumnParallelLinear,
@@ -95,9 +95,12 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask: torch.Tensor | None,
-                attention_impl: str = 'torch') -> torch.Tensor:
+                attention_impl: str = 'torch',
+                seq: tuple | None = None) -> torch.Tensor:
         '''q (B, Sq, Dq), k (B, Sk, Dk), v (B, Sk, Dv); mask (B, 1, Sk)
-        padding, (B, Sq, Sk) causal+padding, or None. Returns (B, Sq, Dq).'''
+        padding, (B, Sq, Sk) causal+padding, or None. Returns (B, Sq, Dq).
+        ``seq`` = (i, n): q is the i-th of n sequence blocks (the dropout
+        draws that block of the whole sequence's mask).'''
         H = self.heads
         qp = split_heads(self.q2d(q), H)
         kp = split_heads(self.k2d(k), H)
@@ -112,7 +115,8 @@ class MultiheadAttention(nn.Module):
         else:
             raise ValueError(f'attention_impl {attention_impl!r} is not one '
                              f'of {ATTENTION_IMPLS}')
-        out = self.dropout(out, tensor.block(self.q2d, 1))
+        out = self.dropout(out, (tensor.block(self.q2d, 1),
+                                 stream_block(2, seq)))
         return self.d2q(merge_heads(out))
 
 

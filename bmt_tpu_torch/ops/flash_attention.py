@@ -40,9 +40,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import threading
 
 import torch
+
+from bmt_tpu_torch.ops import launches
 
 KERNEL = 'flash_attn_fwd'
 BWD_LIBRARY = 'flash_attn_bwd'
@@ -357,8 +358,7 @@ def _flash_attn_fwd_op(q, k, v, key_mask, causal, with_lse):
                            dtype=torch.float32, device=q.device)
         _run(KERNEL, fwd_split, q, k, v, key_mask, out, lse, part,
              *_dims(q, k), int(causal), splits)
-    with _count_lock:            # replicas decode in threads of their own
-        flash_attention.launches += 1
+    launches.launched(KERNEL)
     return out, (lse if with_lse else q.new_empty(0, dtype=torch.float32))
 
 
@@ -381,7 +381,7 @@ def flash_attention_bwd_dq(q, k, v, key_mask, causal: bool, lse, drow,
     dq = torch.empty_like(q)
     _run(KERNEL_DQ, _bwd_kernels()[0], q, k, v, key_mask, dout, lse, drow,
          dq, *_dims(q, k), int(causal))
-    flash_attention_bwd_dq.launches += 1
+    launches.launched(KERNEL_DQ)
     return dq
 
 
@@ -396,36 +396,21 @@ def flash_attention_bwd_dkv(q, k, v, key_mask, causal: bool, lse, drow,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _run(KERNEL_DKV, _bwd_kernels()[1], q, k, v, key_mask, dout, lse, drow,
          dk, dv, *_dims(q, k), int(causal))
-    flash_attention_bwd_dkv.launches += 1
+    launches.launched(KERNEL_DKV)
     return dk, dv
 
 
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
-_count_lock = threading.Lock()
+ATTENTION_KERNELS = (KERNEL, KERNEL_DQ, KERNEL_DKV)
 
 
 def launch_counts() -> dict:
-    '''{kernel name: launches so far} of the three kernels.'''
-    return {KERNEL: flash_attention.launches,
-            KERNEL_DQ: flash_attention_bwd_dq.launches,
-            KERNEL_DKV: flash_attention_bwd_dkv.launches}
-
-
-def add_launches(counts: dict) -> None:
-    '''Add {kernel name: launches} to the counts: a CUDA graph's replay
-    launches the kernels that its capture recorded (``train.graphs``), and
-    a capture itself launches none.'''
-    with _count_lock:
-        flash_attention.launches += counts.get(KERNEL, 0)
-        flash_attention_bwd_dq.launches += counts.get(KERNEL_DQ, 0)
-        flash_attention_bwd_dkv.launches += counts.get(KERNEL_DKV, 0)
+    '''{kernel name: launches so far} of the three kernels
+    (``ops.launches`` counts every kernel of the port).'''
+    return launches.counts(ATTENTION_KERNELS)
 
 
 def reset_launch_counts() -> None:
-    flash_attention.launches = 0
-    flash_attention_bwd_dq.launches = 0
-    flash_attention_bwd_dkv.launches = 0
+    launches.reset(ATTENTION_KERNELS)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -466,7 +451,9 @@ def flash_attention(q, k, v, mask) -> torch.Tensor:
     return flash_attention_forward(q, k, v, key_mask, causal)
 
 
-flash_attention.launches = 0
+launches.register(KERNEL, flash_attention)
+launches.register(KERNEL_DQ, flash_attention_bwd_dq)
+launches.register(KERNEL_DKV, flash_attention_bwd_dkv)
 
 
 def _check(name, **tensors):

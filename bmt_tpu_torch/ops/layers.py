@@ -5,12 +5,26 @@ Each module keeps the JAX parameter names as attribute names (a JAX linear
 JAX parameter tree across by walking them. ``Dropout`` modules sit where the
 JAX package draws dropout; serving runs in ``eval()``, where they are no-ops.
 
-In training, the JAX package draws every mask from a key folded from
-(seed, step). The counterpart here is an explicit ``torch.Generator``: under
-``dropout_generator(g)`` every ``Dropout`` draws its mask from ``g``, so a
-step's masks depend only on how ``g`` was seeded, not on what ran before.
-``checkpoint`` (the counterpart of ``jax.checkpoint``) replays those draws
-when the backward recomputes a block, eagerly and inside a CUDA graph.
+In training, a step's dropout masks come from one of two sources, as the
+JAX package's ``--prng_impl`` picks:
+
+- threefry2x32: a key stream (``key_stream``), the counterpart of JAX's
+  ``_rng_stream``: the i-th key a stream hands out is fold_in(key, i), and
+  every ``Dropout`` takes the next one at the point where the JAX model
+  calls ``next(rngs)``, so each mask is JAX's bit for bit
+  (``ops.prng.dropout``, one kernel launch a site on the card). A mask is a
+  function of the key and of each element's global index, so a rank whose
+  tensor is a block of the global one (its batch rows, ``row_block``; its
+  tensor-parallel slice, sequence or expert block, ``Dropout``'s
+  ``blocks``) draws its part of the one global mask. A recompute under
+  ``checkpoint`` draws the same key again;
+- rbg (or outside a stream): an explicit ``torch.Generator``: under
+  ``dropout_generator(g)`` every ``Dropout`` draws its mask from ``g``, so a
+  step's masks depend only on how ``g`` was seeded, not on what ran before.
+  ``checkpoint`` (the counterpart of ``jax.checkpoint``) replays those
+  draws when the backward recomputes a block, eagerly and inside a CUDA
+  graph (``RematStarts``). JAX leaves rbg's bits to the backend, so these
+  masks are the port's own.
 '''
 from __future__ import annotations
 
@@ -24,11 +38,72 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from bmt_tpu_torch.ops import prng
 from bmt_tpu_torch.parallel import tensor
 from bmt_tpu_torch.parallel.tensor import (ColumnParallelLinear,
                                            RowParallelLinear)
 
 _generator: torch.Generator | None = None
+
+
+class KeyStream:
+    '''fold_in(key, 1), fold_in(key, 2), ...: JAX's ``_rng_stream`` of a
+    ``prng.Key``.'''
+
+    def __init__(self, key: prng.Key):
+        self.key, self.count = key, 0
+
+    def next(self) -> prng.Key:
+        self.count += 1
+        return self.key.fold_in(self.count)
+
+
+# process-wide, not per thread: on the card the autograd engine runs the
+# backward, and with it a remat layer's recompute, on a thread of its own
+_stream: KeyStream | None = None
+_rows: tuple | None = None
+
+
+@contextlib.contextmanager
+def key_stream(key):
+    '''Inside the block every ``Dropout`` in training mode takes its key
+    from a fresh stream of ``key`` (a ``prng.Key`` or a key tensor); None
+    leaves the active stream as it is.'''
+    global _stream
+    if key is None:
+        yield
+        return
+    previous, _stream = _stream, KeyStream(prng.as_key(key))
+    try:
+        yield
+    finally:
+        _stream = previous
+
+
+def next_key() -> prng.Key | None:
+    '''The active stream's next key, None without a stream.'''
+    return None if _stream is None else _stream.next()
+
+
+def stream_block(dim: int, part: tuple | None) -> tuple | None:
+    '''A sequence- or expert-parallel block (i, n) at ``dim`` as one of
+    ``Dropout``'s ``blocks``: under a key stream the rank draws that block
+    of the global mask. None for a whole tensor, and without a stream,
+    where the generator's ranks draw masks of their own.'''
+    return None if part is None or _stream is None else (dim, *part)
+
+
+@contextlib.contextmanager
+def row_block(i: int, n: int):
+    '''The batch dim of every tensor that a ``Dropout`` draws for inside
+    the block is the i-th of n equal row blocks of the global batch (a data
+    parallel rank's rows): its masks are those rows of the global masks.'''
+    global _rows
+    previous, _rows = _rows, (int(i), int(n))
+    try:
+        yield
+    finally:
+        _rows = previous
 
 
 @contextlib.contextmanager
@@ -45,35 +120,55 @@ def dropout_generator(generator: torch.Generator | None):
 
 class Dropout(nn.Module):
     '''Inverted dropout: in training, zero each element with probability p
-    and scale the rest by 1/(1-p); the identity in eval mode or at p = 0.
-    The mask comes from the generator of ``dropout_generator``, or from
-    torch's default generator outside one. It is drawn and scaled in x's
-    dtype, so in bf16 the scale rounds to bf16, as the JAX package's
-    ``x / keep`` rounds ``keep``.
+    and scale the rest by 1/(1-p); the identity in eval mode or at p = 0,
+    which takes no key (every site of a model has the same p, and the
+    JAX sites that take none are the reference's dropout-free ones).
 
-    ``block`` = (dim, i, n): x is the i-th of n equal slices along ``dim``
-    of a tensor split over the mp ranks (``parallel.tensor.block``); the
-    mask is drawn for the whole tensor and sliced, so a rank drops what one
-    process would drop there.'''
+    Inside a ``key_stream``: JAX's threefry mask of ``key``, or of the
+    stream's next key (``ops.prng.dropout``). Else the mask comes from the
+    generator of ``dropout_generator``, or from torch's default generator
+    outside one, drawn and scaled in x's dtype.
 
-    def __init__(self, p: float = 0.0):
+    ``blocks``: (dim, i, n) each, or None: x is the i-th of n equal slices
+    along ``dim`` of the tensor that one process would draw for (an mp
+    rank's, ``parallel.tensor.block``; a sequence- or expert-parallel
+    rank's, ``stream_block``), and under ``row_block`` the rows of its
+    batch dim ``batch_dim``. The mask is the whole tensor's there, so a rank
+    drops what one process would drop.'''
+
+    def __init__(self, p: float = 0.0, batch_dim: int = 0):
         super().__init__()
         self.p = p
+        self.batch_dim = batch_dim
 
-    def forward(self, x: torch.Tensor, block: tuple | None = None
-                ) -> torch.Tensor:
+    def take(self) -> prng.Key | None:
+        '''The key of this dropout's next draw, taken now from the active
+        stream (where JAX evaluates ``next(rngs)`` before the sublayer that
+        the dropout follows); None when it draws no key.'''
+        if not self.training or self.p == 0.0:
+            return None
+        return next_key()
+
+    def forward(self, x: torch.Tensor, blocks=(),
+                key: prng.Key | None = None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        if block is None:
-            keep = torch.empty_like(x)
-        else:
-            dim, i, n = block
-            shape = list(x.shape)
-            shape[dim] *= n
-            keep = x.new_empty(shape)
+        if key is None:
+            key = next_key()
+        parts = [(dim % x.dim(), i, n) for dim, i, n in
+                 (b for b in blocks if b is not None)]
+        if key is not None and _rows is not None:
+            parts.append((self.batch_dim % x.dim(), *_rows))
+        shape, offsets = list(x.shape), [0] * x.dim()
+        for dim, i, n in parts:
+            offsets[dim] = i * x.shape[dim]
+            shape[dim] = n * x.shape[dim]
+        if key is not None:
+            return prng.dropout(x, key, self.p, shape, offsets)
+        keep = x.new_empty(shape) if parts else torch.empty_like(x)
         keep.bernoulli_(1.0 - self.p, generator=_generator)
-        if block is not None:
-            keep = keep.narrow(dim, i * x.shape[dim], x.shape[dim])
+        for dim, _, _ in parts:
+            keep = keep.narrow(dim, offsets[dim], x.shape[dim])
         return x * keep.div_(1.0 - self.p)
 
     def extra_repr(self) -> str:
@@ -206,15 +301,23 @@ class FeedForward(nn.Module):
         self.fc2 = RowParallelLinear(d_ff, d_model, device=device)
         self.dropout = Dropout(dout_p)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.dropout(F.relu(self.fc1(x)), tensor.block(self.fc1, -1))
+    def forward(self, x: torch.Tensor, seq: tuple | None = None
+                ) -> torch.Tensor:
+        '''``seq`` = (i, n): x is that block of its sequence (dim 1).'''
+        h = self.dropout(F.relu(self.fc1(x)), (tensor.block(self.fc1, -1),
+                                               stream_block(1, seq)))
         return self.fc2(h)
 
 
 def residual(norm: LayerNorm, x: torch.Tensor, sublayer,
-             dropout: nn.Module) -> torch.Tensor:
-    '''Pre-norm residual: x + dropout(sublayer(LN(x))).'''
-    return x + dropout(sublayer(norm(x)))
+             dropout: nn.Module, seq: tuple | None = None) -> torch.Tensor:
+    '''Pre-norm residual: x + dropout(sublayer(LN(x))). The dropout's key
+    is taken before the sublayer runs, as JAX's ``residual(..., next(rngs))``
+    takes it; ``seq`` = (i, n): x is that block of its sequence (dim 1).'''
+    if not isinstance(dropout, Dropout):
+        return x + dropout(sublayer(norm(x)))
+    key = dropout.take()
+    return x + dropout(sublayer(norm(x)), (stream_block(1, seq),), key)
 
 
 class Bridge(nn.Module):

@@ -53,7 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bmt_tpu_torch.ops.layers import Dropout, FeedForward
+from bmt_tpu_torch.ops.layers import Dropout, FeedForward, stream_block
 from bmt_tpu_torch.parallel.mesh import CopyToGroup, ReduceFromGroup
 
 
@@ -79,7 +79,7 @@ class MoEFeedForward(nn.Module):
         self.router = _Leaves(w=((D, E), device))
         self.experts = _Leaves(w1=((E, D, Fd), device), b1=((E, Fd), device),
                                w2=((E, Fd, D), device), b2=((E, D), device))
-        self.dropout = Dropout(dout_p)
+        self.dropout = Dropout(dout_p, batch_dim=1)     # h is (E, B, C, F)
         self.capacity_factor = capacity_factor
         self.d_ff = d_ff
         self.ep = None          # the ep ranks' group when experts are cut
@@ -163,8 +163,10 @@ class MoEFeedForward(nn.Module):
             xin = torch.einsum('bsec,bsd->ebcd', dispatch.to(dt), xm)
             h = F.relu(torch.einsum('ebcd,edf->ebcf', xin, w1)
                        + b1[:, None, None, :])
-            h = self.dropout(h, None if mp is None
-                             else (-1, mp.rank, mp.size))
+            h = self.dropout(h, (None if mp is None
+                                 else (-1, mp.rank, mp.size),
+                                 stream_block(0, (self.ep.rank, self.ep.size)
+                                              if n_local < E else None)))
             if mp is None:
                 out = (torch.einsum('ebcf,efd->ebcd', h, w2)
                        + b2[:, None, None, :])
@@ -206,9 +208,11 @@ def ffn_or_moe(d_model: int, d_ff: int, moe_experts: int = 0,
 
 
 def ffn_apply(ff: nn.Module, x: torch.Tensor, aux_out: list | None = None,
-              deterministic: bool | None = None) -> torch.Tensor:
+              deterministic: bool | None = None, seq: tuple | None = None
+              ) -> torch.Tensor:
     '''Run a dense or MoE FFN; only a MoE one reads ``aux_out`` and
-    ``deterministic`` (the JAX package's ``ffn_apply``).'''
+    ``deterministic`` (the JAX package's ``ffn_apply``), only a dense one
+    ``seq``, x's sequence block (``FeedForward``).'''
     if isinstance(ff, MoEFeedForward):
         return ff(x, aux_out, deterministic)
-    return ff(x)
+    return ff(x, seq)

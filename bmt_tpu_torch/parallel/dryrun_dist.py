@@ -25,9 +25,7 @@ import torch
 
 
 def dryrun_dims():
-    '''The JAX fixture's dims with dropout off: a rank draws the masks of
-    its own rows (``DataParallel.seed_rank``), where the JAX package draws
-    one mask for the global batch (ROADMAP.md section 3).'''
+    '''The JAX fixture's dims, with dropout off as the fixture has it.'''
     from bmt_tpu_torch.models import CapModelDims
     return CapModelDims(voc_size=64, d_model_A=16, d_model_V=16,
                         d_model_C=16, d_model=32, H=2, N=1, d_ff_A=32,

@@ -285,11 +285,13 @@ class DataParallel:
 
     @property
     def seed_rank(self) -> int:
-        '''The index of this rank's dropout stream (``steps.step_seed``):
-        its (dp, sp) place, so the ep and mp ranks of one row block draw
-        the same masks (an mp rank keeps its slice of a mask inside a
-        tensor-parallel block, ``ops.layers.Dropout``) and each sp rank
-        draws for its own rows; 0 in one process.'''
+        '''The index of this rank's dropout stream under rbg
+        (``steps.step_seed``): its (dp, sp) place, so the ep and mp ranks
+        of one row block draw the same masks (an mp rank keeps its slice
+        of a mask inside a tensor-parallel block, ``ops.layers.Dropout``)
+        and each sp rank draws for its own rows; 0 in one process. Under
+        threefry no rank needs one: each draws its block of the one global
+        mask from its offsets.'''
         return self.dp_rank * self.n_sp + self.sp_rank
 
     def local_rows(self, B: int) -> Optional[tuple]:

@@ -29,11 +29,13 @@ its forward and gradients (no trainer runs it):
   the bubble (pp - 1) / (n_micro + pp - 1) in both directions.
 
 Under gloo, CUDA tensors travel through host copies (as ``Group``'s
-collectives do). Dropout: with a ``generator``, each (stage layer, tick)
-draws from a generator of its own, seeded from one draw of ``generator``
-and that pair (``train.steps.step_seed``), as JAX folds (stage layer,
-tick) into its key; the masks
-differ from the sequential stack's, so parity is held with dropout off.
+collectives do). Dropout: with a threefry ``key``, the layer j of stage s
+at tick t draws from a stream of fold_in(fold_in(key, s n_local + j), t),
+as JAX's (``pipeline.py:99-100``), so the masks are JAX's pipelined ones
+bit for bit (not the sequential stack's: a layer's key depends on its
+tick). With a ``generator`` instead (rbg), each (stage layer, tick) draws
+from a generator of its own, seeded from one draw of ``generator`` and that
+pair (``train.steps.step_seed``).
 '''
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from bmt_tpu_torch.ops.layers import dropout_generator
+from bmt_tpu_torch.ops.layers import dropout_generator, key_stream
+from bmt_tpu_torch.ops import prng
 from bmt_tpu_torch.parallel.mesh import CopyToGroup, Group, ReduceFromGroup
 
 
@@ -143,8 +146,8 @@ class Tie(torch.autograd.Function):
 
 def pipeline_layer_stack(stage_layers, inputs: tuple, layer_fn: Callable,
                          group: Group, n_micro: int,
-                         generator: Optional[torch.Generator] = None
-                         ) -> tuple:
+                         generator: Optional[torch.Generator] = None,
+                         key=None) -> tuple:
     '''Run ``layer_fn`` over every layer of a stack split into stages over
     ``group`` (this rank, ``group.rank``, holds stage ``stage_layers``,
     from ``stack_layer_params``), pipelined over ``n_micro`` microbatches.
@@ -155,7 +158,8 @@ def pipeline_layer_stack(stage_layers, inputs: tuple, layer_fn: Callable,
     layer_fn: (layer, carry tuple) -> carry tuple;
     n_micro:  the microbatch count; B must divide by it;
     generator: when given, dropout draws per (stage layer, tick) as the
-              module's docstring says.
+              module's docstring says;
+    key:      a threefry ``prng.Key`` (or key tensor) in its place.
 
     Returns the carry at (B, ...) shapes, the same on every rank.'''
     pp, stage = group.size, group.rank
@@ -186,6 +190,11 @@ def pipeline_layer_stack(stage_layers, inputs: tuple, layer_fn: Callable,
         if runs(stage, t):
             carry = mbs[t] if stage == 0 else carry
             for j, layer in enumerate(stage_layers):
+                if key is not None:
+                    with key_stream(prng.as_key(key).fold_in(
+                            stage * n_local + j, t)):
+                        carry = tuple(layer_fn(layer, carry))
+                    continue
                 if base is None:
                     carry = tuple(layer_fn(layer, carry))
                     continue
@@ -221,7 +230,8 @@ def pipeline_layer_stack(stage_layers, inputs: tuple, layer_fn: Callable,
 def pipelined_bimodal_encoder_forward(stage_layers, A, V, A_mask, V_mask,
                                       group: Group, n_micro: int,
                                       generator=None,
-                                      attention_impl: str = 'torch'):
+                                      attention_impl: str = 'torch',
+                                      key=None):
     '''The pipelined ``models.encoders.BiModalEncoder`` forward (JAX
     ``pipelined_bimodal_encoder_forward``): this rank's stage of
     ``BiModalEncoderLayer``s (``stack_layer_params(encoder.layers, pp,
@@ -233,5 +243,6 @@ def pipelined_bimodal_encoder_forward(stage_layers, A, V, A_mask, V_mask,
         return M1, M2, m1, m2
 
     Av, Va, _, _ = pipeline_layer_stack(stage_layers, (A, V, A_mask, V_mask),
-                                        layer_fn, group, n_micro, generator)
+                                        layer_fn, group, n_micro, generator,
+                                        key)
     return Av, Va

@@ -76,6 +76,20 @@ def offset(length: int, whole: int) -> int:
     return 0 if group is None else group.rank * length
 
 
+def part(length: int, whole: int) -> Optional[tuple]:
+    '''(rank, ranks) when a sequence of ``length`` rows is this rank's block
+    of one of ``whole`` rows (its dropout masks are that block of the whole
+    sequence's); None when it is whole.'''
+    group = _group_for(length, whole)
+    return None if group is None else (group.rank, group.size)
+
+
+def part_of(x: torch.Tensor, mask: Optional[torch.Tensor]) -> Optional[tuple]:
+    '''``part`` of x (B, S, D) against its key padding mask (B, 1, S); None
+    without a mask.'''
+    return None if mask is None else part(x.shape[1], mask.shape[-1])
+
+
 class _GatherSeq(torch.autograd.Function):
     '''All ranks' blocks joined along ``dim``; the backward sums the whole
     gradient over the ranks and keeps this rank's block.'''

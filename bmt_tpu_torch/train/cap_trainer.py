@@ -75,9 +75,9 @@ from bmt_tpu_torch.train.loops import (make_decode_fn, make_strategy_fn,
 from bmt_tpu_torch.train.optim import (ReduceLROnPlateau, build_optimizer,
                                        set_learning_rate)
 from bmt_tpu_torch.train.options import (attention_impl, check_ported,
-                                         compute_dtype, report_epoch,
-                                         report_graphs, report_time,
-                                         resolve_device)
+                                         compute_dtype, prng_impl,
+                                         report_epoch, report_graphs,
+                                         report_time, resolve_device)
 from bmt_tpu_torch.train.steps import (TrainState, init_train_state,
                                        make_cap_train_step, make_cap_val_step,
                                        make_multistep)
@@ -289,7 +289,8 @@ def train_cap(cfg: Config, device=None):
     decode_fn = make_decode_fn(
         make_strategy_fn(cfg, dims, cfg.max_len, train_ds, impl, seed), dtype,
         dp=dp_step)
-    state = init_train_state(model, optimizer, seed, ema=ema_decay > 0)
+    state = init_train_state(model, optimizer, seed, ema=ema_decay > 0,
+                             prng_impl=prng_impl(cfg))
 
     # trainable means not frozen, as the reference counts requires_grad
     n_params = sum(p.numel() for p in optimizer.params)

@@ -10,11 +10,15 @@ step's body (``TrainStep.body``) into a graph whose inputs are buffers of
 the geometry's shapes; the graph is then replayed for that batch and every
 later one:
 
-1. the batch is copied into the input buffers from pinned host memory;
-2. the dropout generator, and a generator for each remat block's recompute
-   (``ops.layers.RematStarts``), are reseeded to ``step.seed(state)``,
-   each registered with the graph, so a replay draws the masks of the
-   eager step at the same (seed, step, rank);
+1. the batch is copied into the input buffers from pinned host memory, and
+   under threefry the step's key with it (``'rng'``, from the host's step
+   count): the dropout kernels read the key from that buffer, so a replay
+   draws the step's own masks, and a remat block's recompute draws its
+   first run's (the key is the same; no state moves);
+2. under rbg the dropout generator, and a generator for each remat block's
+   recompute (``ops.layers.RematStarts``), are reseeded to
+   ``step.seed(state)``, each registered with the graph, so a replay draws
+   the masks of the eager step at the same (seed, step, rank);
 3. the graph is replayed: the forward, the backward and the optimizer
    update, the learning rate of the device-held update count read from
    the optimizer's rate table;
@@ -39,7 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bmt_tpu_torch.ops import flash_attention as attention_kernels
+from bmt_tpu_torch.ops import launches as kernel_launches
 from bmt_tpu_torch.ops.layers import RematStarts, remat_starts
 
 
@@ -79,7 +83,7 @@ class StepGraphs:
 
     def run(self, step, state, batch: dict) -> dict:
         '''One train step of ``state`` on ``batch``; its metrics.'''
-        host = step.host_inputs(batch)
+        host = step.host_inputs(batch, state)
         key = _geometry(step, host)
         entry = self.entries.get(key)
         if entry is None:
@@ -103,11 +107,11 @@ class StepGraphs:
                                        dtype=torch.from_numpy(v[:0]).dtype)
                         for k, v in host.items()}
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.generator)
-        for g in entry.starts.make_generators(state.generator):
-            graph.register_generator_state(g)
-        launches, calls = attention_kernels.launch_counts(), \
-            state.optimizer.calls
+        if state.generator is not None:
+            graph.register_generator_state(state.generator)
+            for g in entry.starts.make_generators(state.generator):
+                graph.register_generator_state(g)
+        launches, calls = kernel_launches.counts(), state.optimizer.calls
         t0 = perf_counter()
         try:
             with torch.cuda.graph(graph, pool=self.pool,
@@ -122,10 +126,9 @@ class StepGraphs:
         self.capture_s += perf_counter() - t0
         # the capture ran the step's Python once and launched nothing: its
         # counts are the replay's to add
-        after = attention_kernels.launch_counts()
+        after = kernel_launches.counts()
         entry.launches = {k: after[k] - launches[k] for k in after}
-        attention_kernels.add_launches({k: -n for k, n in
-                                        entry.launches.items()})
+        kernel_launches.add({k: -n for k, n in entry.launches.items()})
         state.optimizer.calls = calls
         entry.graph = graph
         if self._addresses is None:
@@ -142,13 +145,14 @@ class StepGraphs:
         for k, buf in entry.inputs.items():
             pinned = torch.from_numpy(np.ascontiguousarray(host[k]))
             buf.copy_(pinned.pin_memory(), non_blocking=True)
-        seed = step.seed(state)
-        state.generator.manual_seed(seed)
-        entry.starts.reseed(seed)
+        if state.generator is not None:
+            seed = step.seed(state)
+            state.generator.manual_seed(seed)
+            entry.starts.reseed(seed)
         entry.graph.replay()
         state.step += 1
         state.optimizer.calls += 1
-        attention_kernels.add_launches(entry.launches)
+        kernel_launches.add(entry.launches)
         self.replayed += 1
         return {k: v.clone() for k, v in entry.outputs.items()}
 

@@ -38,6 +38,17 @@ def attention_impl(cfg) -> str:
     return ATTENTION_IMPL[flag]
 
 
+def prng_impl(cfg) -> str:
+    '''The dropout PRNG of ``--prng_impl`` (``train.steps.init_train_state``):
+    'rbg' by default, as the JAX trainers default; 'threefry2x32' draws
+    JAX's masks bit for bit.'''
+    from bmt_tpu_torch.train.steps import PRNG_IMPLS
+    flag = getattr(cfg, 'prng_impl', 'rbg')
+    if flag not in PRNG_IMPLS:
+        raise ValueError(f'--prng_impl {flag!r}: one of {PRNG_IMPLS}')
+    return flag
+
+
 def compute_dtype(cfg, default: str = 'float32') -> torch.dtype:
     return (torch.bfloat16
             if getattr(cfg, 'compute_dtype', default) == 'bfloat16'

@@ -36,9 +36,9 @@ from bmt_tpu_torch.train.loops import train_epoch_prop, validate_prop
 from bmt_tpu_torch.train.optim import (ReduceLROnPlateau, build_optimizer,
                                        set_learning_rate)
 from bmt_tpu_torch.train.options import (attention_impl, check_ported,
-                                         compute_dtype, report_epoch,
-                                         report_graphs, report_time,
-                                         resolve_device)
+                                         compute_dtype, prng_impl,
+                                         report_epoch, report_graphs,
+                                         report_time, resolve_device)
 from bmt_tpu_torch.train.steps import (init_train_state,
                                        make_multistep,
                                        make_prop_inference_step,
@@ -124,7 +124,8 @@ def train_prop(cfg: Config, device=None):
                  else None)
     inference_step = make_prop_inference_step(dims, pad_idx, impl, dtype,
                                               dp=dp_step)
-    state = init_train_state(model, optimizer, seed, ema=ema_decay > 0)
+    state = init_train_state(model, optimizer, seed, ema=ema_decay > 0,
+                             prng_impl=prng_impl(cfg))
 
     n_params = sum(p.numel() for p in optimizer.params)
     print(f'Total Number of Trainable Parameters: {n_params / 1e6} Mil.')

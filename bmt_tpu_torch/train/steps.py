@@ -15,10 +15,16 @@ parameters stay fp32 masters; with a ``compute_dtype`` below fp32 the
 forward runs on ``.to(compute_dtype)`` copies (``torch.func.functional_call``),
 so the gradients land on the fp32 masters as fp32 values.
 
-Dropout draws from the state's own ``torch.Generator``, reseeded from
-(seed, step) at every step: the counterpart of
-``fold_in(state.rng, state.step)``. A step's masks depend only on
-(seed, step), not on what ran before in the process.
+Dropout draws as the state's ``prng_impl`` says (``init_train_state``;
+JAX's ``--prng_impl``). Under ``threefry2x32``, the step API's default as
+in JAX, the step's key is ``fold_in(key(seed), step)``, computed on the
+host from its step count (no device read) and handed to the body as its
+``'rng'`` input, and each microbatch of an accumulated step draws from
+``fold_in(step key, i)``: the masks are JAX's bit for bit
+(``ops.layers.key_stream``). Under ``rbg`` and ``unsafe_rbg`` (the
+trainers' default) they come from the state's own ``torch.Generator``,
+reseeded from (seed, step) at every step. Either way a step's masks depend
+only on (seed, step), not on what ran before in the process.
 
 Data parallelism (``dp``, a ``parallel.DataParallel``): each rank runs its
 rows of the global batch and the step keeps the global batch's semantics.
@@ -29,10 +35,14 @@ gradients are summed (not averaged) before the clip and the update, and the
 MoE load-balance term keeps the global batch's weight. The sums run over
 ``dp``'s data group: the dp ranks, and the sp ranks of the proposal step,
 which hold the same rows' sequence blocks; the ep ranks of one row block
-compute the same loss and need no sum. Dropout draws from a generator
-seeded by (seed, step, ``dp.seed_rank``): the ep ranks of a row block draw
-the same masks, the other ranks their own; the JAX package draws one global
-mask, so parity is held with dropout off.
+compute the same loss and need no sum. Under threefry a rank draws its
+block of the one global mask, as JAX does: its rows'
+(``ops.layers.row_block``; a rank's microbatch i is the (rank accum + i)-th
+block of the global batch, inside global microbatch (rank accum + i) //
+n_dp, whose key it folds in), its sequence block's and its mp and ep
+slices'. Under rbg it draws from a generator seeded by (seed, step,
+``dp.seed_rank``): the ep ranks of a row block draw the same masks, the
+other ranks their own.
 
 ``--fsdp`` (``dp.shards``): a step gathers the whole large parameters
 before its forward (``dp.gather_params``) and keeps its shards of their
@@ -43,8 +53,9 @@ padding masks are gathered whole, the model runs inside
 ``parallel.seq.sequence_parallel``, and the cell counts are the blocks'
 summed over the data group.
 
-Each train step is a ``TrainStep``: its batch to device tensors, the
-reseed, a body that only enqueues device work, then the host's step count.
+Each train step is a ``TrainStep``: its batch (and the step key) to
+device tensors, the rbg generator's reseed, a body that only enqueues
+device work, then the host's step count.
 ``make_multistep`` bundles K steps into one call, as JAX's does with
 ``lax.scan``: on the card a CUDA graph of the body for each batch geometry
 (``train.graphs``) is replayed once a step, in place of the step's ~2000
@@ -53,6 +64,7 @@ order.
 '''
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 from typing import Optional
@@ -62,18 +74,25 @@ import torch
 from torch import nn
 
 from bmt_tpu_torch.models.proposal import make_targets_dense
-from bmt_tpu_torch.ops.layers import dropout_generator
+from bmt_tpu_torch.ops import prng
+from bmt_tpu_torch.ops.layers import dropout_generator, key_stream, row_block
 from bmt_tpu_torch.ops.masks import make_masks
 from bmt_tpu_torch.parallel import seq
 from bmt_tpu_torch.train.losses import label_smoothing_kl_logits
 from bmt_tpu_torch.train.optim import Optimizer
 
 
+PRNG_IMPLS = ('threefry2x32', 'rbg', 'unsafe_rbg')
+
+
 @dataclasses.dataclass
 class TrainState:
     '''The model (fp32 masters), its optimizer, the step count, the dropout
     seed, the EMA of the parameters ({name: tensor}) when EMA is on, and
-    the CUDA graphs of its steps once ``make_multistep`` has made some.'''
+    the CUDA graphs of its steps once ``make_multistep`` has made some.
+    Under threefry2x32 ``key`` is ``jax.random.key(seed)``, a (2,) uint32
+    CPU tensor (read with no device sync); under rbg ``generator`` is the
+    dropout generator on the model's device.'''
     model: nn.Module
     optimizer: Optimizer
     seed: int = 0
@@ -81,17 +100,29 @@ class TrainState:
     ema: Optional[dict] = None
     generator: Optional[torch.Generator] = None
     graphs: Optional[object] = None     # train.graphs.StepGraphs
+    prng_impl: str = 'threefry2x32'
+    key: Optional[torch.Tensor] = None
 
 
 def init_train_state(model: nn.Module, optimizer: Optimizer, seed: int = 0,
-                     ema: bool = False) -> TrainState:
-    '''ema=True seeds the EMA with a copy of the parameters.'''
+                     ema: bool = False, prng_impl: str = 'threefry2x32'
+                     ) -> TrainState:
+    '''ema=True seeds the EMA with a copy of the parameters. ``prng_impl``:
+    'threefry2x32' (the default, as JAX's: masks bit-equal to JAX's and the
+    same under every sharding) or 'rbg'/'unsafe_rbg' (the port's Philox
+    generator; JAX leaves these bits to the backend).'''
+    if prng_impl not in PRNG_IMPLS:
+        raise ValueError(f'prng_impl {prng_impl!r} is not one of '
+                         f'{PRNG_IMPLS}')
     device = next(model.parameters()).device
+    threefry = prng_impl == 'threefry2x32'
     return TrainState(
         model=model, optimizer=optimizer, seed=seed, step=0,
         ema=({n: p.detach().clone() for n, p in model.named_parameters()}
              if ema else None),
-        generator=torch.Generator(device=device))
+        generator=None if threefry else torch.Generator(device=device),
+        prng_impl=prng_impl,
+        key=prng.key(seed, 'cpu') if threefry else None)
 
 
 def step_seed(seed: int, step: int, rank: int = 0) -> int:
@@ -163,15 +194,43 @@ def _seed_rank(dp) -> int:
     return 0 if dp is None else dp.seed_rank
 
 
+def step_key(state: TrainState) -> np.ndarray:
+    '''fold_in(state.key, state.step) as a (2,) uint32 array: the threefry
+    key of the state's next step.'''
+    words = prng.fold_in_words(tuple(state.key.tolist()), state.step)
+    return np.array(words, dtype=np.uint32)
+
+
+@contextlib.contextmanager
+def _microbatch_keys(inputs: dict, i: int, accum_steps: int, dp):
+    '''Under threefry (an ``'rng'`` input), microbatch i of this rank draws
+    from a stream of the step key (JAX :207), folded with its global
+    microbatch's index when the step accumulates (JAX :236), and for its
+    block of that microbatch's rows. Under rbg, nothing.'''
+    key = inputs.get('rng')
+    if key is None:
+        yield
+        return
+    n_dp = 1 if dp is None else dp.n_dp
+    block = (0 if dp is None else dp.dp_rank) * accum_steps + i
+    k = prng.Key(key)
+    if accum_steps > 1:
+        k = k.fold_in(block // n_dp)
+    with key_stream(k), (row_block(block % n_dp, n_dp) if n_dp > 1
+                         else contextlib.nullcontext()):
+        yield
+
+
 class TrainStep:
     '''A train step, ``step(state, batch) -> (state, metrics)``, in the
     parts that ``make_multistep``'s CUDA graphs take apart:
 
-    - ``host_inputs(batch)``: the batch as a flat {name: array} of numpy
-      arrays in the dtypes the body reads (``'src/<stack>'``, then the
-      step's own ``casts``);
-    - ``seed(state)``: the dropout seed of the state's next step,
-      (seed, step, rank) mixed by ``step_seed``;
+    - ``host_inputs(batch, state)``: the batch as a flat {name: array} of
+      numpy arrays in the dtypes the body reads (``'src/<stack>'``, then
+      the step's own ``casts``), and under threefry the state's next step
+      key (``'rng'``);
+    - ``seed(state)``: under rbg, the dropout seed of the state's next
+      step, (seed, step, rank) mixed by ``step_seed``;
     - ``body(state, inputs) -> metrics``: the step on device tensors. It
       only enqueues device work (no host read, no host-to-device copy), so
       a graph can capture it; the optimizer's counters and the EMA are
@@ -184,12 +243,14 @@ class TrainStep:
     def __init__(self, body, casts: dict, dp=None, key=()):
         self.body, self.casts, self.dp, self.key = body, casts, dp, key
 
-    def host_inputs(self, batch: dict) -> dict:
+    def host_inputs(self, batch: dict, state: TrainState = None) -> dict:
         out = {f'src/{k}': np.asarray(x) for k, x in batch['src'].items()}
         for name, dtype in self.casts.items():
             if batch.get(name) is not None:
                 out[name] = np.asarray(batch[name]).astype(
                     _NUMPY[dtype], copy=False)
+        if state is not None and state.key is not None:
+            out['rng'] = step_key(state)
         return out
 
     def device_inputs(self, batch: dict, device) -> dict:
@@ -211,7 +272,10 @@ class TrainStep:
     def __call__(self, state: TrainState, batch: dict):
         device = next(state.model.parameters()).device
         inputs = self.device_inputs(batch, device)
-        state.generator.manual_seed(self.seed(state))
+        if state.key is not None:
+            inputs['rng'] = torch.from_numpy(step_key(state)).to(device)
+        else:
+            state.generator.manual_seed(self.seed(state))
         metrics = self.body(state, inputs)
         state.step += 1
         return state, metrics
@@ -297,14 +361,16 @@ def make_cap_train_step(dims, smoothing: float, pad_idx: int,
                 masks = make_masks(src_mb, cap_x[rows], dims.modality,
                                    pad_idx)
                 aux = [] if collect_aux else None
-                logits = _forward_logits(model, src_mb, cap_x[rows], masks,
-                                         attention_impl, compute_dtype, aux)
-                kl = label_smoothing_kl_logits(logits, cap_y[rows],
-                                               smoothing, pad_idx)
-                if aux:
-                    n = counts[1 + in_mb[i]] / n_dp
-                    kl = kl + moe_aux_coeff * (sum(aux) / len(aux)) * n
-                (kl / n_tokens).backward()
+                with _microbatch_keys(inputs, i, accum_steps, dp):
+                    logits = _forward_logits(model, src_mb, cap_x[rows],
+                                             masks, attention_impl,
+                                             compute_dtype, aux)
+                    kl = label_smoothing_kl_logits(logits, cap_y[rows],
+                                                   smoothing, pad_idx)
+                    if aux:
+                        n = counts[1 + in_mb[i]] / n_dp
+                        kl = kl + moe_aux_coeff * (sum(aux) / len(aux)) * n
+                    (kl / n_tokens).backward()
                 kl_sum = kl_sum + kl.detach()
 
         if dp is not None:
@@ -460,11 +526,12 @@ def make_prop_train_step(dims, pad_idx: int, attention_impl: str = 'torch',
         with dropout_generator(state.generator):
             for i in range(accum_steps):
                 rows = slice(i * mb, (i + 1) * mb)
-                _, loss, losses_A, losses_V = _prop_forward(
-                    model, {k: x[rows] for k, x in src.items()},
-                    tuple(t[rows] for t in targets), pad_idx, attention_impl,
-                    compute_dtype, denoms, split)
-                loss.backward()
+                with _microbatch_keys(inputs, i, accum_steps, dp):
+                    _, loss, losses_A, losses_V = _prop_forward(
+                        model, {k: x[rows] for k, x in src.items()},
+                        tuple(t[rows] for t in targets), pad_idx,
+                        attention_impl, compute_dtype, denoms, split)
+                    loss.backward()
                 loss_sum = loss_sum + loss.detach()
                 for suffix, losses in (('_A', losses_A), ('_V', losses_V)):
                     for k, v in losses.items():
@@ -548,8 +615,10 @@ def make_multistep(step: TrainStep):
     (the warm-up, a real step), the second captures the graph, and from
     then on each batch is copied into the graph's inputs and the graph is
     replayed, one launch for the step's ~2000 kernels. The steps are those
-    of ``step`` bit for bit: the same body on the same inputs, the dropout
-    generator reseeded to the same (seed, step, rank) before each replay.
+    of ``step`` bit for bit: the same body on the same inputs, the step key
+    among them under threefry (the dropout kernels read it from the
+    graph's input buffer), under rbg the dropout generator reseeded to the
+    same (seed, step, rank) before each replay.
     A failed capture or replay raises; nothing falls back to eager steps.
 
     On the CPU the K steps run in order. So do they under a process group

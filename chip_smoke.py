@@ -26,7 +26,9 @@ when it fails:
    HGMMA or UTMALDG, or any kernel holds HMMA; beside them, the
    two host libraries from bmt_tpu_torch/csrc/*.cc with g++ (the feature
    loader bmt_io, the METEOR aligner meteor_align; timed), failing if
-   either does not build or does not serve;
+   either does not build or does not serve; and the threefry kernels
+   (bmt_tpu_torch/csrc/threefry.cu: threefry_dropout_kernel<float> and
+   <bf16>, threefry_bits32_kernel);
 3. the forward kernel against its plain PyTorch version on the card, in
    fp32 and bf16, at the serving shapes and at Sq = Sk = 2048, with random
    padded key masks and one batch row whose keys are all masked (NaN in
@@ -316,7 +318,34 @@ when it fails:
     the capture's seconds, the graph pool's MiB, and each graphed bundle's
     busy share in one trace of the three. 24b runs train_cap with
     --steps_per_dispatch 4 on phase 17's tree: the graphs it captured and
-    replayed, and its epoch loss beside 17a's.
+    replayed, and its epoch loss beside 17a's. The step API's default
+    draws the masks of the three cells from threefry2x32: a graphed bundle
+    equals its eager steps bit for bit (so each replay drew its own step's
+    masks from the step key its input buffer held), and each bundle
+    launches the dropout kernel from the graph.
+
+25. the threefry2x32 kernels (``ops.prng``): threefry_dropout_kernel at
+    each of the train cell's nine dropout shapes in bf16 and fp32, its
+    backward on a gradient, and two offset blocks (a dp 2 x mp 2 rank's
+    block of the video feed-forward's hidden, an sp 2 rank's of the
+    proposal cell's audio), and every draw of a proposal train step (bf16,
+    B=16, remat; recorded where the step calls ``prng.dropout``, the heads'
+    conv outputs read in place through their transposed views), against
+    the plain version: bit for bit (max abs err 0);
+    threefry_bits32_kernel at the decode cell's (B, 10172)
+    sampling draw and a block of its rows, bit for bit; a captioner train
+    step's dropout launches against the count of its sites, each kernel's
+    device ms beside its plain version's, F.dropout's and the rbg
+    bernoulli_ path's (context: no library call computes threefry), its
+    bound (bytes over HBM's rate; the integer ops an element, ``prng``'s
+    count, at the card's max SM clock: the rotations, xors and compare on
+    the 64 INT32 lanes of an SM, all of them within its 128 issue slots a
+    clock) and the share of a step; a sampled decode
+    (make_bimodal_sample_fn, top-k 50 and top-p 0.9) of the flagship
+    captioner at the decode cell, its bits launches counted, the same
+    tokens on a second run; the captioner train cell's step under
+    threefry2x32 beside rbg (bf16 and fp32, alternating eager steps), and
+    the proposal cell's (bf16, remat) in alternating graphed bundles.
 
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. The report's `launches` are the captioning
@@ -337,7 +366,11 @@ proposal cell's 800x800 call, `fp32_train_256x256` its fp32 times at the
 train cell's 256x256 call, and the forward's `fp32_app` its fp32 times at
 the app's caption-batch 512x512 and B=1 800x800 calls; the report's
 `fp32_train_step_ms` holds the fp32 captioner train step's medians through
-'kernel' and 'torch' (phase 8).
+'kernel' and 'torch' (phase 8). The threefry kernels' entries come from
+phase 25 (their `launches` from phase 9's trainer for the dropout kernel
+and phase 25's sampled decode for the bits kernel; their times at the
+train cell's video feed-forward hidden in bf16 and at the decode cell's
+sampling draw), `threefry` phase 25's numbers.
 '''
 import atexit
 import collections
@@ -382,7 +415,10 @@ from bmt_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
     flash_attention_forward, flash_attention_lse_reference,
     flash_attention_reference, key_mask_and_causal, launch_counts,
-    reset_launch_counts, row_dot)
+    row_dot)
+from bmt_tpu_torch.ops import launches as kernel_launches
+from bmt_tpu_torch.ops import prng
+from bmt_tpu_torch.decode import make_bimodal_sample_fn
 from bmt_tpu_torch.models import (MultimodalProposalGenerator, PropModelDims,
                                   captioner_class, proposal_class)
 from bmt_tpu_torch.params import (init_params, load_jax_params,
@@ -433,9 +469,17 @@ from bmt_tpu_torch.utils import (get_corner_coords,
                                  remove_very_short_segments,
                                  select_topk_predictions, trim_proposals)
 
+# every kernel's launch count to 0 (``ops.launches``); a path is driven
+# between this and the reads: ``launch_counts()`` the attention kernels',
+# ``kernel_launches.counts()`` every kernel's
+reset_launch_counts = kernel_launches.reset
+
+
 SOURCES = {KERNEL: 'bmt_tpu_torch/csrc/flash_attn_fwd.cu',
            KERNEL_DQ: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu',
-           KERNEL_DKV: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu'}
+           KERNEL_DKV: 'bmt_tpu_torch/csrc/flash_attn_bwd.cu',
+           prng.KERNEL_DROPOUT: 'bmt_tpu_torch/csrc/threefry.cu',
+           prng.KERNEL_BITS32: 'bmt_tpu_torch/csrc/threefry.cu'}
 # the kernels each library holds, all on wgmma: three TF32 products for
 # fp32 and bf16 (the forward with its split's combine)
 ENTRIES = {KERNEL: ('flash_attn_fwd_tf32_sm90_kernel',
@@ -444,7 +488,9 @@ ENTRIES = {KERNEL: ('flash_attn_fwd_tf32_sm90_kernel',
            BWD_LIBRARY: ('flash_attn_bwd_dq_tf32_sm90_kernel',
                          'flash_attn_bwd_dq_sm90_kernel',
                          'flash_attn_bwd_dkv_tf32_sm90_kernel',
-                         'flash_attn_bwd_dkv_sm90_kernel')}
+                         'flash_attn_bwd_dkv_sm90_kernel'),
+           prng.LIBRARY: ('threefry_dropout_kernel',
+                          'threefry_bits32_kernel')}
 # the opcodes counted in the kernels' machine code: wgmma, the TMA tile load
 # and mma.sync; the attention kernels must hold the first two, and no
 # kernel the third
@@ -457,7 +503,10 @@ HOPPER_KERNELS = ('flash_attn_fwd_tf32_sm90_kernel',
                   'flash_attn_bwd_dkv_tf32_sm90_kernel')
 REPLACES = {KERNEL: 'bmt_tpu/ops/pallas_attention.py:237',  # and :278
             KERNEL_DQ: 'bmt_tpu/ops/pallas_attention.py:473',
-            KERNEL_DKV: 'bmt_tpu/ops/pallas_attention.py:498'}
+            KERNEL_DKV: 'bmt_tpu/ops/pallas_attention.py:498',
+            # no Pallas kernel: XLA lowered these on the TPU
+            prng.KERNEL_DROPOUT: 'bmt_tpu/ops/layers.py:87',
+            prng.KERNEL_BITS32: 'bmt_tpu/decode/sample.py:88'}
 # the library yardstick beside each kernel (timed, never called by the port)
 LIBRARY_CALL = {
     KERNEL: 'F.scaled_dot_product_attention, the same boolean mask',
@@ -580,7 +629,7 @@ def kernel_name(line):
     flash_attn_bwd_dq_sm90_kernel<256>. The mangled name's length prefix
     tells the kernel from the anonymous namespace, which holds the source's
     file name.'''
-    m = re.search(r'\d+(flash_attn_\w*?_kernel)'
+    m = re.search(r'\d+((?:flash_attn|threefry)_\w*?_kernel)'
                   r'(?:ILi(\d+)EE|I(f)EE|I\d+(__nv_bfloat16)EE)?', line)
     if m is None:
         return line.strip()
@@ -1135,13 +1184,19 @@ def phase_trainer(dev):
     state, mean = train_epoch_cap(step, state, data, epoch=0)
     torch.cuda.synchronize()
     counts = launch_counts()
+    drawn = kernel_launches.counts([prng.KERNEL_DROPOUT, prng.KERNEL_BITS32])
     print(f'    3 batches (8, 8, a tail of 4): {state.step} steps, mean loss '
-          f'{mean:.4f}, launches {counts}')
+          f'{mean:.4f}, launches {counts}, threefry {drawn} (the step '
+          f'API\'s default prng_impl {state.prng_impl})')
     check(state.step == 3, f'{state.step} steps for 3 batches')
     check(np.isfinite(mean), f'epoch loss {mean}')
     check(all(n == CALLS_PER_STEP * 3 for n in counts.values()),
           f'launches {counts}, {CALLS_PER_STEP * 3} of each expected')
-    return counts
+    want = 3 * dropout_launches_per_step()
+    check(drawn[prng.KERNEL_DROPOUT] == want and not drawn[
+        prng.KERNEL_BITS32], f'threefry launches {drawn}, {want} dropout '
+        f'launches expected (forward and backward) and no bits')
+    return {**counts, **drawn}
 
 
 # ---------------------------------------------------------------------------
@@ -5231,8 +5286,9 @@ def multistep_cell(label, make, batches, tol, want, smi):
     Two bundles of the K ``batches`` (the first warms the graph up on its
     first batch and captures it on the second) against 2K eager steps from
     the same state: the losses and every tensor of the states agree within
-    ``tol`` (expected equal), and each bundle launches the K steps'
-    kernels (``want`` a step) from the graph. Then MULTISTEP_ROUNDS timed
+    ``tol`` and bit for bit (threefry: the step key is a graph input),
+    and each bundle launches the K steps' kernels (``want`` a step, and
+    the dropout kernel) from the graph. Then MULTISTEP_ROUNDS timed
     bundles a path in turns (host clock, the card synchronised at both
     ends; ms a step), after which the states are compared again. Returns
     (numbers, a function that runs one graphed bundle).'''
@@ -5271,11 +5327,21 @@ def multistep_cell(label, make, batches, tol, want, smi):
         lg = graph_bundle()
         torch.cuda.synchronize()
         counts = launch_counts()
-        launches.append(counts)
+        drawn = kernel_launches.counts([prng.KERNEL_DROPOUT,
+                                        prng.KERNEL_BITS32])
+        launches.append({**counts, **drawn})
         check(counts == {k: len(batches) * n for k, n in want.items()},
               f'{label}: a bundle launched {counts}, {want} a step '
               f'expected')
+        check(drawn[prng.KERNEL_DROPOUT] > 0 and drawn[
+            prng.KERNEL_DROPOUT] % len(batches) == 0, f'{label}: a bundle '
+            f'launched {drawn} of the threefry kernels')
         compare(le, lg)
+        # threefry: each replay's masks come from the step key its input
+        # buffer holds, so the bundle is its eager steps bit for bit
+        check(all(v == 0 for v in diffs[-1].values()), f'{label}: the '
+              f'graphed threefry bundle is not its eager steps bit for '
+              f'bit: {diffs[-1]}')
     report = graphed.graphs.report()
     check(report['graphs'] == 1
           and report['replays'] == 2 * len(batches) - 1,
@@ -5402,6 +5468,452 @@ def multistep_cli(dev, smi, tree, log, k1_loss):
                       'graphs': graphs[-1], **epoch_numbers(stages)}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the threefry2x32 kernels
+# ---------------------------------------------------------------------------
+
+DROPOUT_P = 0.1                         # CapModelDims' and the recipe's
+THREEFRY_ROUNDS = 3                     # 25: alternating steps a PRNG path
+INT32_LANES = 64                        # INT32 lanes an SM (Hopper)
+ISSUE_LANES = 128                       # an SM's issue a clock: 4 x 32
+
+
+def dropout_sites(dims=None) -> dict:
+    '''{name: (shape, forward launches, backward launches)} of the
+    captioner train cell's dropout tensors (B=TB, Sa=SA, Sv=SV, TSC - 1
+    caption tokens; flagship widths): per encoder layer and modality three
+    residuals, two attention outputs (B, H, S, d_k) and the feed-forward's
+    hidden; per decoder layer four residuals and the bridge, three
+    attention outputs and the hidden; one positional encoding a stream.
+    The features' two have no backward (no parameter before them).'''
+    d = dims or CapModelDims(voc_size=VOC)
+    n, sc, dk, N = TB, TSC - 1, d.d_model // d.H, d.N
+    feats = 0 if d.use_linear_embedder else 1
+    return {
+        'audio (B, Sa, 128)': ((n, SA, d.d_model_A), 1 + 3 * N,
+                               1 - feats + 3 * N),
+        'video (B, Sv, 1024)': ((n, SV, d.d_model_V), 1 + 3 * N,
+                                1 - feats + 3 * N),
+        'audio attention (B, 4, Sa, 256)': ((n, d.H, SA, dk), 2 * N, 2 * N),
+        'video attention (B, 4, Sv, 256)': ((n, d.H, SV, dk), 2 * N, 2 * N),
+        'audio ffn (B, Sa, 512)': ((n, SA, d.d_ff_A), N, N),
+        'video ffn (B, Sv, 4096)': ((n, SV, d.d_ff_V), N, N),
+        'caption (B, Sc-1, 300)': ((n, sc, d.d_model_C), 1 + 5 * N,
+                                   1 + 5 * N),
+        'caption attention (B, 4, Sc-1, 256)': ((n, d.H, sc, dk), 3 * N,
+                                                3 * N),
+        'caption ffn (B, Sc-1, 1200)': ((n, sc, d.d_ff_C), N, N)}
+
+
+def dropout_launches_per_step(dims=None) -> int:
+    return sum(f + b for _, f, b in dropout_sites(dims).values())
+
+
+def sm_clocks(dev) -> tuple:
+    '''(SM clocks a second over the card: SMs x its max SM clock, the clock
+    in MHz).'''
+    mhz = float(subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'], check=True, capture_output=True,
+        text=True, timeout=60).stdout.split()[0])
+    return _sm_count(dev) * mhz * 1e6, mhz
+
+
+def threefry_bound(ops, alu_ops, nbytes, sm_hz) -> tuple:
+    '''(least ms, 'operations' or 'bytes'): the larger of the bytes over
+    HBM's rate and the integer work's least time, itself the larger of the
+    INT32-lane ops (rotations, xors, compares) over INT32_LANES a clock an
+    SM and all the integer ops over ISSUE_LANES (an add may run on the
+    FP32 lanes as IMAD, but an SM issues 4 warp instructions a clock).'''
+    t_ops = max(alu_ops / INT32_LANES, ops / ISSUE_LANES) / sm_hz * 1e3
+    t_bytes = nbytes / 3.35e12 * 1e3
+    return (t_ops, 'operations') if t_ops > t_bytes else (t_bytes, 'bytes')
+
+
+def same_bits(a, b) -> bool:
+    '''a and b equal bit for bit (NaNs and signed zeros included).'''
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(view[a.dtype]), b.view(view[b.dtype]))
+
+
+def bernoulli_dropout(x, p=DROPOUT_P):
+    '''The rbg path's draw (``ops.layers.Dropout`` with a generator).'''
+    keep = torch.empty_like(x).bernoulli_(1.0 - p)
+    return x * keep.div_(1.0 - p)
+
+
+def threefry_checks(dev):
+    '''25a: each kernel against its plain version, bit for bit. Returns
+    the checks made.'''
+    g = torch.Generator(device=dev).manual_seed(250)
+    key = prng.Key(prng.key(25, dev), (3, 1))      # a step's site key
+    made = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (shape, _, _) in dropout_sites().items():
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            got = prng.dropout_kernel(x, key, DROPOUT_P, shape,
+                                      (0,) * len(shape))
+            want = prng.dropout_reference(x, key, DROPOUT_P)
+            check(same_bits(got, want), f'25a {name} {dtype}: the dropout '
+                  f'kernel differs from its plain version by '
+                  f'{(got.float() - want.float()).abs().max().item()}')
+            made += 1
+        # the backward: the same mask on a gradient
+        shape = dropout_sites()['video ffn (B, Sv, 4096)'][0]
+        x = torch.randn(shape, generator=g, device=dev).to(
+            dtype).requires_grad_()
+        grad = torch.randn(shape, generator=g, device=dev).to(dtype)
+        prng.dropout(x, key, DROPOUT_P).backward(grad)
+        check(same_bits(x.grad, prng.dropout_reference(grad, key,
+                                                       DROPOUT_P)),
+              f'25a backward {dtype}: not the mask of the forward')
+        # offset blocks: a dp 2 x mp 2 rank's block of the video
+        # feed-forward's hidden, an sp 2 rank's of the proposal audio
+        for whole, block, offsets in (((TB, SV, 4096), (TB // 2, SV, 2048),
+                                       (TB // 2, 0, 2048)),
+                                      ((PB, PSA, 128), (PB, PSA // 2, 128),
+                                       (0, PSA // 2, 0))):
+            x = torch.randn(whole, generator=g, device=dev).to(dtype)
+            where = tuple(slice(o, o + b) for o, b in zip(offsets, block))
+            got = prng.dropout_kernel(x[where].contiguous(), key, DROPOUT_P,
+                                      whole, offsets)
+            want = prng.dropout_reference(x, key, DROPOUT_P)[where]
+            check(same_bits(got, want.contiguous()), f'25a block {block} at '
+                  f'{offsets} of {whole} {dtype}: not that block of the '
+                  f'whole mask')
+            made += 2
+    for shape, block, offsets in (((B, VOC), None, None),
+                                  ((B, VOC), (B // 2, VOC), (B // 2, 0))):
+        got = prng.bits32_kernel(key, shape, block, offsets)
+        want = prng.bits_reference(key, shape, torch.uint32, block, offsets)
+        check(torch.equal(got.to(torch.int64), want.to(torch.int64)),
+              f'25a bits {shape} block {block}: the bits kernel differs '
+              f'from its plain version')
+        made += 1
+    return made
+
+
+def threefry_times(dev, smi, sm_hz):
+    '''25b: {site: {dtype: ms of kernel, plain, F.dropout, bernoulli_,
+    bound}} at the train cell's dropout shapes, and the bits kernel's at
+    the decode cell's sampling draw.'''
+    g = torch.Generator(device=dev).manual_seed(251)
+    key = prng.Key(prng.key(25, dev), (3, 1))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for name, (shape, fwd, bwd) in dropout_sites().items():
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            offsets = (0,) * len(shape)
+            fns = {'kernel': lambda: prng.dropout_kernel(
+                       x, key, DROPOUT_P, shape, offsets),
+                   'F.dropout': lambda: F.dropout(x, DROPOUT_P, True),
+                   'bernoulli_': lambda: bernoulli_dropout(x)}
+            t = alternating_ms(fns, 20, device_ms)
+            t['plain'] = cuda_ms(lambda: prng.dropout_reference(
+                x, key, DROPOUT_P), 2)
+            t['bound'], t['bound_by'] = threefry_bound(
+                *prng.dropout_cost(x.numel(), dtype), sm_hz)
+            t['launches_a_step'] = fwd + bwd
+            out.setdefault(name, {})[dt] = t
+    t = {'kernel': device_ms(lambda: prng.bits32_kernel(key, (B, VOC)), 20),
+         'plain': cuda_ms(lambda: prng.bits_reference(key, (B, VOC)), 2),
+         'torch.rand': device_ms(lambda: torch.rand(B, VOC, device=dev),
+                                 20)}
+    t['bound'], t['bound_by'] = threefry_bound(*prng.bits32_cost(B * VOC),
+                                               sm_hz)
+    out[f'sampling bits ({B}, {VOC})'] = {'uint32': t}
+    return out
+
+
+def threefry_step_times(dev, smi):
+    '''25d: the captioner train cell's step under threefry2x32 and rbg, in
+    bf16 and fp32: ms a step (host clock, the card synchronised), medians
+    of alternating steps; the dropout launches of one threefry step.'''
+    dims = CapModelDims(voc_size=VOC)                 # dropout 0.1
+    batch = train_batch(31, TB, SV, SA, TSC, dims)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = BiModalTransformer(
+            dims, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(26))
+        step = make_cap_train_step(dims, SMOOTHING, PAD, 'kernel',
+                                   compute_dtype=dtype)
+        states = {impl: init_train_state(model, build_optimizer(
+                      TRAIN_CFG, model), seed=26, prng_impl=impl)
+                  for impl in ('threefry2x32', 'rbg')}
+        for state in states.values():                 # warm-up
+            step_ms(state, step, batch)
+        reset_launch_counts()
+        step_ms(states['threefry2x32'], step, batch)
+        per_step = prng.dropout_kernel.launches
+        check(per_step == dropout_launches_per_step(), f'25d: a threefry '
+              f'step launched {per_step} dropout kernels, '
+              f'{dropout_launches_per_step()} expected from its sites')
+        times = {impl: [] for impl in states}
+        for impl in ('rbg', 'threefry2x32', 'threefry2x32',
+                     'rbg') * THREEFRY_ROUNDS:
+            ms, m = step_ms(states[impl], step, batch)
+            check(torch.isfinite(m['loss']).item(), f'25d {impl}: loss')
+            times[impl].append(ms)
+        med = {impl: statistics.median(v) for impl, v in times.items()}
+        out[str(dtype)[6:]] = {'median_ms': med, 'ms': times,
+                               'dropout_launches_a_step': per_step}
+        print(f'    [25d] captioner train step {str(dtype)[6:]} (B={TB}, '
+              f'Sa={SA}, Sv={SV}, Sc={TSC}, dropout {DROPOUT_P}; {smi}): '
+              f'threefry2x32 {med["threefry2x32"]:.2f} ms '
+              f'{[round(t, 2) for t in times["threefry2x32"]]}, rbg '
+              f'{med["rbg"]:.2f} ms {[round(t, 2) for t in times["rbg"]]} '
+              f'(median of {2 * THREEFRY_ROUNDS} alternating steps each); '
+              f'{per_step} dropout launches a threefry step')
+        del model, states
+        torch.cuda.empty_cache()
+    return out
+
+
+def threefry_sampling(dev, smi):
+    '''25c: make_bimodal_sample_fn (top-k 50, top-p 0.9) on the flagship
+    captioner at the decode cell, the counts set to 0 just before and read
+    just after; the same tokens again from a fresh binder of that seed, and
+    the categorical draw on the card against the CPU's on the same logits.
+    Returns (launches, numbers).'''
+    dims = CapModelDims(voc_size=VOC)
+    model = BiModalTransformer(
+        dims, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(27)).eval()
+    g = torch.Generator(device=dev).manual_seed(28)
+    x = features(g, B, SV, SA, dims, dev)
+
+    def decode():
+        fn = make_bimodal_sample_fn(dims, STEPS, START, END, PAD,
+                                    top_k=50, top_p=0.9,
+                                    attention_impl='kernel', seed=5)
+        return fn(model, x)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = decode()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernel_launches.counts()
+    again = decode()
+    check(torch.equal(tokens, again), '25c: a seed sampled other tokens')
+    check(bool(((tokens >= 0) & (tokens < VOC)).all()), '25c: token ids')
+    check(launches[prng.KERNEL_BITS32] > 0, f'25c: the sampled decode '
+          f'launched {launches}')
+    logits = torch.randn(B, VOC, generator=g, device=dev) * 3
+    key = prng.key(29, dev)
+    on_card = prng.categorical(key, logits)
+    on_cpu = prng.categorical(key.cpu(), logits.cpu())
+    agree = (on_card.cpu() == on_cpu).float().mean().item()
+    check(agree >= 0.95, f'25c: categorical draws on the card and the CPU '
+          f'agree on {agree:.1%} of the rows')
+    print(f'    [25c] sampled decode (B={B}, Sa={SA}, Sv={SV}, {STEPS} steps, '
+          f'top-k 50, top-p 0.9): {secs:.3f} s, launches {launches}; a '
+          f'second binder of the seed gives the same tokens; categorical on '
+          f'the card = on the CPU in {agree:.1%} of {B} rows (the Gumbel '
+          f'noise\'s log may differ in the last bit)')
+    del model
+    torch.cuda.empty_cache()
+    return launches, {'s': secs, 'launches': launches,
+                      'categorical_agree': agree}
+
+
+def recorded_draws(fn) -> collections.Counter:
+    '''fn()'s calls of ``prng.dropout``: {(x's shape, x's memory order
+    (``prng.memory_order``), the global shape, the offsets): calls}.'''
+    draws, real = collections.Counter(), prng.dropout
+
+    def record(x, k, p, shape=None, offsets=None):
+        draws[(tuple(x.shape), prng.memory_order(x),
+               tuple(x.shape if shape is None else shape),
+               tuple((0,) * x.dim() if offsets is None else offsets))] += 1
+        return real(x, k, p, shape, offsets)
+    prng.dropout = record
+    try:
+        fn()
+    finally:
+        prng.dropout = real
+    return draws
+
+
+def prop_threefry_cell(dev, smi):
+    '''25d's proposal cell (bf16, B=PB, Sa=PSA, Sv=PSV, E=PE, remat,
+    dropout 0.1): the draws of one eager threefry step (``recorded_draws``;
+    25a holds the kernel to its plain version at each), then graphed
+    bundles of MULTISTEP_K steps under threefry2x32 and rbg in turns (host
+    clock, the card synchronised at both ends; ms a step), the dropout
+    launches of a threefry bundle from the graph and none of an rbg one.
+    Returns (draws, numbers).'''
+    dims = PropModelDims(remat=True)                  # dropout 0.1
+    batches = [prop_train_batch(260 + i, PB, PSA, PSV, PE, dims)
+               for i in range(MULTISTEP_K)]
+    model = proposal_model(dims, dev, 26)
+    step = make_prop_train_step(dims, PAD, 'kernel',
+                                compute_dtype=torch.bfloat16)
+    multistep = make_multistep(step)
+    states = {impl: init_train_state(model, build_optimizer(
+                  TRAIN_CFG, model, frozen=prop_frozen(False)), seed=26,
+                  prng_impl=impl) for impl in ('threefry2x32', 'rbg')}
+
+    def eager():
+        states['threefry2x32'], m = step(states['threefry2x32'], batches[0])
+        check(torch.isfinite(m['loss']).item(), '25d proposal: loss')
+    draws = recorded_draws(eager)
+    check(any(order not in (None, tuple(range(len(shape))))
+              for shape, order, _, _ in draws), f'25d proposal: no draw '
+          f'read a transposed view: {sorted(draws)}')
+
+    def bundle(impl):
+        states[impl], m = multistep(states[impl], batches)
+        check(torch.isfinite(m['loss']).all().item(), f'25d proposal '
+              f'{impl}: losses {m["loss"].tolist()}')
+    for impl in states:      # the first batch eager, the second captured
+        bundle(impl)
+    launched = {}
+    for impl in states:
+        reset_launch_counts()
+        synced(lambda: bundle(impl))
+        launched[impl] = prng.dropout_kernel.launches
+    per_step = launched['threefry2x32'] // MULTISTEP_K
+    check(per_step > 0 and launched['threefry2x32'] % MULTISTEP_K == 0
+          and launched['rbg'] == 0, f'25d proposal: a bundle launched '
+          f'{launched} dropout kernels')
+    times = {impl: [] for impl in states}
+    for impl in ('rbg', 'threefry2x32', 'threefry2x32',
+                 'rbg') * THREEFRY_ROUNDS:
+        _, secs = synced(lambda: bundle(impl))
+        times[impl].append(1e3 * secs / MULTISTEP_K)
+    med = {impl: statistics.median(v) for impl, v in times.items()}
+    print(f'    [25d] proposal train step bf16 graphed (B={PB}, Sa={PSA}, '
+          f'Sv={PSV}, E={PE}, remat, dropout {DROPOUT_P}; bundles of '
+          f'{MULTISTEP_K}; {smi}): threefry2x32 {med["threefry2x32"]:.2f} '
+          f'ms {[round(t, 2) for t in times["threefry2x32"]]}, rbg '
+          f'{med["rbg"]:.2f} ms {[round(t, 2) for t in times["rbg"]]} '
+          f'(median of {2 * THREEFRY_ROUNDS} alternating bundles each); '
+          f'{per_step} dropout launches a threefry step; {len(draws)} '
+          f'distinct draws in {sum(draws.values())} calls of an eager step')
+    del model, states, multistep
+    torch.cuda.empty_cache()
+    return draws, {'median_ms': med, 'ms': times,
+                   'dropout_launches_a_step': per_step}
+
+
+def prop_threefry_checks(dev, draws):
+    '''25a at the proposal cell: the kernel against its plain version at
+    each recorded draw (bf16; x laid out in the draw's memory order, so
+    the heads' transposed views are read in place and the result keeps
+    their strides), and the backward of a transposed draw. Then the
+    largest transposed draw's device ms read in place, beside a copy to
+    (B, S, C) and the kernel on it (the path before the kernel took a
+    layout). Returns (the checks made, those ms).'''
+    g = torch.Generator(device=dev).manual_seed(252)
+    key = prng.Key(prng.key(25, dev), (4, 2))
+    made, transposed = 0, None
+    for shape, order, whole, offsets in sorted(draws, key=str):
+        order = order or tuple(range(len(shape)))
+        inverse = tuple(order.index(d) for d in range(len(shape)))
+        x = torch.randn([shape[d] for d in order], generator=g,
+                        device=dev).to(torch.bfloat16).permute(inverse)
+        got = prng.dropout_kernel(x, key, DROPOUT_P, whole, offsets)
+        want = prng.dropout_reference(x.contiguous(), key, DROPOUT_P, whole,
+                                      offsets)
+        check(got.stride() == x.stride()
+              and same_bits(got.contiguous(), want), f'25a proposal draw '
+              f'{shape} (memory order {order}) of {whole} at {offsets}: the '
+              f'dropout kernel differs from its plain version by '
+              f'{(got.float() - want.float()).abs().max().item()}')
+        made += 1
+        if order != tuple(range(len(shape))) and (
+                transposed is None or x.numel() > transposed[0].numel()):
+            transposed = (x, whole, offsets)
+    x, whole, offsets = transposed
+    leaf = x.detach().clone().requires_grad_()
+    grad = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+    prng.dropout(leaf, key, DROPOUT_P, whole, offsets).backward(grad)
+    check(same_bits(leaf.grad.contiguous(), prng.dropout_reference(
+        grad, key, DROPOUT_P, whole, offsets)), f'25a proposal backward of '
+        f'a transposed draw {tuple(x.shape)}: not the mask of the forward')
+    ms = alternating_ms(
+        {'in place': lambda: prng.dropout_kernel(x, key, DROPOUT_P, whole,
+                                                 offsets),
+         'copy, then the kernel': lambda: prng.dropout_kernel(
+             x.contiguous(), key, DROPOUT_P, whole, offsets)}, 20, device_ms)
+    ms['draw'] = f'{tuple(x.shape)} of {whole} at {offsets}'
+    return made + 1, ms
+
+
+def phase_threefry(dev, smi):
+    '''Phase 25 (module docstring). Returns (the two kernels' report
+    entries, the sampled decode's launches, numbers).'''
+    t0 = time.perf_counter()
+    made = threefry_checks(dev)
+    print(f'    [25a] {made} checks bit for bit against the plain versions '
+          f'(the train cell\'s nine dropout shapes in bf16 and fp32, the '
+          f'backward, two offset blocks in each dtype, the sampling bits '
+          f'and a block of their rows): max_abs_err 0 '
+          f'({time.perf_counter() - t0:.1f} s)')
+    sm_hz, mhz = sm_clocks(dev)
+    times = threefry_times(dev, smi, sm_hz)
+    print(f'    [25b] device ms a call (p {DROPOUT_P}; bound: the larger '
+          f'of the bytes over 3.35 TB/s, {prng.DROPOUT_ALU_OPS} '
+          f'INT32-lane ops an element over {INT32_LANES} a clock an SM and '
+          f'{prng.DROPOUT_INT_OPS} integer ops over {ISSUE_LANES}, '
+          f'{_sm_count(dev)} SMs x {mhz:.0f} MHz; {smi}):')
+    for name, by_dtype in times.items():
+        for dt, t in by_dtype.items():
+            print(f'      {name:36s} {dt:8s} ' + ', '.join(
+                f'{k} {v:.4f}' for k, v in t.items()
+                if isinstance(v, float)) + f' ({t["bound_by"]}; '
+                f'{t.get("launches_a_step", "-")} launches a step)')
+    share = {}
+    for dt in ('bfloat16', 'float32'):
+        share[dt] = sum(t[dt]['kernel'] * t[dt]['launches_a_step']
+                        for n, t in times.items() if dt in t)
+    launches, sampling = threefry_sampling(dev, smi)
+    steps = threefry_step_times(dev, smi)
+    draws, steps['proposal bfloat16'] = prop_threefry_cell(dev, smi)
+    t0 = time.perf_counter()
+    prop_made, head_ms = prop_threefry_checks(dev, draws)
+    made += prop_made
+    print(f'    [25a] {prop_made} checks bit for bit at the proposal cell: '
+          f'its {len(draws)} distinct draws (bf16), each in its memory '
+          f'order, and a transposed draw\'s backward: max_abs_err 0 '
+          f'({time.perf_counter() - t0:.1f} s)')
+    print(f'    [25b] proposal head draw {head_ms["draw"]} (bf16, a (B, C, S) '
+          f'conv output through its (B, S, C) view; {smi}): device ms in '
+          f'place {head_ms["in place"]:.4f}, a copy then the kernel '
+          f'{head_ms["copy, then the kernel"]:.4f}')
+    times['proposal head, transposed'] = {'bfloat16': head_ms}
+    for dt, ms in share.items():
+        step = steps[dt]['median_ms']['threefry2x32']
+        print(f'    [25e] {dt}: the dropout kernels {ms:.3f} ms a step '
+              f'(device ms x launches, summed over the sites), '
+              f'{ms / step:.1%} of the threefry step\'s {step:.2f} ms')
+    big, dt = 'video ffn (B, Sv, 4096)', 'bfloat16'
+    at = times[big][dt]
+    bits = times[f'sampling bits ({B}, {VOC})']['uint32']
+    entries = [
+        {'name': prng.KERNEL_DROPOUT, 'max_abs_err': 0.0,
+         'ms': at['kernel'], 'plain_ms': at['plain'], 'bound_ms': at['bound'],
+         'bound_by': at['bound_by'], 'library_ms': None,
+         'library_call': None, 'at': f'{big} {dt}',
+         'context_ms': {'F.dropout': at['F.dropout'],
+                        'bernoulli_': at['bernoulli_']}},
+        {'name': prng.KERNEL_BITS32, 'max_abs_err': 0.0,
+         'ms': bits['kernel'], 'plain_ms': bits['plain'],
+         'bound_ms': bits['bound'], 'bound_by': bits['bound_by'],
+         'library_ms': None, 'library_call': None,
+         'at': f'sampling bits ({B}, {VOC})',
+         'context_ms': {'torch.rand': bits['torch.rand']}}]
+    numbers = {'checks': made, 'times': times,
+               'int32_lane_tops': sm_hz * INT32_LANES / 1e12,
+               'sm_clock_mhz': mhz, 'dropout_ms_a_step': share,
+               'sampling': sampling, 'train_step': steps}
+    return entries, launches, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this smoke test runs only on '
@@ -5418,12 +5930,12 @@ def main():
     print(smi)                                       # name, power limit
 
     t0 = time.perf_counter()
-    # the two CUDA sources and the two host libraries build side by side
-    with ThreadPoolExecutor(4) as pool:
+    # the three CUDA sources and the two host libraries build side by side
+    with ThreadPoolExecutor(5) as pool:
         hosts = {n: pool.submit(build_host_library, n)
                  for n in HOST_LIBRARIES}
-        cuda_builds = dict(zip((KERNEL, BWD_LIBRARY),
-                               pool.map(timed_load, (KERNEL, BWD_LIBRARY))))
+        libraries = (KERNEL, BWD_LIBRARY, prng.LIBRARY)
+        cuda_builds = dict(zip(libraries, pool.map(timed_load, libraries)))
         host_builds = {n: f.result() for n, f in hosts.items()}
     check(native_io.native_available() and meteor_native.enabled(),
           'a host library does not serve: feature loader '
@@ -5796,6 +6308,13 @@ def main():
             dev, smi, tree, os.path.join(tmp, 'log'),
             logged(cap_dir, 'debug/train_loss_epoch'))
 
+        torch.cuda.empty_cache()
+        started[25] = round(time.perf_counter() - t_main, 1)
+        print('[25] the threefry2x32 kernels (ops.prng): checks, times, a '
+              'sampled decode and the train step beside rbg:')
+        threefry_entries, sampling_launches, threefry = phase_threefry(
+            dev, smi)
+
     # times at the train cell's encoder 256x256 call (forward with lse), and
     # at the proposal cell's 800x800 call; launches of each main path's run
     # (the captioning trainer's are the report's `launches`)
@@ -5843,7 +6362,16 @@ def main():
             'library_ms': a['library'], 'bound_ms': a['bound'],
             'bound_by': a['bound_by']} for shape, a in app_ms.items()}}
            if kname == KERNEL else {})}
-        for kname, err, t in report],
+        for kname, err, t in report] + [{
+            'route': 'cuda', 'source': SOURCES[e['name']],
+            'replaces': REPLACES[e['name']],
+            'launches': (trainer_launches if e['name'] == prng.KERNEL_DROPOUT
+                         else sampling_launches)[e['name']],
+            **e, 'launches_by_path': {
+                'train_epoch_cap': trainer_launches[e['name']],
+                'sampled_decode': sampling_launches[e['name']]}}
+            for e in threefry_entries],
+        'threefry': threefry,
         'fp32_train_step_ms': train_ms32,
         'main_py_procedures': procedures, 'serving': serving,
         'main_py_options': options, 'unimodal': unimodal,

@@ -1,7 +1,9 @@
 '''The CUDA attention kernels (forward with lse, dQ, dK/dV) against their
 plain PyTorch versions, the checkpoint loaders, the single-video app and a
-MoE train step through them, and the int8 linear's ``torch._int_mm`` product
-and int8 levels, on the card.
+MoE train step through them, the int8 linear's ``torch._int_mm`` product
+and int8 levels, and the threefry kernels (dropout and random bits, bit for
+bit their plain versions, a graph reading its key at each replay), on the
+card.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither JAX nor the test helpers that do, so on a machine with a card and no
@@ -991,6 +993,175 @@ def test_graphs_follow_a_load_and_refuse_a_rebound_tensor_on_card(cuda):
     graphed.ema[name] = graphed.ema[name].clone()
     with pytest.raises(RuntimeError, match='rebound'):
         multistep(graphed, batches)
+
+
+# ---------------------------------------------------------------------------
+# the threefry2x32 kernels (csrc/threefry.cu)
+# ---------------------------------------------------------------------------
+
+def _same_bits(a, b) -> bool:
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.dtype == b.dtype and torch.equal(a.view(view[a.dtype]),
+                                              b.view(view[b.dtype]))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('p', [0.1, 0.5])
+@pytest.mark.parametrize('whole,block,offsets', [
+    ((7,), None, None), ((3, 5, 7), None, None),
+    ((32, 96, 4096), None, None), ((32, 4, 256, 256), None, None),
+    ((32, 96, 4096), (16, 96, 2048), (16, 0, 2048)),
+    ((16, 800, 128), (16, 400, 128), (0, 400, 0)),
+    ((4, 2, 21, 256), (2, 1, 21, 256), (2, 1, 0, 0))])
+def test_threefry_dropout_kernel_matches_plain_on_card(cuda, dtype, p, whole,
+                                                       block, offsets):
+    '''The kernel's block of the mask of ``whole`` (all of it when block is
+    None) against the plain version's whole draw sliced there, bit for
+    bit; one launch.'''
+    from bmt_tpu_torch.ops import prng
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(whole, generator=g, device=cuda).to(dtype) * 10
+    key = prng.Key(prng.key(5, cuda), (3, 7))
+    where = tuple(slice(o, o + b) for o, b in zip(offsets, block)) \
+        if block else tuple(slice(None) for _ in whole)
+    before = prng.dropout_kernel.launches
+    got = prng.dropout_kernel(x[where].contiguous(), key, p, whole,
+                              offsets or (0,) * len(whole))
+    torch.cuda.synchronize()
+    assert prng.dropout_kernel.launches == before + 1
+    want = prng.dropout_reference(x, key, p)[where].contiguous()
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize('whole,block,offsets', [
+    ((64, 10172), None, None), ((64, 10172), (32, 10172), (32, 0)),
+    ((5,), None, None), ((2, 3, 4, 5), (1, 3, 2, 5), (1, 0, 2, 0))])
+def test_threefry_bits32_kernel_matches_plain_on_card(cuda, whole, block,
+                                                      offsets):
+    from bmt_tpu_torch.ops import prng
+    key = prng.Key(prng.key(9, cuda), (1,))
+    got = prng.bits32_kernel(key, whole, block, offsets)
+    want = prng.bits_reference(key, whole, torch.uint32, block, offsets)
+    assert torch.equal(got.to(torch.int64), want.to(torch.int64))
+    # uniform and categorical take the kernel's bits on the card
+    u = prng.uniform(key, whole, block=block, offsets=offsets)
+    cpu = prng.uniform(prng.Key(key.base.cpu(), key.path), whole,
+                       block=block, offsets=offsets)
+    assert torch.equal(u.cpu(), cpu)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_threefry_dropout_backward_on_card(cuda, dtype):
+    '''The backward runs the kernel on the gradient: the forward's mask,
+    g / keep where kept; two launches.'''
+    from bmt_tpu_torch.ops import prng
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(4, 33, 65, generator=g, device=cuda).to(dtype)
+    x.requires_grad_()
+    grad = torch.randn(4, 33, 65, generator=g, device=cuda).to(dtype)
+    key = prng.key(4, cuda)
+    before = prng.dropout_kernel.launches
+    prng.dropout(x, key, 0.1).backward(grad)
+    torch.cuda.synchronize()
+    assert prng.dropout_kernel.launches == before + 2
+    assert _same_bits(x.grad, prng.dropout_reference(grad, key, 0.1))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('conv,offsets,whole', [
+    ((16, 512, 800), (0, 0, 0), None), ((2, 24, 37), (0, 0, 0), None),
+    ((16, 512, 400), (0, 400, 0), (16, 800, 512))])
+def test_threefry_dropout_reads_a_transposed_view_in_place_on_card(
+        cuda, dtype, conv, offsets, whole):
+    '''A proposal head's (B, D, S) conv output dropped through its
+    (B, S, D) view (at the proposal cell's head width, whole and an sp
+    block): no copy, the result has the view's strides, each element
+    keeps the mask of its (B, S, D) index, and the gradient too.'''
+    from bmt_tpu_torch.ops import prng
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(conv, generator=g, device=cuda).to(dtype)
+    key = prng.Key(prng.key(7, cuda), (1, 2))
+    view = x.transpose(1, 2)
+    whole = whole or tuple(view.shape)
+    got = prng.dropout_kernel(view, key, 0.1, whole, offsets)
+    assert got.stride() == view.stride()
+    want = prng.dropout_reference(view.contiguous(), key, 0.1, whole,
+                                  offsets)
+    assert _same_bits(got.contiguous(), want)
+    leaf = x.clone().requires_grad_()
+    grad = torch.randn(conv, generator=g, device=cuda).to(dtype)
+    prng.dropout(leaf.transpose(1, 2), key, 0.1, whole, offsets).backward(
+        grad.transpose(1, 2))
+    assert _same_bits(leaf.grad.transpose(1, 2).contiguous(),
+                      prng.dropout_reference(grad.transpose(1, 2).contiguous(),
+                                             key, 0.1, whole, offsets))
+    strided = x[:, ::2]                 # not dense: copied, then drawn
+    assert _same_bits(
+        prng.dropout_kernel(strided, key, 0.1, strided.shape,
+                            (0, 0, 0)).contiguous(),
+        prng.dropout_reference(strided.contiguous(), key, 0.1))
+
+
+def test_threefry_kernel_reads_its_key_at_each_replay_on_card(cuda):
+    '''Captured in a CUDA graph, the kernel reads the key from its buffer
+    when the graph replays: a new key there gives that key's mask.'''
+    from bmt_tpu_torch.ops import prng
+    x = torch.randn(8, 100, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    buf = prng.key(0, cuda)
+    prng.dropout_kernel(x, prng.Key(buf), 0.3, x.shape, (0, 0))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = prng.dropout_kernel(x, prng.Key(buf, (2,)), 0.3, x.shape,
+                                  (0, 0))
+    for seed in (1, 2):
+        buf.copy_(prng.key(seed, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out, prng.dropout_reference(
+            x, prng.Key(prng.key(seed, cuda), (2,)), 0.3))
+
+
+def test_threefry_kernels_refuse_bad_inputs_on_card(cuda):
+    from bmt_tpu_torch.ops import prng
+    x = torch.ones(4, 4, device=cuda)
+    with pytest.raises(ValueError, match='uint32'):
+        prng.dropout_kernel(x, prng.Key(torch.zeros(2, device=cuda)), 0.1,
+                            x.shape, (0, 0))
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        prng.dropout_kernel(x.half(), prng.Key(prng.key(0, cuda)), 0.1,
+                            x.shape, (0, 0))
+    with pytest.raises(ValueError, match='folds'):
+        prng.dropout_kernel(x, prng.Key(prng.key(0, cuda), tuple(range(9))),
+                            0.1, x.shape, (0, 0))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_rbg_graphed_steps_equal_eager_steps_on_card(cuda, dtype):
+    '''Under prng_impl 'rbg' (the generator path) a graphed bundle is its
+    eager steps bit for bit too, and launches no threefry kernel.'''
+    from bmt_tpu_torch.ops import launches, prng
+    from bmt_tpu_torch.train.steps import init_train_state, make_multistep
+    cells = []
+    for _ in range(2):
+        state, step, batches = _small_cell(cuda, 'cap', dtype)
+        cells.append((init_train_state(state.model, state.optimizer, seed=3,
+                                       ema=True, prng_impl='rbg'), step))
+    (eager, step), (graphed, gstep) = cells
+    multistep = make_multistep(gstep)
+    launches.reset([prng.KERNEL_DROPOUT, prng.KERNEL_BITS32])
+    for _ in range(2):
+        losses = []
+        for b in batches:
+            eager, m = step(eager, b)
+            losses.append(m['loss'])
+        graphed, m = multistep(graphed, batches)
+        torch.testing.assert_close(m['loss'], torch.stack(losses), atol=0,
+                                   rtol=0)
+    assert prng.dropout_kernel.launches == prng.bits32_kernel.launches == 0
+    for a, b in zip(_changed_tensors(eager), _changed_tensors(graphed)):
+        assert torch.equal(a, b)
 
 
 def test_failed_capture_raises_on_card(cuda):
